@@ -3,10 +3,12 @@
 
 Drives the paper's Listing-1 database path through the connector a user
 calls — ``dbsetup`` → bind the ``Tedge``/``TedgeT`` pair → ``put`` →
-row, column and range reads → ``delete`` — on a Graph500 graph, builds the
-hand-written CUDA kernels from ``src/repro_torch/csrc``, shows that the
-path launched each of them, and holds each kernel against its plain
-PyTorch version at the path's shapes.
+row, column and range reads → ``delete`` — on a Graph500 graph, then the
+D4M 2.0 schema with its degree table and the Fig. 4 reads, the legacy
+single-run engine, and Graphulo's SpMV; builds the hand-written CUDA
+kernels from ``src/repro_torch/csrc``, shows that each path launched its
+kernels, and holds each kernel against its plain PyTorch version at the
+path's shapes.
 
     python3 chip_smoke.py [--seed N] [--scale S] [--profile DIR]
 
@@ -20,10 +22,22 @@ Phases (each raises on failure):
      first run once untimed, then twice each in the order kernels,
      PyTorch ops, PyTorch ops, kernels, so that neither path takes every
      first use;
+  4b. the D4M 2.0 schema (``EdgeSchema``: Tedge / TedgeT / TedgeDeg) on the
+     raw triples of the same graph, on both paths: the degree vectors
+     equal ``np.bincount`` of the raw key ids, and the Fig. 4 SV/MV row and
+     column reads of vertices picked by degree equal the host ``Assoc``
+     algebra and a ``NaiveTable`` fed the same triples;
+  4c. the legacy single-run engine (``engine="single"``) on both paths:
+     the phase-3 row-id read, row range and a column read (host scan +
+     filter) equal phase 3's reads;
+  4d. Graphulo ``table_spmv`` on the schema's Tedge, the ELL kernel
+     against the host product, for a one-hot x at the largest out-degree
+     and a random x;
   5. each kernel against its plain version on the card at every input
-     geometry the main path gave it (recorded in phase 3), ranks exactly
-     equal, with kernel / plain / library-call times per launch (CUDA
-     graphs and CUDA events), averaged over the path's launches.
+     geometry its path gave it (recorded in phases 3, 4b, 4c and 4d),
+     ranks and degree sums exactly equal, SpMV within rtol=1e-5, with
+     kernel / plain / library-call times per launch (CUDA graphs and CUDA
+     events), averaged over the path's launches.
 
 The second-to-last line is the kernels JSON; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA device
@@ -37,12 +51,14 @@ import sys
 import time
 from pathlib import Path
 
-# H100 SXM peaks: the HBM rate (NVIDIA data sheet), and the 32-bit integer
-# rate for the rank kernels' compares and adds: 64 int32 add/compare
-# results per clock per SM (CUDA C++ Programming Guide, arithmetic
-# instruction throughput, compute capability 9.0) x 132 SMs x 1.98 GHz
+# H100 SXM peaks: the HBM rate and the float32 rate outside the tensor
+# cores (NVIDIA data sheet), and the 32-bit integer rate for the rank
+# kernels' compares and adds: 64 int32 add/compare results per clock per
+# SM (CUDA C++ Programming Guide, arithmetic instruction throughput,
+# compute capability 9.0) x 132 SMs x 1.98 GHz
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 64 * 132 * 1.98e9
+PEAK_F32_PER_S = 67e12
 
 ROOT = Path(__file__).resolve().parent
 
@@ -131,9 +147,9 @@ def profiled(label, fn, out_dir):
     return result, wall
 
 
-def bound_ms(n_bytes, n_ops):
+def bound_ms(n_bytes, n_ops, peak_ops=PEAK_OPS_PER_S):
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_ops / PEAK_OPS_PER_S * 1e3
+    t_ops = n_ops / peak_ops * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -182,21 +198,19 @@ class Recorder:
 def listing1(graph, use_pallas, cap, stash=None, profile_dir=None):
     """Listing-1 through the connector. Returns (reads, stats, timings,
     kernel launches of the put and the reads). With ``stash`` set, the
-    inputs of every kernel launch are recorded for phase 5. With ``profile_dir`` set, the put and
-    each read run under torch.profiler (their times then include its
-    cost)."""
+    inputs of every kernel launch are recorded for phase 5. With
+    ``profile_dir`` set, the put and each read run under torch.profiler
+    (their times then include its cost)."""
     import contextlib
 
     import numpy as np
-    from repro_torch.db import dbsetup, delete, put
+    from repro_torch.db import delete, put
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.kernels.merge_rank import ops as merge_ops
     from repro_torch.kernels.sorted_search import ops as search_ops
 
     A, verts, sels = graph["A"], graph["verts"], graph["sels"]
-    DB = dbsetup("smoke", num_shards=4, id_capacity=1 << 16,
-                 batch_cap=1 << 15, memtable_cap=1 << 16,
-                 capacity_per_shard=cap, use_pallas=use_pallas)
+    DB = server("smoke", cap, use_pallas)
     # the vertex names are interned in sorted order first (a sorted bulk
     # load), so string ranges map to contiguous ids and run as scans
     DB.encode_keys(np.asarray(verts, dtype=object))
@@ -205,22 +219,11 @@ def listing1(graph, use_pallas, cap, stash=None, profile_dir=None):
     # kernel build, CUDA context and allocator warm-up stay off the clock
     Tedge.table.store.warmup()
 
-    def timed(label, fn):
-        if profile_dir is not None:
-            path = "kernels" if use_pallas else "ops"
-            return profiled(f"{path}_{label}", fn, profile_dir)
-        t0 = clock()
-        result = fn()
-        return result, clock() - t0
-
+    timed = path_timer(profile_dir, "kernels" if use_pallas else "ops")
     with contextlib.ExitStack() as rec:
-        if stash is not None:
-            stash["rank_batched"] = rec.enter_context(
-                Recorder(search_ops, "rank_batched"))
-            stash["row_rank"] = rec.enter_context(
-                Recorder(merge_ops, "row_rank"))
-            stash["pair_rank"] = rec.enter_context(
-                Recorder(merge_ops, "pair_rank"))
+        for module, name in ((search_ops, "rank_batched"),
+                             (merge_ops, "row_rank"), (merge_ops, "pair_rank")):
+            rec.enter_context(record(stash, module, name))
         reset_launches()
         _, t_put = timed("put", lambda: put(Tedge, A))
         reads, times = {}, {"put_s": t_put,
@@ -274,32 +277,229 @@ def make_graph(scale, seed):
     log(f"graph: scale {scale}, {len(r)} edges, {A.nnz()} distinct entries, "
         f"{len(verts)} vertices, capacity_per_shard {cap}, host build "
         f"{time.perf_counter() - t0:.3f} s")
-    return {"A": A, "verts": verts, "sels": sels}, cap
+    # the raw triples (duplicates included) for the schema phases, their
+    # key ids (verts is sorted and interned first, so id = position), and
+    # the last-wins Assoc the edge table must equal
+    raw_ids = (np.searchsorted(verts, r), np.searchsorted(verts, c))
+    return {"A": A, "verts": verts, "sels": sels, "raw": (r, c, v),
+            "raw_ids": raw_ids, "last": Assoc(r, c, v, func="last")}, cap
+
+
+def server(name, cap, use_pallas, **kw):
+    """A server in the phase-3 configuration (``kw`` overrides fields)."""
+    from repro_torch.db import dbsetup
+    conf = dict(num_shards=4, id_capacity=1 << 16, batch_cap=1 << 15,
+                memtable_cap=1 << 16, capacity_per_shard=cap,
+                use_pallas=use_pallas)
+    conf.update(kw)
+    return dbsetup(name, **conf)
+
+
+def record(stash, module, name):
+    """A Recorder for ``module.name`` when phase 5 wants its inputs."""
+    import contextlib
+    if stash is None:
+        return contextlib.nullcontext()
+    stash[name] = Recorder(module, name)
+    return stash[name]
+
+
+def timed_call(fn):
+    t0 = clock()
+    result = fn()
+    return result, clock() - t0
+
+
+def path_timer(profile_dir, tag):
+    """``timed(label, fn)`` -> (result, seconds): host clock, or under
+    torch.profiler (its cost included) when ``profile_dir`` is set."""
+    def timed(label, fn):
+        if profile_dir is not None:
+            return profiled(f"{tag}_{label}", fn, profile_dir)
+        return timed_call(fn)
+    return timed
+
+
+# ------------------------------------------------------------------ phase 4b
+def fig4(graph, cap, use_pallas, naive, seed, stash=None, profile_dir=None):
+    """The D4M 2.0 schema on the raw triples, then the Fig. 4 reads
+    (``benchmarks/query_bench.py::fig4``): for degree targets {1, 10, 100,
+    1000} x {out: row read, in: column read}, one vertex (SV) and five (MV)
+    picked by ``vertices_with_degree``, seeded. Returns (schema, server,
+    launches of the put, times)."""
+    import numpy as np
+    from repro_torch.db import EdgeSchema, kvstore
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    verts, (r, c, v) = graph["verts"], graph["raw"]
+    DB = server("fig4", cap, use_pallas)
+    DB.encode_keys(np.asarray(verts, dtype=object))
+    g = EdgeSchema(DB, "g")
+    g.pair.table.store.warmup()
+    timed = path_timer(profile_dir, "fig4_" + ("kernels" if use_pallas
+                                               else "ops"))
+    with record(stash, kvstore, "segment_sum"):
+        reset_launches()
+        _, t_put = timed("put", lambda: g.put_triple(r, c, v))
+        launches = dict(LAUNCHES)
+    if use_pallas and launches["segment_sum"] != 2:
+        raise AssertionError(f"phase 4b: segment_sum launches {launches}")
+    if not use_pallas and any(launches.values()):
+        raise AssertionError(f"phase 4b launched a hand kernel: {launches}")
+    n = len(verts)
+    for k, ids in (("out_deg", graph["raw_ids"][0]),
+                   ("in_deg", graph["raw_ids"][1])):
+        deg = getattr(g.deg, k).cpu().numpy()
+        want = np.bincount(ids, minlength=n).astype(np.float32)
+        if not (np.array_equal(deg[:n], want) and not deg[n:].any()):
+            raise AssertionError(f"phase 4b: {k} differs from the bincount")
+    times = {"put_s": t_put, "triples_per_s": len(r) / t_put}
+    rng = np.random.default_rng(seed)
+    last, summed = graph["last"], graph["A"]
+    for target in (1, 10, 100, 1000):
+        for kind, axis in (("out", "R"), ("in", "C")):
+            vs = g.deg.vertices_with_degree(target, kind=kind)
+            if len(vs) == 0:
+                log(f"phase 4b: no vertex of {kind}-degree ~{target}")
+                continue
+            single = str(rng.choice(vs)) + ","
+            multi = "".join(str(x) + "," for x in rng.choice(
+                vs, size=min(5, len(vs)), replace=False))
+            for qname, q in (("SV", single), ("MV", multi)):
+                key = (q, ":") if axis == "R" else (":", q)
+                label = f"deg{target}_{qname}{axis}"
+                got, times[label + "_s"] = timed(label, lambda: g[key])
+                if got.nnz() == 0:
+                    raise AssertionError(f"phase 4b {label}: empty read")
+                same_triples(got, last[key], f"phase 4b {label} vs Assoc")
+                nv = naive[key]
+                same_triples(nv, summed[key], f"phase 4b {label} naive")
+                if not (np.array_equal(np.sort(nv.row), np.sort(got.row))
+                        and np.array_equal(np.sort(nv.col),
+                                           np.sort(got.col))):
+                    raise AssertionError(f"phase 4b {label}: naive keys")
+    return g, DB, launches, times
+
+
+# ------------------------------------------------------------------ phase 4c
+def single_engine(graph, cap, use_pallas, lsm_reads, stash=None,
+                  profile_dir=None):
+    """The legacy single-run engine, bulk-load sized as in
+    ``benchmarks/ingest_bench.py``: the phase-3 put, then the row-id read,
+    the row range and a column read (host scan + filter on this engine).
+    Returns (times, launches)."""
+    import numpy as np
+    from repro_torch.db import delete, put
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.sorted_search import ops as search_ops
+
+    A, verts, sels = graph["A"], graph["verts"], graph["sels"]
+    batch_cap = 1 << 15
+    DB = server("single", cap, use_pallas, engine="single",
+                memtable_cap=max(cap, 4 * batch_cap))
+    DB.encode_keys(np.asarray(verts, dtype=object))
+    T = DB["Tsingle"]
+    T.store.warmup()
+    timed = path_timer(profile_dir, "single_" + ("kernels" if use_pallas
+                                                 else "ops"))
+    with record(stash, search_ops, "rank"):
+        reset_launches()
+        _, t_put = timed("put", lambda: put(T, A))
+        times = {"put_s": t_put, "ingest_entries_per_s": A.nnz() / t_put}
+        for name in ("row_ids", "row_range", "col_ids"):
+            sel = sels[name]
+            got, times[name + "_s"] = timed(name, lambda: T[sel])
+            same_triples(got, lsm_reads[name], f"phase 4c {name} vs LSM")
+            same_triples(got, A[sel], f"phase 4c {name} vs Assoc")
+        launches = dict(LAUNCHES)
+    st = T.store.engine_stats()
+    if st["flushes"] < 1:
+        raise AssertionError(f"phase 4c: no flush ({st})")
+    if use_pallas and not (launches["rank"] > 0 and launches["pair_rank"] > 0):
+        raise AssertionError(f"phase 4c: rank / pair_rank never launched "
+                             f"({launches})")
+    if not use_pallas and any(launches.values()):
+        raise AssertionError(f"phase 4c launched a hand kernel: {launches}")
+    delete(T)
+    return times, launches
+
+
+# ------------------------------------------------------------------ phase 4d
+def graphulo_spmv(g, DB, seed, stash=None):
+    """``table_spmv`` on the schema's Tedge: the ELL kernel against the
+    host COO product, exactly for a one-hot x at the largest out-degree
+    vertex, within rtol=1e-5 for a random x. Returns (times, launches)."""
+    import numpy as np
+    from repro_torch.db import graphulo
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    n = len(DB.keydict)
+    r = DB["g_Tedge"].store.scan()[0]
+    counts = np.bincount(r, minlength=n)
+    k = int(counts.max())
+    log(f"phase 4d: ELL {n} rows x {k} slots, {8 * n * k} bytes of "
+        f"cols + vals for {len(r)} entries")
+    hub = int(np.argmax(g.deg.out_deg[:n].cpu().numpy()))
+    one_hot = np.zeros(n)
+    one_hot[hub] = 1.0
+    x_rand = np.random.default_rng(seed).random(n)
+    times = {}
+    with record(stash, graphulo, "spmv_ell"):
+        reset_launches()
+        for label, x in (("one_hot", one_hot), ("random", x_rand)):
+            yk, times[label + "_kernel_s"] = timed_call(
+                lambda: graphulo.table_spmv(g.pair, x, use_pallas=True))
+            yh, times[label + "_host_s"] = timed_call(
+                lambda: graphulo.table_spmv(g.pair, x, use_pallas=False))
+            m = len(yh)
+            if yk.shape != (n,) or yk[m:].any():
+                raise AssertionError(f"phase 4d {label}: shape or tail")
+            if label == "one_hot":
+                if not np.array_equal(yk[:m], yh):
+                    raise AssertionError("phase 4d one_hot: not exact")
+            else:
+                np.testing.assert_allclose(yk[:m], yh, rtol=1e-5,
+                                           err_msg="phase 4d random")
+        launches = dict(LAUNCHES)
+    if launches["spmv_ell"] != 2:
+        raise AssertionError(f"phase 4d: spmv_ell launches {launches}")
+    return times, launches
 
 
 # ------------------------------------------------------------------ phase 5
 def kernel_checks(stash, launches):
-    """Each kernel against its plain version at every input geometry the
-    main path gave it (recorded in phase 3). Every time is the mean per
-    launch over the path's launches, so ms x launches is the kernel's
-    device time on the path."""
+    """Each kernel against its plain version at every input geometry its
+    path gave it (recorded in phases 3, 4b, 4c and 4d). Every time is the
+    mean per launch over the path's launches, so ms x launches is the
+    kernel's device time on the path."""
     import numpy as np
     import torch
     from repro_torch.kernels.common import I32_MAX
     from repro_torch.kernels.merge_rank import (pair_rank, pair_rank_ref,
                                                 row_rank, row_rank_ref)
-    from repro_torch.kernels.sorted_search import (rank_batched,
-                                                   rank_batched_ref)
+    from repro_torch.kernels.segment_reduce import (segment_sum,
+                                                    segment_sum_ref)
+    from repro_torch.kernels.sorted_search import (rank, rank_batched,
+                                                   rank_batched_ref, rank_ref)
+    from repro_torch.kernels.spmv import spmv_ell, spmv_ell_ref
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(1)
     out = []
 
     def check(name, got, want):
+        """Ranks and degree sums (integer-valued) must be exactly equal."""
         if not torch.equal(got, want):
             bad = int((got != want).sum())
-            raise AssertionError(f"{name}: {bad} ranks differ from plain")
-        return float((got.long() - want.long()).abs().max())
+            raise AssertionError(f"{name}: {bad} results differ from plain")
+        return float((got.double() - want.double()).abs().max())
+
+    def check_close(name, got, want):
+        """SpMV: float atomics / the warp reduction add in another order
+        than the plain row sum, so within rtol=1e-5."""
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6,
+                                   msg=lambda m: f"{name}: {m}")
+        return float((got.double() - want.double()).abs().max())
 
     def steps(n):  # probe steps of a binary search over n entries
         return max(1, math.ceil(math.log2(n + 1)))
@@ -322,6 +522,25 @@ def kernel_checks(stash, launches):
         return (4 * (2 * tr.numel() + 3 * qr.numel()),
                 4 * qr.numel() * steps(tr.shape[1]))
 
+    def rank_cost(args, kw):
+        tab, qq = args[:2]
+        return search_cost((tab[None], qq), kw)
+
+    # segment sum: ids and values read, the [S] sums written; one float add
+    # per entry (at the float32 rate, below)
+    def segsum_cost(args, kw):
+        ids = args[0]
+        return 8 * ids.numel() + 4 * kw["n_segments"], ids.numel()
+
+    # ELL SpMV: every slot's column is read (it says whether the slot is a
+    # pad), but a value only where the slot holds an entry of this run's
+    # ELL; x read and y written once; a multiply and an add per entry
+    def spmv_cost(args, kw):
+        cols, _, x = args
+        nnz = int(((cols >= 0) & (cols < x.numel())).sum())
+        return (4 * (cols.numel() + nnz + x.numel() + cols.shape[0]),
+                2 * nnz)
+
     # one PyTorch call computing the same function
     def search_lib(args, kw):
         tabs, qq = args
@@ -336,20 +555,57 @@ def kernel_checks(stash, launches):
         return lambda: torch.searchsorted(tkey, qkey, right=not kw["strict"],
                                           out_int32=True)
 
-    specs = (  # name, kernel, plain, cost, library, plain timing reps
+    def rank_lib(args, kw):
+        tab, qq = args
+        return lambda: torch.searchsorted(tab, qq, right=not kw["strict"],
+                                          out_int32=True)
+
+    def segsum_lib(args, kw):  # index_add_ on the valid ids (off the clock)
+        ids, vals = args
+        n_seg = kw["n_segments"]
+        ok = (ids >= 0) & (ids < n_seg)
+        vi, vv = ids[ok].long(), vals[ok]
+        return lambda: torch.zeros(n_seg, device=dev).index_add_(0, vi, vv)
+
+    def spmv_lib(args, kw):  # cuSPARSE CSR product (CSR built off the clock)
+        cols, vals, x = args
+        ok = cols >= 0
+        crow = torch.zeros(cols.shape[0] + 1, dtype=torch.int64, device=dev)
+        crow[1:] = ok.sum(1).cumsum(0)
+        a = torch.sparse_csr_tensor(crow, cols[ok].long(), vals[ok],
+                                    size=(cols.shape[0], x.shape[0]))
+        xc = x[:, None]
+        return lambda: a @ xc
+
+    # name, kernel, plain, cost, library, plain timing reps, check, op
+    # peak, library timed eagerly (cuSPARSE is not captured in a graph)
+    specs = (
         ("rank_batched", rank_batched, rank_batched_ref, search_cost,
-         search_lib, (20, 3), "src/repro_torch/csrc/rank_batched.cu",
+         search_lib, (20, 3), check, PEAK_OPS_PER_S, False,
+         "src/repro_torch/csrc/rank_batched.cu",
          "src/repro/kernels/sorted_search/kernel.py:66"),
-        ("row_rank", row_rank, row_rank_ref, row_cost, None, (20, 3),
-         "src/repro_torch/csrc/row_rank.cu",
+        ("row_rank", row_rank, row_rank_ref, row_cost, None, (20, 3), check,
+         PEAK_OPS_PER_S, False, "src/repro_torch/csrc/row_rank.cu",
          "src/repro/kernels/merge_rank/kernel.py:67"),
         # the plain pair rank is a chunked quadratic count (up to ~1e11
         # compares at a level run): one timed call, no warm-up
         ("pair_rank", pair_rank, pair_rank_ref, pair_cost, pair_lib, (1, 0),
-         "src/repro_torch/csrc/pair_rank.cu",
+         check, PEAK_OPS_PER_S, False, "src/repro_torch/csrc/pair_rank.cu",
          "src/repro/kernels/merge_rank/kernel.py:36"),
+        # the plain 1-D rank is the compare count over the whole tablet
+        ("rank", rank, rank_ref, rank_cost, rank_lib, (3, 1), check,
+         PEAK_OPS_PER_S, False, "src/repro_torch/csrc/rank.cu",
+         "src/repro/kernels/sorted_search/kernel.py:30"),
+        ("segment_sum", segment_sum, segment_sum_ref, segsum_cost,
+         segsum_lib, (20, 3), check, PEAK_F32_PER_S, False,
+         "src/repro_torch/csrc/segment_sum.cu",
+         "src/repro/kernels/segment_reduce/kernel.py:33"),
+        ("spmv_ell", spmv_ell, spmv_ell_ref, spmv_cost, spmv_lib, (3, 1),
+         check_close, PEAK_F32_PER_S, True, "src/repro_torch/csrc/spmv_ell.cu",
+         "src/repro/kernels/spmv/kernel.py:34"),
     )
-    for name, fn, ref, cost, lib, (p_reps, p_warm), src, tpu in specs:
+    for (name, fn, ref, cost, lib, (p_reps, p_warm), chk, peak, lib_eager,
+         src, tpu) in specs:
         calls = stash[name].calls
         n_calls = sum(c for c, _ in calls.values())
         if n_calls != launches[name]:
@@ -359,15 +615,16 @@ def kernel_checks(stash, launches):
                                       0.0)
         ops_by = [0.0, 0.0]
         for cnt, (args, kw) in calls.values():
-            err = max(err, check(name, fn(*args, **kw), ref(*args, **kw)))
+            err = max(err, chk(name, fn(*args, **kw), ref(*args, **kw)))
             w = cnt / n_calls
             tot["ms"] += w * graph_ms(lambda: fn(*args, **kw), 50)
             tot["eager"] += w * cuda_ms(lambda: fn(*args, **kw), 50)
             tot["plain"] += w * cuda_ms(lambda: ref(*args, **kw), p_reps,
                                         warm=p_warm)
             if lib is not None:
-                tot["lib"] += w * graph_ms(lib(args, kw), 50)
-            b, by = bound_ms(*cost(args, kw))
+                timer = cuda_ms if lib_eager else graph_ms
+                tot["lib"] += w * timer(lib(args, kw), 50)
+            b, by = bound_ms(*cost(args, kw), peak_ops=peak)
             tot["bound"] += w * b
             ops_by[by == "operations"] += w * b
         geos = sorted(calls, key=lambda g: -calls[g][0])
@@ -458,8 +715,8 @@ def main(argv=None):
     for k, v in tot.items():
         if v <= 0:
             raise AssertionError(f"phase 3: {k} = {v}")
-    for k, v in launches.items():
-        if v <= 0:
+    for k in ("rank_batched", "row_rank", "pair_rank"):
+        if launches[k] <= 0:
             raise AssertionError(f"phase 3: kernel {k} never launched")
     log("phase 3 (use_pallas=True): " + json.dumps(
         {"times": times, "engine": tot, "launches": launches,
@@ -485,6 +742,43 @@ def main(argv=None):
             for key in reads:
                 same_triples(traced[0][key], reads[key],
                              f"traced use_pallas={use_pallas} {key}")
+
+    # 4b-4d. the D4M 2.0 schema and the Fig. 4 reads, Graphulo's SpMV on
+    # the schema's Tedge, and the legacy single-run engine, each on both
+    # paths; each path's kernel launches are counted from 0 around it
+    from repro_torch.db import NaiveTable
+    naive = NaiveTable("naive")
+    _, t_naive = timed_call(lambda: naive.put_triple(*graph["raw"]))
+    log(f"phase 4b: NaiveTable put of {len(graph['raw'][0])} triples "
+        f"{t_naive:.3f} s")
+    for use_pallas in (False, True):
+        g, DB, fl, ft = fig4(graph, cap, use_pallas, naive, args.seed,
+                             stash if use_pallas else None)
+        log(f"phase 4b (schema, use_pallas={use_pallas}): "
+            + json.dumps({"times": ft, "launches": fl}))
+        if use_pallas:
+            launches["segment_sum"] = fl["segment_sum"]
+            gt, gl = graphulo_spmv(g, DB, args.seed, stash)
+            launches["spmv_ell"] = gl["spmv_ell"]
+            log("phase 4d (graphulo): " + json.dumps(
+                {"times": gt, "launches": gl}))
+        g.delete()
+        if DB.ls():
+            raise AssertionError(f"tables left after delete: {DB.ls()}")
+    for use_pallas in (True, False):
+        st, sl = single_engine(graph, cap, use_pallas, reads,
+                               stash if use_pallas else None)
+        if use_pallas:
+            launches["rank"] = sl["rank"]
+        log(f"phase 4c (single engine, use_pallas={use_pallas}): "
+            + json.dumps({"times": st, "launches": sl}))
+    if args.profile is not None:  # one more run of each path, traced
+        for use_pallas in (True, False):
+            g, DB, _, _ = fig4(graph, cap, use_pallas, naive, args.seed,
+                               profile_dir=args.profile)
+            g.delete()
+            single_engine(graph, cap, use_pallas, reads,
+                          profile_dir=args.profile)
 
     # 5. kernels against their plain versions
     kernels = kernel_checks(stash, launches)

@@ -420,19 +420,20 @@ class DBserver:
             if store is None or store._closed:
                 continue
             store.refresh_health_gauges(bloom_probes=bloom_probes)
-            runs = store._runs
-            geometry[name] = {
-                "engine": store.engine,
-                "num_shards": store.S,
-                "memtable_cap": store.mem_cap,
-                "memtable_n": [int(x) for x in store._mem_n],
-                "stats": store.engine_stats(),
-                "level_caps": list(runs.level_caps),
-                "l0_slots": runs.K0,
-                "resident_runs": [runs.resident_runs(s)
-                                  for s in range(store.S)],
-                "level_entries_per_shard": [
-                    [int(n) for n in lv["n"]] for lv in runs.levels]}
+            geo = {"engine": store.engine,
+                   "num_shards": store.S,
+                   "memtable_cap": store.mem_cap,
+                   "memtable_n": [int(x) for x in store._mem_n],
+                   "stats": store.engine_stats()}
+            if store.engine == "lsm":
+                runs = store._runs
+                geo["level_caps"] = list(runs.level_caps)
+                geo["l0_slots"] = runs.K0
+                geo["resident_runs"] = [runs.resident_runs(s)
+                                        for s in range(store.S)]
+                geo["level_entries_per_shard"] = [
+                    [int(n) for n in lv["n"]] for lv in runs.levels]
+            geometry[name] = geo
         extra = {
             "store_config": dataclasses.asdict(self.config),
             "device": str(self.device),

@@ -1,10 +1,16 @@
 """Sharded sorted key-value store — the Accumulo analogue, on PyTorch.
 
 Each *tablet* holds (row_id, col_id) -> value entries on one shard,
-range-partitioned by row id (pre-split tablets). The storage engine is the
-leveled LSM engine (``repro_torch.db.lsm``): memtable flushes are
-O(memtable), major compactions k-way merge runs with the pair-rank kernel,
-and reads go through bloom filters + fence pointers without flushing.
+range-partitioned by row id (pre-split tablets). Two storage engines:
+
+  * ``engine="lsm"`` (default) — leveled sorted runs
+    (``repro_torch.db.lsm``): memtable flushes are O(memtable), major
+    compactions k-way merge runs with the pair-rank kernel, and reads go
+    through bloom filters + fence pointers without flushing.
+  * ``engine="single"`` — one fixed-capacity sorted run per shard; every
+    flush merges the memtable into it (pair-rank kernel). Point reads are
+    rank searches (the 1-D rank kernel) + bounded gathers. Kept as the A/B
+    baseline of the paper-era benchmarks.
 
 Duplicate keys combine with Accumulo iterator semantics (last-wins
 versioning, sum/min/max combiners — ``db.iterators``). ``ShardedTable``
@@ -20,6 +26,9 @@ import numpy as np
 import torch
 
 from ..kernels.common import I32_MAX, resolve_device
+from ..kernels.merge_rank import merge_sorted, merge_sorted_ref
+from ..kernels.segment_reduce import segment_sum
+from ..kernels.sorted_search import sorted_search
 from ..obs import default_registry, default_tracer
 
 COMBINERS = ("last", "sum", "min", "max")
@@ -83,6 +92,86 @@ def _dedup_combine(mr, mc, mv, combiner: str):
     return valid & new, agg.gather(-1, seg)
 
 
+@dataclasses.dataclass
+class Tablet:
+    """One sorted run per shard (the legacy engine's storage). Fields are
+    1-D ``[cap]``, or stacked ``[S, cap]`` for S shards (counts ``[S]``)."""
+    rows: torch.Tensor  # int32; valid prefix sorted lex by (row, col); pad I32_MAX
+    cols: torch.Tensor  # int32
+    vals: torch.Tensor  # float32
+    n: torch.Tensor     # int32 valid count
+
+
+def tablet_empty(capacity: int, shards: int = None,
+                 device: Union[str, torch.device] = "cuda") -> Tablet:
+    """An empty tablet of ``capacity``; ``shards`` stacks S of them."""
+    dev = resolve_device(device)
+    shape = (capacity,) if shards is None else (shards, capacity)
+    return Tablet(
+        rows=torch.full(shape, I32_MAX, dtype=torch.int32, device=dev),
+        cols=torch.full(shape, I32_MAX, dtype=torch.int32, device=dev),
+        vals=torch.zeros(shape, dtype=torch.float32, device=dev),
+        n=torch.zeros(shape[:-1], dtype=torch.int32, device=dev),
+    )
+
+
+def tablet_insert(t: Tablet, br, bc, bv, combiner: str = "last",
+                  use_pallas: bool = True) -> Tablet:
+    """Minor compaction: merge a batch (pads = I32_MAX keys) into the run.
+
+    ``t`` is 1-D with a batch ``[b]``, or stacked ``[S, cap]`` with
+    batches ``[S, b]``: the merge ranks every shard in one pair-rank launch
+    per direction (the JAX engine ``vmap``s this function over shards).
+    Returns the new tablet; ``new.n`` may exceed capacity — the caller
+    MUST check for overflow (Accumulo back-pressure analogue).
+    """
+    from .lsm.engine import _compact
+    # stable lexsort of the batch by (row, col): keys are non-negative
+    # int32 with I32_MAX pads, so one int64 key keeps the age order
+    key = (br.to(torch.int64) << 32) | bc.to(torch.int64)
+    _, order = torch.sort(key, dim=-1, stable=True)
+    br, bc, bv = br.gather(-1, order), bc.gather(-1, order), bv.gather(-1, order)
+    merge = merge_sorted if use_pallas else merge_sorted_ref
+    mr, mc, mv = merge(t.rows, t.cols, t.vals, br, bc, bv)
+    keep, out_v = _dedup_combine(mr, mc, mv, combiner)
+    rr, cc, vv, n = _compact(keep, mr, mc, out_v, t.rows.shape[-1])
+    return Tablet(rows=rr, cols=cc, vals=vv, n=n.to(torch.int32))
+
+
+def tablet_query_rows(t: Tablet, q: torch.Tensor, max_return: int,
+                      use_pallas: bool = True):
+    """Point row queries: all (col, val) for each row id in ``q``.
+
+    Returns (cols[Q, max_return], vals[Q, max_return], valid[Q, max_return],
+    counts[Q]); counts may exceed max_return (the caller re-queries with a
+    larger bound — Accumulo batch-scanner buffer semantics).
+    """
+    q = q.to(torch.int32)
+    if use_pallas:
+        start = sorted_search(t.rows, q, "left")
+        end = sorted_search(t.rows, q, "right")
+    else:
+        start = torch.searchsorted(t.rows, q, out_int32=True)
+        end = torch.searchsorted(t.rows, q, right=True, out_int32=True)
+    cap = t.rows.shape[0]
+    idx = start[:, None] + torch.arange(max_return, dtype=torch.int32,
+                                        device=q.device)[None, :]
+    ok = idx < end[:, None]
+    idxc = idx.clamp(0, cap - 1).long()
+    return t.cols[idxc], t.vals[idxc], ok, end - start
+
+
+def degree_update(deg: torch.Tensor, ids: torch.Tensor, weights: torch.Tensor,
+                  use_pallas: bool = True) -> torch.Tensor:
+    """Combiner-iterator analogue: accumulate counts into a dense degree
+    row. Ids < 0 (and past the row) are dropped."""
+    if use_pallas:
+        return deg + segment_sum(ids, weights, n_segments=deg.shape[0])
+    valid = (ids >= 0) & (ids < deg.shape[0])
+    return deg.index_add(0, torch.where(valid, ids, 0).long(),
+                         torch.where(valid, weights.to(deg.dtype), 0.0))
+
+
 # --------------------------------------------------------------------------
 # Range partitioning (pre-split tablets)
 # --------------------------------------------------------------------------
@@ -116,7 +205,6 @@ def _memtable_append_flat(mem_r, mem_c, mem_v, counts, dest, slot, r, c, v):
 
 # what each deferred option waits for (ROADMAP, Queue 1)
 _LATER = {
-    "engine='single'": "Queue 1 item 4 (legacy single-run engine)",
     "wal_dir": "Queue 1 item 5 (durability)",
     "dynamic_tablets": "Queue 1 item 7 (dynamic tablets)",
     "fused_reads=False": "Queue 1 item 3 (per-run read path)",
@@ -132,11 +220,17 @@ class ShardedTable:
     """Stacked-tablet driver: S tablet servers' state on one device.
 
     Writes land in a per-shard *memtable* (unsorted fixed buffer on the
-    device, mirrored on the host); a minor compaction happens only when a
-    shard's memtable would overflow. Under it sits the leveled LSM engine
-    (``db.lsm.LSMRuns``): flushes cost O(memtable), major compactions
-    k-way merge runs, and reads serve from memtable + runs through bloom
-    filters and fence pointers WITHOUT flushing.
+    device); a minor compaction happens only when a shard's memtable would
+    overflow. Two storage engines sit under that memtable:
+
+      * ``engine="lsm"`` (default) — the leveled LSM engine
+        (``db.lsm.LSMRuns``): flushes cost O(memtable), major compactions
+        k-way merge runs, and reads serve from memtable + runs (mirrored
+        on the host) through bloom filters and fence pointers WITHOUT
+        flushing.
+      * ``engine="single"`` — the legacy single-sorted-run tablet: every
+        flush merges the memtable into one O(capacity) run; reads flush
+        the queried shards first.
 
     ``device`` (default ``"cuda"``) holds the memtables and runs; without a
     card, construction raises unless ``device="cpu"`` is given.
@@ -168,15 +262,17 @@ class ShardedTable:
             if v is not None}
         if overrides:
             cfg = dataclasses.replace(cfg, **overrides)
-        if cfg.engine == "single":
-            raise _not_yet("engine='single'")
-        if cfg.engine != "lsm":
+        if cfg.engine not in ("lsm", "single"):
             raise ValueError(f"unknown engine {cfg.engine!r}")
+        if cfg.transpose and cfg.engine != "lsm":
+            raise ValueError("transpose pairs require engine='lsm'")
+        if cfg.dynamic_tablets and cfg.engine != "lsm":
+            raise ValueError("dynamic_tablets requires engine='lsm'")
         if wal_dir is not None:
             raise _not_yet("wal_dir")
         if cfg.dynamic_tablets:
             raise _not_yet("dynamic_tablets")
-        if not cfg.fused_reads:
+        if cfg.engine == "lsm" and not cfg.fused_reads:
             raise _not_yet("fused_reads=False")
         self.device = resolve_device(device)
         self.config = cfg
@@ -242,16 +338,44 @@ class ShardedTable:
                      + self._c_shard_scan + self._h_shard_query
                      + self._h_shard_scan):
             inst.reset()
-        from .lsm.bloom import BITS_PER_KEY, NUM_HASHES
-        from .lsm.engine import LSMRuns
-        self._runs = LSMRuns(
-            S, cfg.capacity_per_shard, self.mem_cap, combiner,
-            cfg.use_pallas, l0_slots=cfg.l0_slots, fanout=cfg.fanout,
-            bloom_bits_per_key=(BITS_PER_KEY if bloom_bits_per_key is None
-                                else bloom_bits_per_key),
-            bloom_hashes=(NUM_HASHES if bloom_hashes is None
-                          else bloom_hashes),
-            id_capacity=cfg.id_capacity, name=name, device=self.device)
+        if self.engine == "lsm":
+            from .lsm.bloom import BITS_PER_KEY, NUM_HASHES
+            from .lsm.engine import LSMRuns
+            self._runs = LSMRuns(
+                S, cfg.capacity_per_shard, self.mem_cap, combiner,
+                cfg.use_pallas, l0_slots=cfg.l0_slots, fanout=cfg.fanout,
+                bloom_bits_per_key=(BITS_PER_KEY if bloom_bits_per_key is None
+                                    else bloom_bits_per_key),
+                bloom_hashes=(NUM_HASHES if bloom_hashes is None
+                              else bloom_hashes),
+                id_capacity=cfg.id_capacity, name=name, device=self.device)
+            self.tablets = None
+        else:
+            self._runs = None
+            self.tablets = tablet_empty(self.cap, shards=S,
+                                        device=self.device)
+            # the LSM engine's counter schema (zeros where an op doesn't
+            # apply), so A/B stats line up
+            from .lsm.engine import STAT_KEYS
+            self._ctr_single = {
+                k: self._reg.counter("lsm_" + k, table=name)
+                for k in STAT_KEYS}
+            self._c_shard_flush_single = [
+                self._reg.counter("lsm_shard_flushes", table=name, shard=s)
+                for s in range(S)]
+            self._h_flush_single = self._reg.histogram(
+                "db_op_latency_s", table=name, op="flush")
+            # retrace/write-amp series parity with the LSM engine (always
+            # zero here)
+            single_extra = [
+                self._reg.counter("lsm_retraces", table=name, op="query"),
+                self._reg.counter("lsm_retraces", table=name, op="scan"),
+                self._reg.counter("lsm_flush_entries", table=name),
+                self._reg.counter("lsm_compact_entries", table=name)]
+            for inst in (list(self._ctr_single.values())
+                         + self._c_shard_flush_single + single_extra
+                         + [self._h_flush_single]):
+                inst.reset()
         # device memtables [S, m + 1]: the spare column takes dropped
         # appends (see _memtable_append_flat); readers see [:, :m]
         self._mem_r = torch.full((S, self.mem_cap + 1), I32_MAX,
@@ -260,7 +384,7 @@ class ShardedTable:
         self._mem_v = torch.zeros((S, self.mem_cap + 1), dtype=torch.float32,
                                   device=self.device)
         self._mem_n = np.zeros((S,), np.int64)
-        # host mirror of memtable appends (per shard): reads serve the
+        # host mirror of memtable appends (per shard): LSM reads serve the
         # unflushed tail without pulling device buffers
         self._mem_mirror = [[] for _ in range(S)]
         # (row, col)-sorted + combiner-deduped mirror per shard, computed
@@ -274,6 +398,7 @@ class ShardedTable:
         if self.t_store is not None:
             self.t_store.close()
         self._runs = None
+        self.tablets = None
         self._mem_r = self._mem_c = self._mem_v = None
         self._mem_n = np.zeros((self.S,), np.int64)
         self._closed = True
@@ -290,28 +415,44 @@ class ShardedTable:
         """Run the flush/compaction path once on the current state without
         mutating it (builds the kernels before a timed window)."""
         self._check_open()
-        self._runs.warmup(*self._mem_views())
+        if self.engine == "lsm":
+            self._runs.warmup(*self._mem_views())
+        else:
+            tablet_insert(self.tablets, *self._mem_views(), self.combiner,
+                          self.use_pallas)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
         if self.t_store is not None:
             self.t_store.warmup()
 
     def warm_reads(self) -> None:
         """Run the read path's two serving shapes — the point bucket and
         the ``fused_q_limit`` query tile — once against the current state,
-        on spread-out ids so that every shard dispatches."""
+        on spread-out ids so that every shard dispatches. The legacy engine
+        has no batch-size-independent read shape: it runs a point read."""
         self._check_open()
         self.query_rows(np.zeros(1, np.int32))  # point bucket
-        probe = np.linspace(0, self.id_capacity - 1,
-                            2 * self.S * 8 + 2).astype(np.int32)
-        self.query_rows(np.unique(probe))   # > 8 ids/shard: the tile
+        if self.engine == "lsm":
+            probe = np.linspace(0, self.id_capacity - 1,
+                                2 * self.S * 8 + 2).astype(np.int32)
+            self.query_rows(np.unique(probe))   # > 8 ids/shard: the tile
         if self.t_store is not None:  # column selectors serve from A^T
             self.t_store.warm_reads()
 
     def engine_stats(self) -> dict:
         """Observability: flush/compaction counts and bloom skip rates,
-        in the JAX engine's counter schema."""
-        st = dict(self._runs.stats)
-        st["l0_used"] = [int(x) for x in self._runs.l0_used]
-        st["level_entries"] = [int(lv["n"].sum()) for lv in self._runs.levels]
+        in the JAX engine's counter schema. Both engines emit the SAME
+        schema (the single-run engine reports zeros where an op doesn't
+        apply)."""
+        if self.engine == "lsm":
+            st = dict(self._runs.stats)
+            st["l0_used"] = [int(x) for x in self._runs.l0_used]
+            st["level_entries"] = [int(lv["n"].sum())
+                                   for lv in self._runs.levels]
+            return st
+        st = {k: int(c.value) for k, c in self._ctr_single.items()}
+        st["l0_used"] = [0] * self.S
+        st["level_entries"] = []
         return st
 
     def refresh_health_gauges(self, bloom_probes: int = 0) -> None:
@@ -323,13 +464,30 @@ class ShardedTable:
         for s in range(self.S):
             self._reg.gauge("db_memtable_occupancy", table=self.name,
                             shard=s).set(int(self._mem_n[s]) / self.mem_cap)
-        self._runs.refresh_health_gauges(bloom_probes=bloom_probes)
+        if self.engine == "lsm":
+            self._runs.refresh_health_gauges(bloom_probes=bloom_probes)
+        else:
+            # series parity with the LSM engine: one sorted run per shard
+            # once flushed, never any compaction debt
+            n_host = self.tablets.n.cpu().numpy()
+            for s in range(self.S):
+                self._reg.gauge("lsm_resident_runs", table=self.name,
+                                shard=s).set(int(n_host[s] > 0))
+                self._reg.gauge("lsm_compaction_debt_entries",
+                                table=self.name, shard=s).set(0)
+            self._reg.gauge("lsm_read_amplification",
+                            table=self.name).set(0.0)
+            self._reg.gauge("lsm_write_amplification",
+                            table=self.name).set(0.0)
         if self.t_store is not None:
             self.t_store.refresh_health_gauges(bloom_probes=bloom_probes)
 
     def nnz(self) -> int:
         self._check_open()
-        return sum(len(self.scan_shard(s)[0]) for s in range(self.S))
+        if self.engine == "lsm":
+            return sum(len(self.scan_shard(s)[0]) for s in range(self.S))
+        self.flush()
+        return int(self.tablets.n.sum())
 
     # ------------------------------------------------------------- ingest
     def insert(self, rows: np.ndarray, cols: np.ndarray, vals: np.ndarray):
@@ -368,21 +526,28 @@ class ShardedTable:
             self.flush()
         ends = np.cumsum(counts_b)
         starts = ends - counts_b
-        for s in np.nonzero(counts_b)[0]:
-            self._mem_mirror[s].append(
-                (rows[starts[s]:ends[s]], cols[starts[s]:ends[s]],
-                 vals[starts[s]:ends[s]]))
-            self._mem_sorted.pop(int(s), None)
+        if self.engine == "lsm":  # only LSM reads the mirror
+            for s in np.nonzero(counts_b)[0]:
+                self._mem_mirror[s].append(
+                    (rows[starts[s]:ends[s]], cols[starts[s]:ends[s]],
+                     vals[starts[s]:ends[s]]))
+                self._mem_sorted.pop(int(s), None)
         slot = np.arange(n, dtype=np.int64) - starts[dest]
         self._mem_n = _memtable_append_flat(
             self._mem_r, self._mem_c, self._mem_v, self._mem_n, dest, slot,
             rows, cols, vals)
 
     def flush(self) -> None:
-        """Minor compaction: memtable -> L0 run, O(memtable)."""
+        """Minor compaction: memtable -> L0 run (LSM, O(memtable)) or merge
+        into the single sorted run (legacy, O(capacity)). On the legacy
+        engine a merge that would overflow a tablet raises OverflowError
+        and leaves the tablets and the memtable as they were."""
         self._check_open()
         if self._mem_n.max(initial=0) > 0:
-            self._runs.flush_memtable(*self._mem_views())
+            if self.engine == "lsm":
+                self._runs.flush_memtable(*self._mem_views())
+            else:
+                self._flush_single()
             self._mem_r.fill_(I32_MAX)
             self._mem_c.fill_(I32_MAX)
             self._mem_v.zero_()
@@ -391,6 +556,36 @@ class ShardedTable:
             self._mem_sorted.clear()
         if self.t_store is not None:
             self.t_store.flush()
+
+    def _flush_single(self) -> None:
+        t0 = perf_counter()
+        with self._trace.span("flush", table=self.name):
+            new = tablet_insert(self.tablets, *self._mem_views(),
+                                self.combiner, self.use_pallas)
+            n_max = int(new.n.max())
+            if n_max > self.cap:
+                raise OverflowError(
+                    f"tablet overflow in {self.name}: {n_max} > {self.cap}")
+            self.tablets = new
+        self._h_flush_single.observe(perf_counter() - t0)
+        self._ctr_single["flushes"].inc()
+        for s in np.nonzero(self._mem_n)[0]:
+            self._c_shard_flush_single[s].inc()
+
+    def _shard_tablet(self, s: int) -> Tablet:
+        """Shard ``s``'s run of the stacked tablets (views, no copy)."""
+        t = self.tablets
+        return Tablet(rows=t.rows[s], cols=t.cols[s], vals=t.vals[s], n=t.n[s])
+
+    def tablet_arrays(self) -> dict:
+        """The legacy engine's stacked tablets as numpy copies: ``rows``,
+        ``cols``, ``vals`` [S, cap] and ``n`` [S], the fields of the JAX
+        engine's ``Tablet`` (``load_jax_tablets`` takes them back)."""
+        self._check_open()
+        if self.engine != "single":
+            raise ValueError("tablet_arrays() requires engine='single'")
+        return {k: getattr(self.tablets, k).to("cpu", copy=True).numpy()
+                for k in ("rows", "cols", "vals", "n")}
 
     def _mem_host(self, s: int):
         """Host mirror of shard ``s``'s memtable."""
@@ -418,8 +613,11 @@ class ShardedTable:
         return got
 
     def major_compact(self) -> None:
-        """Force a major compaction: flush, then merge all runs."""
+        """Force a major compaction (LSM): flush, then merge all runs. The
+        legacy engine has nothing to compact."""
         self._check_open()
+        if self.engine != "lsm":
+            return
         self.flush()
         self._runs.major_compact()
         if self.t_store is not None:
@@ -428,17 +626,36 @@ class ShardedTable:
     # -------------------------------------------------------------- query
     def query_rows(self, row_ids: np.ndarray, max_return: int = 256,
                    col_filter: np.ndarray = None):
-        """Point queries; returns (row_id, col_id, val) numpy triples,
-        served from memtable + runs by the fused read (no flush).
-        ``col_filter`` restricts results to a column id set, tested on the
-        device inside the dispatch."""
+        """Point queries; returns (row_id, col_id, val) numpy triples.
+
+        LSM engine: served from memtable + runs by the fused read (no
+        flush). Legacy engine: flushes only when a QUERIED shard's memtable
+        is non-empty, then rank-searches each owner shard's run.
+        Duplicate query ids return duplicate results.
+
+        ``col_filter`` restricts results to a column id set; on the LSM
+        engine the membership test runs on the device inside the
+        dispatch, on the legacy engine on the host.
+        """
         self._check_open()
         t_call = perf_counter()
+        host_filter = None
         if col_filter is not None:
             col_filter = np.asarray(col_filter, np.int32)
+            if self.engine != "lsm":
+                host_filter, col_filter = col_filter, None
         row_ids = np.asarray(row_ids, np.int32)
         owner = shard_of(row_ids, self.S, self.id_capacity)
-        out_r, out_c, out_v = [], [], []
+        if self.engine == "lsm":
+            out = self._query_rows_lsm(row_ids, owner, max_return, col_filter)
+        else:
+            out = self._query_rows_single(row_ids, owner, max_return)
+        if len(row_ids):
+            self._h_query.observe(perf_counter() - t_call)
+        return _finish(out, host_filter)
+
+    def _query_rows_lsm(self, row_ids, owner, max_return, col_filter):
+        out = []
         for s in np.unique(owner):
             s = int(s)
             q = row_ids[owner == s]
@@ -460,50 +677,81 @@ class ShardedTable:
                 rep = ucnt[np.searchsorted(uq, r)]
                 r, c, v = np.repeat(r, rep), np.repeat(c, rep), np.repeat(v, rep)
             self._h_shard_query[s].observe(perf_counter() - t_sh)
-            out_r.append(r)
-            out_c.append(c)
-            out_v.append(v)
-        if len(row_ids):
-            self._h_query.observe(perf_counter() - t_call)
-        if not out_r:
-            z = np.zeros(0, np.int32)
-            return z, z.copy(), np.zeros(0, np.float32)
-        return np.concatenate(out_r), np.concatenate(out_c), np.concatenate(out_v)
+            out.append((r, c, v))
+        return out
+
+    def _query_rows_single(self, row_ids, owner, max_return):
+        owners = np.unique(owner)
+        if self._mem_n[owners].max(initial=0) > 0:
+            self.flush()
+        out = []
+        for s in owners:
+            s = int(s)
+            q = row_ids[owner == s]
+            self._c_shard_query[s].inc(len(q))
+            t_sh = perf_counter()
+            t = self._shard_tablet(s)
+            q_dev = torch.as_tensor(q, device=self.device)
+            cols, vals, ok, cnt = tablet_query_rows(
+                t, q_dev, max_return, use_pallas=self.use_pallas)
+            top = int(cnt.max())
+            if top > max_return:  # widen (batch scanner)
+                cols, vals, ok, cnt = tablet_query_rows(
+                    t, q_dev, top, use_pallas=self.use_pallas)
+            qi, ki = torch.nonzero(ok, as_tuple=True)  # row-major order
+            r = q[qi.cpu().numpy()]
+            c = cols[qi, ki].cpu().numpy()
+            v = vals[qi, ki].cpu().numpy()
+            self._h_shard_query[s].observe(perf_counter() - t_sh)
+            out.append((r, c, v))
+        return out
 
     def scan_range(self, lo: int, hi: int, width: int = 64,
                    col_filter: np.ndarray = None):
         """Row-range scan: all (row, col, val) with ``lo <= row < hi``,
         sorted lex by (row, col) — each overlapping shard is answered by
-        ONE fused fence-to-fence pass (``scan_shard_fused``).
-        ``col_filter`` restricts results to a column id set, on the
-        device."""
+        ONE fused fence-to-fence pass (``scan_shard_fused``) on the LSM
+        engine; the legacy engine flushes the overlapping shards and slices
+        each run between the endpoint ranks. ``col_filter`` restricts
+        results to a column id set (on the device on the LSM engine, on
+        the host on the legacy one)."""
         self._check_open()
         t_call = perf_counter()
         lo, hi = int(lo), int(hi)
+        host_filter = None
         if col_filter is not None:
             col_filter = np.asarray(col_filter, np.int32)
-        out_r, out_c, out_v = [], [], []
+            if self.engine != "lsm":
+                host_filter, col_filter = col_filter, None
+        out = []
         if hi > lo:
             s_lo = int(shard_of(np.asarray([lo]), self.S,
                                 self.id_capacity)[0])
             s_hi = int(shard_of(np.asarray([max(hi - 1, lo)]), self.S,
                                 self.id_capacity)[0])
-            for s in range(s_lo, s_hi + 1):  # each shard clips the range
+            shards = range(s_lo, s_hi + 1)  # each shard clips the range
+            if (self.engine != "lsm"
+                    and self._mem_n[list(shards)].max(initial=0) > 0):
+                self.flush()
+            for s in shards:
                 self._c_shard_scan[s].inc()
                 t_sh = perf_counter()
-                r, c, v = self._runs.scan_shard_fused(
-                    s, lo, hi, mem_host=self._mem_host_sorted(s),
-                    width=width, mem_sorted=True, col_filter=col_filter)
+                if self.engine == "lsm":
+                    r, c, v = self._runs.scan_shard_fused(
+                        s, lo, hi, mem_host=self._mem_host_sorted(s),
+                        width=width, mem_sorted=True, col_filter=col_filter)
+                else:  # legacy single run: slice between endpoint ranks
+                    t = self._shard_tablet(s)
+                    ends = torch.tensor([lo, hi], dtype=torch.int32,
+                                        device=self.device)
+                    a, b = torch.searchsorted(t.rows, ends).tolist()
+                    r, c, v = (x[a:b].cpu().numpy()
+                               for x in (t.rows, t.cols, t.vals))
                 self._h_shard_scan[s].observe(perf_counter() - t_sh)
                 if len(r):
-                    out_r.append(r)
-                    out_c.append(c)
-                    out_v.append(v)
+                    out.append((r, c, v))
             self._h_scan.observe(perf_counter() - t_call)
-        if not out_r:
-            z = np.zeros(0, np.int32)
-            return z, z.copy(), np.zeros(0, np.float32)
-        return np.concatenate(out_r), np.concatenate(out_c), np.concatenate(out_v)
+        return _finish(out, host_filter)
 
     # ------------------------------------------------ column-axis reads
     def _require_sibling(self):
@@ -532,15 +780,55 @@ class ShardedTable:
         return tc, tr, tv  # sibling rows ARE our cols (and vice versa)
 
     def scan_shard(self, s: int):
-        """One shard's combined sorted triples (no flush)."""
+        """One shard's combined sorted triples (LSM; no flush)."""
         self._check_open()
+        if self.engine != "lsm":
+            raise ValueError("scan_shard() requires engine='lsm'")
         return self._runs.scan_shard(s, mem_host=self._mem_host(s))
 
     def scan(self):
         """Full-table scan -> (row_ids, col_ids, vals), sorted per shard."""
         self._check_open()
         self._c_full_scans.inc()
-        parts = [self.scan_shard(s) for s in range(self.S)]
-        return (np.concatenate([p[0] for p in parts]),
-                np.concatenate([p[1] for p in parts]),
-                np.concatenate([p[2] for p in parts]))
+        if self.engine == "lsm":
+            return _finish([self.scan_shard(s) for s in range(self.S)])
+        self.flush()
+        t = self.tablets
+        keep = (torch.arange(self.cap, device=self.device)[None, :]
+                < t.n[:, None])
+        return tuple(x[keep].cpu().numpy() for x in (t.rows, t.cols, t.vals))
+
+
+def _finish(parts, host_filter: np.ndarray = None):
+    """Concatenate per-shard (rows, cols, vals) results; ``host_filter``
+    keeps only the columns in that id set."""
+    if not parts:
+        z = np.zeros(0, np.int32)
+        return z, z.copy(), np.zeros(0, np.float32)
+    r, c, v = (np.concatenate([p[i] for p in parts]) for i in range(3))
+    if host_filter is not None:
+        keep = np.isin(c, host_filter)
+        r, c, v = r[keep], c[keep], v[keep]
+    return r, c, v
+
+
+def load_jax_tablets(store: ShardedTable, arrays: dict) -> None:
+    """Load a JAX legacy-engine store's stacked ``Tablet`` arrays (numpy
+    ``rows``, ``cols``, ``vals`` [S, cap] and ``n`` [S]) into the port's
+    ``store`` (``engine="single"``, same shards and capacity). The
+    memtable is left as it is."""
+    store._check_open()
+    if store.engine != "single":
+        raise ValueError("load_jax_tablets() requires engine='single'")
+    want = {"rows": (store.S, store.cap), "cols": (store.S, store.cap),
+            "vals": (store.S, store.cap), "n": (store.S,)}
+    for key, shape in want.items():
+        got = np.shape(arrays.get(key))
+        if got != shape:
+            raise ValueError(f"tablet {key!r} has shape {got}, this store "
+                             f"needs {shape}")
+    dtypes = {"rows": torch.int32, "cols": torch.int32,
+              "vals": torch.float32, "n": torch.int32}
+    store.tablets = Tablet(**{   # copies: never alias the caller's arrays
+        k: torch.tensor(np.asarray(arrays[k]), dtype=dt, device=store.device)
+        for k, dt in dtypes.items()})

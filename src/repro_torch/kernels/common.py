@@ -35,7 +35,8 @@ _lib = None
 # Launches of each hand kernel since the last ``reset_launches()``: counted
 # in ``launch`` (the one place a kernel is launched), so a run can show that
 # its path went through the kernels.
-LAUNCHES = {"rank_batched": 0, "pair_rank": 0, "row_rank": 0}
+LAUNCHES = {"rank_batched": 0, "pair_rank": 0, "row_rank": 0, "rank": 0,
+            "segment_sum": 0, "spmv_ell": 0}
 
 
 def reset_launches() -> None:
@@ -134,6 +135,12 @@ _SIGNATURES = {
     "pair_rank": (_P, _P, _I, _P, _P, _I, _I, _I, _P, _P),
     # keys, Q, W, out, stream
     "row_rank": (_P, _I, _I, _P, _P),
+    # tab, N, q, Q, strict, out, stream
+    "rank": (_P, _I, _P, _I, _I, _P, _P),
+    # ids, vals, N, n_segments, out, stream
+    "segment_sum": (_P, _P, _I, _I, _P, _P),
+    # cols, vals, R, K, x, C, y, stream
+    "spmv_ell": (_P, _P, _I, _I, _P, _I, _P, _P),
 }
 
 
@@ -167,13 +174,19 @@ def launch(name: str, device: torch.device, *args) -> None:
     LAUNCHES[name] += 1
 
 
-def check_cuda_int32(name: str, *tensors: torch.Tensor) -> None:
-    """Validate what a kernel takes: contiguous int32 on one CUDA device."""
-    dev = tensors[0].device
-    for t in tensors:
+def check_cuda(name: str, *pairs) -> None:
+    """Validate what a kernel takes, given as (tensor, dtype) pairs:
+    contiguous tensors of those dtypes on one CUDA device."""
+    dev = pairs[0][0].device
+    for t, dtype in pairs:
         if t.device != dev or t.device.type != "cuda":
             raise ValueError(f"{name}: all inputs must be on one CUDA device")
-        if t.dtype != torch.int32:
-            raise TypeError(f"{name}: expected int32, got {t.dtype}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")
+
+
+def check_cuda_int32(name: str, *tensors: torch.Tensor) -> None:
+    """``check_cuda`` for int32 inputs."""
+    check_cuda(name, *((t, torch.int32) for t in tensors))

@@ -1,0 +1,29 @@
+"""Public wrapper of the segment sum: the combiner iterator behind the
+degree table (``kvstore.degree_update``). A CUDA tensor goes to the hand
+kernel (``csrc/segment_sum.cu``); a CPU tensor to the plain version."""
+import torch
+
+from ..common import check_cuda, launch
+from .ref import segment_sum_ref
+
+
+def segment_sum(ids: torch.Tensor, vals: torch.Tensor,
+                n_segments: int) -> torch.Tensor:
+    """Sum ``vals`` into ``n_segments`` buckets by ``ids``: float32
+    [n_segments]. Ids < 0 or >= n_segments are dropped (the JAX wrapper
+    pads the segments to its block multiple and slices the pad off, which
+    drops the same ids)."""
+    ids = ids.to(torch.int32).reshape(-1).contiguous()
+    vals = vals.to(torch.float32).reshape(-1).contiguous()
+    if ids.shape != vals.shape:
+        raise ValueError(f"segment_sum: {ids.shape[0]} ids, "
+                         f"{vals.shape[0]} values")
+    if n_segments < 0:
+        raise ValueError(f"segment_sum: n_segments={n_segments}")
+    if ids.device.type == "cpu":
+        return segment_sum_ref(ids, vals, n_segments)
+    check_cuda("segment_sum", (ids, torch.int32), (vals, torch.float32))
+    out = torch.zeros(n_segments, dtype=torch.float32, device=ids.device)
+    launch("segment_sum", ids.device, ids.data_ptr(), vals.data_ptr(),
+           ids.shape[0], n_segments, out.data_ptr())
+    return out

@@ -1,10 +1,39 @@
-"""Public wrappers of the batched rank search: the fence search of the
-fused LSM read and range scan. A CUDA tensor goes to the hand kernel
-(``csrc/rank_batched.cu``); a CPU tensor to the plain version."""
+"""Public wrappers of the rank searches: the 1-D search of the legacy
+single-run engine's point reads (``csrc/rank.cu``) and the batched fence
+search of the fused LSM read and range scan (``csrc/rank_batched.cu``). A
+CUDA tensor goes to the hand kernel; a CPU tensor to the plain version."""
 import torch
 
 from ..common import check_cuda_int32, launch
-from .ref import rank_batched_ref
+from .ref import rank_batched_ref, rank_ref
+
+
+def rank(tab: torch.Tensor, q: torch.Tensor, strict: bool) -> torch.Tensor:
+    """Ranks of ``q[Q]`` in the sorted table ``tab[N]`` (pads I32_MAX):
+    int32 [Q]. Both inputs int32."""
+    if tab.dim() != 1 or q.dim() != 1:
+        raise ValueError("rank takes tab[N] and q[Q]")
+    if tab.device.type == "cpu":
+        return rank_ref(tab, q, strict)
+    check_cuda_int32("rank", tab, q)
+    out = torch.empty(q.shape[0], dtype=torch.int32, device=tab.device)
+    launch("rank", tab.device, tab.data_ptr(), tab.shape[0], q.data_ptr(),
+           q.shape[0], int(strict), out.data_ptr())
+    return out
+
+
+def sorted_search(tab: torch.Tensor, q: torch.Tensor,
+                  side: str = "left") -> torch.Tensor:
+    """Vectorized searchsorted: positions of ``q`` in sorted 1-D ``tab``.
+
+    ``tab`` must be padded with I32_MAX beyond its valid prefix (the pad
+    never counts: every real query is < I32_MAX). Returns int32[Q].
+    """
+    if side not in ("left", "right"):
+        raise ValueError(f"side must be 'left' or 'right', got {side!r}")
+    tab = tab.to(torch.int32).reshape(-1).contiguous()
+    q = q.to(torch.int32).reshape(-1).contiguous()
+    return rank(tab, q, strict=(side == "left"))
 
 
 def rank_batched(tabs: torch.Tensor, q: torch.Tensor,

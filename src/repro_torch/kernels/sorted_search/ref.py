@@ -1,5 +1,5 @@
-"""Plain PyTorch versions of the batched rank search (the definition the
-CUDA kernel is held against)."""
+"""Plain PyTorch versions of the rank searches (the definitions the CUDA
+kernels are held against)."""
 import torch
 
 # compare-count chunking: at most this many [query, table] pairs at once
@@ -25,3 +25,15 @@ def sorted_search_batched_ref(tabs, q, side: str = "left"):
     """Per-run searchsorted over stacked I32_MAX-padded runs ``tabs[K, N]``
     (pads count only for queries >= I32_MAX, which real ids never are)."""
     return rank_batched_ref(tabs, q, strict=(side == "left"))
+
+
+def rank_ref(tab: torch.Tensor, q: torch.Tensor, strict: bool) -> torch.Tensor:
+    """``out[i] = #{tab < q[i]}`` (strict) or ``<= q[i]``: the compare
+    count over the one table ``tab[N]``. int32 [Q]."""
+    return rank_batched_ref(tab[None], q, strict)[0]
+
+
+def sorted_search_ref(tab, n_valid, q, side: str = "left"):
+    """searchsorted over the valid prefix of ``tab``."""
+    return torch.searchsorted(tab[:n_valid], q, right=(side == "right"),
+                              out_int32=True)

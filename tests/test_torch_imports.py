@@ -16,7 +16,9 @@ def test_port_imports_without_jax_or_repro():
     code = ("import sys, repro_torch, repro_torch.db, repro_torch.db.lsm, "
             "repro_torch.kernels.sorted_search, "
             "repro_torch.kernels.merge_rank, repro_torch.data, "
-            "repro_torch.obs.export\n"
+            "repro_torch.obs.export, repro_torch.kernels.segment_reduce, "
+            "repro_torch.kernels.spmv, repro_torch.db.schema, "
+            "repro_torch.db.naive, repro_torch.db.graphulo\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
             "m.startswith('repro.'))\n"

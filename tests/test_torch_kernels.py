@@ -13,9 +13,15 @@ jmr = import_module("repro.kernels.merge_rank.ops")
 jmr_ref = import_module("repro.kernels.merge_rank.ref")
 jss = import_module("repro.kernels.sorted_search.ops")
 jss_ref = import_module("repro.kernels.sorted_search.ref")
+jsr = import_module("repro.kernels.segment_reduce.ops")
+jsr_ref = import_module("repro.kernels.segment_reduce.ref")
+jsp = import_module("repro.kernels.spmv.ops")
+jsp_ref = import_module("repro.kernels.spmv.ref")
 from repro_torch.kernels import LAUNCHES, reset_launches
 from repro_torch.kernels import merge_rank as tmr
+from repro_torch.kernels import segment_reduce as tsr
 from repro_torch.kernels import sorted_search as tss
+from repro_torch.kernels import spmv as tsp
 from repro_torch.kernels.common import I32_MAX
 
 T = torch.from_numpy
@@ -219,6 +225,139 @@ def test_merge_combine_rows_matches_jax(n_q, n_seg, seg_w):
     np.testing.assert_array_equal(rank, want[:n_q, :keys.shape[1]])
 
 
+# ------------------------------------------------- 1-D rank search (#4)
+@pytest.mark.parametrize("n_tab", [1, 5, 300, 2048])
+@pytest.mark.parametrize("n_q", [1, 7, 257])
+def test_sorted_search_matches_jax(n_tab, n_q):
+    """One tablet (valid prefix + I32_MAX pads) against the JAX wrapper
+    (Pallas in interpret mode) and the JAX ref, both sides."""
+    rng = np.random.default_rng(n_tab * 7 + n_q)
+    tab = _tabs(rng, 1, n_tab)[0]
+    n_valid = int((tab != I32_MAX).sum())
+    q = rng.integers(-5, 510, n_q).astype(np.int32)
+    for side in ("left", "right"):
+        got = tss.sorted_search(T(tab), T(q), side).numpy()
+        want = _np(jss.sorted_search(jnp.asarray(tab), jnp.asarray(q), side,
+                                     block_q=64, block_t=256))
+        ref = _np(jss_ref.sorted_search_ref(jnp.asarray(tab), n_valid,
+                                            jnp.asarray(q), side))
+        np.testing.assert_array_equal(got, want, err_msg=side)
+        np.testing.assert_array_equal(got, ref, err_msg=side)
+        np.testing.assert_array_equal(
+            tss.sorted_search_ref(T(tab), n_valid, T(q), side).numpy(), ref)
+        assert got.dtype == np.int32
+
+
+def test_rank_pallas_kernel_matches_plain():
+    from repro.kernels.sorted_search.kernel import rank_pallas
+    rng = np.random.default_rng(11)
+    tab = _tabs(rng, 1, 256)[0]
+    q = rng.integers(0, 500, 64).astype(np.int32)
+    for strict in (True, False):
+        want = _np(rank_pallas(jnp.asarray(tab).reshape(1, -1),
+                               jnp.asarray(q).reshape(-1, 1), strict=strict,
+                               block_q=64, block_t=128, interpret=True))[:, 0]
+        np.testing.assert_array_equal(tss.rank(T(tab), T(q), strict).numpy(),
+                                      want)
+        np.testing.assert_array_equal(
+            tss.rank_ref(T(tab), T(q), strict).numpy(), want)
+
+
+# ------------------------------------------------------- segment sum (#5)
+@pytest.mark.parametrize("n,n_seg", [(1, 1), (100, 7), (1500, 512),
+                                     (3000, 2048)])
+def test_segment_sum_matches_jax(n, n_seg):
+    """Ids < 0 and >= n_segments are dropped (the JAX wrapper pads the
+    segments to its block and slices the pad off); integer-valued sums are
+    exact."""
+    rng = np.random.default_rng(n + n_seg)
+    ids = rng.integers(-3, n_seg + 600, n).astype(np.int32)
+    vals = rng.integers(-4, 9, n).astype(np.float32)
+    got = tsr.segment_sum(T(ids), T(vals), n_seg).numpy()
+    want = _np(jsr.segment_sum(jnp.asarray(ids), jnp.asarray(vals), n_seg,
+                               block_n=256, block_s=256))
+    ref = _np(jsr_ref.segment_sum_ref(jnp.asarray(ids), jnp.asarray(vals),
+                                      n_seg))
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, ref)
+    assert got.dtype == np.float32 and got.shape == (n_seg,)
+
+
+def test_segment_sum_pallas_kernel_matches_plain():
+    from repro.kernels.segment_reduce.kernel import segment_sum_pallas
+    rng = np.random.default_rng(12)
+    ids = rng.integers(-1, 256, 512).astype(np.int32)
+    vals = rng.integers(0, 5, 512).astype(np.float32)
+    want = _np(segment_sum_pallas(jnp.asarray(ids).reshape(-1, 1),
+                                  jnp.asarray(vals).reshape(-1, 1),
+                                  n_segments=256, block_n=128, block_s=128,
+                                  interpret=True))[0]
+    np.testing.assert_array_equal(
+        tsr.segment_sum_ref(T(ids), T(vals), 256).numpy(), want)
+
+
+# ------------------------------------------------------------ ELL SpMV (#6)
+def _ell(rng, n_r, k, n_c, out_of_range=0):
+    cols = rng.integers(0, n_c, (n_r, k)).astype(np.int32)
+    fill = rng.integers(0, k + 1, (n_r, 1))
+    cols = np.where(np.arange(k) < fill, cols, -1)  # ragged rows, pad -1
+    if out_of_range:
+        hit = rng.random((n_r, k)) < out_of_range
+        cols = np.where(hit & (cols >= 0), n_c + rng.integers(0, 3000,
+                                                              (n_r, k)), cols)
+    vals = rng.integers(-3, 6, (n_r, k)).astype(np.float32)
+    return cols.astype(np.int32), vals
+
+
+@pytest.mark.parametrize("n_r,k,n_c", [(1, 1, 1), (7, 5, 300), (300, 17, 2500),
+                                       (64, 64, 4096)])
+def test_spmv_ell_matches_jax(n_r, k, n_c):
+    """Integer-valued inputs are exact; random floats within rtol=1e-5."""
+    rng = np.random.default_rng(n_r * 31 + k)
+    cols, vals = _ell(rng, n_r, k, n_c)
+    for x in (rng.integers(-2, 5, n_c).astype(np.float32),
+              rng.random(n_c).astype(np.float32)):
+        got = tsp.spmv_ell(T(cols), T(vals), T(x)).numpy()
+        want = _np(jsp.spmv_ell(jnp.asarray(cols), jnp.asarray(vals),
+                                jnp.asarray(x), block_r=64, block_c=512))
+        ref = _np(jsp_ref.spmv_ell_ref(jnp.asarray(cols), jnp.asarray(vals),
+                                       jnp.asarray(x)))
+        exact = bool((x == np.round(x)).all())
+        tol = dict(rtol=0, atol=0) if exact else dict(rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(got, want, **tol)
+        np.testing.assert_allclose(got, ref, **tol)
+        assert got.dtype == np.float32 and got.shape == (n_r,)
+
+
+def test_spmv_ell_out_of_range_columns_follow_the_jax_wrapper():
+    """A column >= len(x) adds 0, as in the JAX wrapper ``spmv_ell`` (its
+    kernel masks columns past the zero-padded x); the JAX ``spmv_ell_ref``
+    clips such a column to x[-1] instead."""
+    rng = np.random.default_rng(13)
+    cols, vals = _ell(rng, 40, 9, 700, out_of_range=0.3)
+    x = rng.integers(1, 5, 700).astype(np.float32)
+    got = tsp.spmv_ell(T(cols), T(vals), T(x)).numpy()
+    want = _np(jsp.spmv_ell(jnp.asarray(cols), jnp.asarray(vals),
+                            jnp.asarray(x), block_r=64, block_c=512))
+    np.testing.assert_array_equal(got, want)
+    clipped = _np(jsp_ref.spmv_ell_ref(jnp.asarray(cols), jnp.asarray(vals),
+                                       jnp.asarray(x)))
+    assert not np.array_equal(got, clipped)  # the divergence is real
+    in_range = np.where(cols < 700, cols, -1).astype(np.int32)
+    np.testing.assert_array_equal(got, _np(jsp_ref.spmv_ell_ref(
+        jnp.asarray(in_range), jnp.asarray(vals), jnp.asarray(x))))
+
+
+def test_ell_from_coo_matches_jax():
+    rng = np.random.default_rng(14)
+    r = np.sort(rng.integers(0, 30, 200))
+    c = rng.integers(0, 50, 200)
+    v = rng.random(200)
+    for got, want in zip(tsp.ell_from_coo(r, c, v, 33),
+                         jsp.ell_from_coo(r, c, v, 33)):
+        np.testing.assert_array_equal(got, want)
+
+
 def test_pair_rank_ref_matches_pallas_kernel():
     from repro.kernels.merge_rank.kernel import pair_rank_pallas
     a = _rand_run(64, 50, 5)
@@ -238,7 +377,12 @@ def test_cpu_tensors_never_launch():
     tss.sorted_search_batched(T(np.zeros((1, 4), np.int32)),
                               T(np.zeros(3, np.int32)))
     tmr.row_rank(T(np.zeros((2, 3), np.int32)))
-    assert LAUNCHES == {"rank_batched": 0, "pair_rank": 0, "row_rank": 0}
+    tss.sorted_search(T(np.zeros(4, np.int32)), T(np.zeros(3, np.int32)))
+    tsr.segment_sum(T(np.zeros(3, np.int32)), T(np.ones(3, np.float32)), 2)
+    tsp.spmv_ell(T(np.zeros((2, 3), np.int32)), T(np.ones((2, 3), np.float32)),
+                 T(np.ones(4, np.float32)))
+    assert LAUNCHES == {"rank_batched": 0, "pair_rank": 0, "row_rank": 0,
+                        "rank": 0, "segment_sum": 0, "spmv_ell": 0}
 
 
 @pytest.mark.gpu
@@ -261,3 +405,30 @@ def test_kernels_on_card_match_plain_versions():
     keys, _ = _segment_rows(rng, 64, 7, 32)
     got = tmr.row_rank(T(keys).cuda()).cpu()
     assert torch.equal(got, tmr.row_rank_ref(T(keys)))
+
+
+@pytest.mark.gpu
+def test_new_kernels_on_card_match_plain_versions():
+    """The 1-D rank, segment-sum and ELL SpMV kernels on the card: ranks
+    and integer-valued sums exactly equal to the plain versions, float
+    SpMV within rtol=1e-5 (float atomics and the warp reduction add in
+    another order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(1)
+    tab = _tabs(rng, 1, 5000)[0]
+    q = rng.integers(-5, 510, 3000).astype(np.int32)
+    for strict in (True, False):
+        got = tss.rank(T(tab).cuda(), T(q).cuda(), strict).cpu()
+        assert torch.equal(got, tss.rank_ref(T(tab), T(q), strict))
+    ids = rng.integers(-3, 3000, 200_000).astype(np.int32)
+    ids[:5000] = 7  # a hub: thousands of atomics on one address
+    vals = rng.integers(0, 4, 200_000).astype(np.float32)
+    got = tsr.segment_sum(T(ids).cuda(), T(vals).cuda(), 2048).cpu()
+    assert torch.equal(got, tsr.segment_sum_ref(T(ids), T(vals), 2048))
+    cols, vals = _ell(rng, 1000, 300, 5000, out_of_range=0.05)
+    for x in (rng.integers(-2, 5, 5000).astype(np.float32),
+              rng.random(5000).astype(np.float32)):
+        got = tsp.spmv_ell(T(cols).cuda(), T(vals).cuda(), T(x).cuda()).cpu()
+        want = tsp.spmv_ell_ref(T(cols), T(vals), T(x))
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)

@@ -239,8 +239,7 @@ def test_col_filter_and_duplicate_query_ids():
 
 
 def test_deferred_options_raise():
-    for kw, what in [({"engine": "single"}, "Queue 1 item 4"),
-                     ({"wal_dir": "/nonexistent"}, "Queue 1 item 5"),
+    for kw, what in [({"wal_dir": "/nonexistent"}, "Queue 1 item 5"),
                      ({"dynamic_tablets": True}, "Queue 1 item 7"),
                      ({"fused_reads": False}, "Queue 1 item 3")]:
         with pytest.raises(NotImplementedError, match=what):
