@@ -30,20 +30,22 @@ Phases (each raises on failure):
   4c. the legacy single-run engine (``engine="single"``) on both paths:
      the phase-3 row-id read, row range and a column read (host scan +
      filter) equal phase 3's reads;
-  4d. Graphulo ``table_spmv`` on the schema's Tedge, the ELL kernel
-     against the host product, for a one-hot x at the largest out-degree
-     and a random x;
+  4d. Graphulo ``table_spmv`` on the schema's Tedge, both routes (the ELL
+     kernel and the PyTorch product on the card) against a float64 product
+     on the host, for a one-hot x at the largest out-degree and a random x;
   5. each kernel against its plain version on the card at every input
-     geometry its path gave it (recorded in phases 3, 4b, 4c and 4d),
+     each path gave it (recorded in phases 3, 4b, 4c and 4d: per geometry
+     for the LSM kernels, per call for the 1-D rank, segment sum and SpMV),
      ranks and degree sums exactly equal, SpMV within rtol=1e-5, with
      kernel / plain / library-call times per launch (CUDA graphs and CUDA
-     events), averaged over the path's launches.
+     events), averaged over all the paths' launches.
 
 The second-to-last line is the kernels JSON; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA device
 or without the repository's sources.
 """
 import argparse
+import contextlib
 import json
 import math
 import subprocess
@@ -92,6 +94,19 @@ def cuda_ms(fn, reps, warm=3):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def timed_once(fn):
+    """(``fn()``, its ms) for one eager call, timed with CUDA events."""
+    import torch
+    sync()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    result = fn()
+    end.record()
+    end.synchronize()
+    return result, start.elapsed_time(end)
 
 
 def graph_ms(fn, reps):
@@ -168,19 +183,22 @@ def same_triples(a, b, what):
 
 # ------------------------------------------------------------------ phase 3/4
 class Recorder:
-    """Stands in for a kernel wrapper where an ops module calls it, while
-    phase 3 runs: every call goes on to the wrapper (which launches and
-    counts as before), and for each distinct input geometry the recorder
-    keeps one copy of the inputs and the number of calls it got."""
+    """Stands in for a kernel wrapper where a module of the path calls it:
+    every call goes on to the wrapper (which launches and counts as
+    before), and the recorder keeps a copy of the inputs and the number of
+    calls for each distinct input geometry, or with ``every_call`` for each
+    call."""
 
-    def __init__(self, module, name):
-        self.module, self.name = module, name
+    def __init__(self, module, name, every_call=False):
+        self.module, self.name, self.every_call = module, name, every_call
         self.fn = getattr(module, name)
-        self.calls = {}  # geometry -> [calls, (args, kwargs) copy]
+        self.calls = {}  # key -> [calls, (args, kwargs) copy]
 
     def __call__(self, *args, **kw):
         geo = (tuple(tuple(a.shape) if hasattr(a, "shape") else a
                      for a in args), tuple(sorted(kw.items())))
+        if self.every_call:
+            geo += (len(self.calls),)
         if geo not in self.calls:
             self.calls[geo] = [0, ([a.clone() if hasattr(a, "clone") else a
                                     for a in args], dict(kw))]
@@ -201,13 +219,8 @@ def listing1(graph, use_pallas, cap, stash=None, profile_dir=None):
     inputs of every kernel launch are recorded for phase 5. With
     ``profile_dir`` set, the put and each read run under torch.profiler
     (their times then include its cost)."""
-    import contextlib
-
     import numpy as np
     from repro_torch.db import delete, put
-    from repro_torch.kernels import LAUNCHES, reset_launches
-    from repro_torch.kernels.merge_rank import ops as merge_ops
-    from repro_torch.kernels.sorted_search import ops as search_ops
 
     A, verts, sels = graph["A"], graph["verts"], graph["sels"]
     DB = server("smoke", cap, use_pallas)
@@ -220,17 +233,12 @@ def listing1(graph, use_pallas, cap, stash=None, profile_dir=None):
     Tedge.table.store.warmup()
 
     timed = path_timer(profile_dir, "kernels" if use_pallas else "ops")
-    with contextlib.ExitStack() as rec:
-        for module, name in ((search_ops, "rank_batched"),
-                             (merge_ops, "row_rank"), (merge_ops, "pair_rank")):
-            rec.enter_context(record(stash, module, name))
-        reset_launches()
+    with kernel_run(stash) as launches:
         _, t_put = timed("put", lambda: put(Tedge, A))
         reads, times = {}, {"put_s": t_put,
                             "ingest_entries_per_s": A.nnz() / t_put}
         for name, sel in sels.items():
             reads[name], times[name + "_s"] = timed(name, lambda: Tedge[sel])
-        launches = dict(LAUNCHES)
     store = Tedge.table.store
     stats = {"Tedge": store.engine_stats(),
              "TedgeT": store.t_store.engine_stats()}
@@ -295,13 +303,40 @@ def server(name, cap, use_pallas, **kw):
     return dbsetup(name, **conf)
 
 
-def record(stash, module, name):
-    """A Recorder for ``module.name`` when phase 5 wants its inputs."""
-    import contextlib
-    if stash is None:
-        return contextlib.nullcontext()
-    stash[name] = Recorder(module, name)
-    return stash[name]
+# the slice's new kernels are checked at each call's inputs (their calls
+# are few, and the same geometry comes with different data: the one-hot
+# and random x of the SpMV, the out- and in-degree ids of the segment sum)
+EVERY_CALL = ("rank", "segment_sum", "spmv_ell")
+
+
+def wrapper_sites():
+    """Where the paths call each kernel's wrapper: (module, attribute)."""
+    from repro_torch.db import graphulo, kvstore
+    from repro_torch.kernels.merge_rank import ops as merge_ops
+    from repro_torch.kernels.sorted_search import ops as search_ops
+    return {"rank_batched": (search_ops, "rank_batched"),
+            "row_rank": (merge_ops, "row_rank"),
+            "pair_rank": (merge_ops, "pair_rank"),
+            "rank": (search_ops, "rank"),
+            "segment_sum": (kvstore, "segment_sum"),
+            "spmv_ell": (graphulo, "spmv_ell")}
+
+
+@contextlib.contextmanager
+def kernel_run(stash=None):
+    """Counts every kernel's launches from 0 over the block; the dict it
+    yields is filled on exit. With ``stash`` a dict, a Recorder stands at
+    each wrapper's call site for the block, under the kernel's name."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    launches = {}
+    with contextlib.ExitStack() as rec:
+        if stash is not None:
+            for name, (module, attr) in wrapper_sites().items():
+                stash[name] = rec.enter_context(
+                    Recorder(module, attr, every_call=name in EVERY_CALL))
+        reset_launches()
+        yield launches
+        launches.update(LAUNCHES)
 
 
 def timed_call(fn):
@@ -326,26 +361,32 @@ def fig4(graph, cap, use_pallas, naive, seed, stash=None, profile_dir=None):
     (``benchmarks/query_bench.py::fig4``): for degree targets {1, 10, 100,
     1000} x {out: row read, in: column read}, one vertex (SV) and five (MV)
     picked by ``vertices_with_degree``, seeded. Returns (schema, server,
-    launches of the put, times)."""
+    launches of the put and the reads, times)."""
     import numpy as np
-    from repro_torch.db import EdgeSchema, kvstore
-    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.db import EdgeSchema
 
-    verts, (r, c, v) = graph["verts"], graph["raw"]
     DB = server("fig4", cap, use_pallas)
-    DB.encode_keys(np.asarray(verts, dtype=object))
+    DB.encode_keys(np.asarray(graph["verts"], dtype=object))
     g = EdgeSchema(DB, "g")
     g.pair.table.store.warmup()
     timed = path_timer(profile_dir, "fig4_" + ("kernels" if use_pallas
                                                else "ops"))
-    with record(stash, kvstore, "segment_sum"):
-        reset_launches()
-        _, t_put = timed("put", lambda: g.put_triple(r, c, v))
-        launches = dict(LAUNCHES)
-    if use_pallas and launches["segment_sum"] != 2:
-        raise AssertionError(f"phase 4b: segment_sum launches {launches}")
+    with kernel_run(stash) as launches:
+        times = fig4_put_and_reads(g, graph, naive, seed, timed)
+    if use_pallas and not (launches["segment_sum"] == 2
+                           and launches["pair_rank"] > 0
+                           and launches["rank_batched"] > 0):
+        raise AssertionError(f"phase 4b: kernel launches {launches}")
     if not use_pallas and any(launches.values()):
         raise AssertionError(f"phase 4b launched a hand kernel: {launches}")
+    return g, DB, launches, times
+
+
+def fig4_put_and_reads(g, graph, naive, seed, timed):
+    """Phase 4b's put, degree checks and Fig. 4 reads; returns the times."""
+    import numpy as np
+    verts, (r, c, v) = graph["verts"], graph["raw"]
+    _, t_put = timed("put", lambda: g.put_triple(r, c, v))
     n = len(verts)
     for k, ids in (("out_deg", graph["raw_ids"][0]),
                    ("in_deg", graph["raw_ids"][1])):
@@ -378,7 +419,7 @@ def fig4(graph, cap, use_pallas, naive, seed, stash=None, profile_dir=None):
                         and np.array_equal(np.sort(nv.col),
                                            np.sort(got.col))):
                     raise AssertionError(f"phase 4b {label}: naive keys")
-    return g, DB, launches, times
+    return times
 
 
 # ------------------------------------------------------------------ phase 4c
@@ -390,8 +431,6 @@ def single_engine(graph, cap, use_pallas, lsm_reads, stash=None,
     Returns (times, launches)."""
     import numpy as np
     from repro_torch.db import delete, put
-    from repro_torch.kernels import LAUNCHES, reset_launches
-    from repro_torch.kernels.sorted_search import ops as search_ops
 
     A, verts, sels = graph["A"], graph["verts"], graph["sels"]
     batch_cap = 1 << 15
@@ -402,8 +441,7 @@ def single_engine(graph, cap, use_pallas, lsm_reads, stash=None,
     T.store.warmup()
     timed = path_timer(profile_dir, "single_" + ("kernels" if use_pallas
                                                  else "ops"))
-    with record(stash, search_ops, "rank"):
-        reset_launches()
+    with kernel_run(stash) as launches:
         _, t_put = timed("put", lambda: put(T, A))
         times = {"put_s": t_put, "ingest_entries_per_s": A.nnz() / t_put}
         for name in ("row_ids", "row_range", "col_ids"):
@@ -411,7 +449,6 @@ def single_engine(graph, cap, use_pallas, lsm_reads, stash=None,
             got, times[name + "_s"] = timed(name, lambda: T[sel])
             same_triples(got, lsm_reads[name], f"phase 4c {name} vs LSM")
             same_triples(got, A[sel], f"phase 4c {name} vs Assoc")
-        launches = dict(LAUNCHES)
     st = T.store.engine_stats()
     if st["flushes"] < 1:
         raise AssertionError(f"phase 4c: no flush ({st})")
@@ -426,52 +463,58 @@ def single_engine(graph, cap, use_pallas, lsm_reads, stash=None,
 
 # ------------------------------------------------------------------ phase 4d
 def graphulo_spmv(g, DB, seed, stash=None):
-    """``table_spmv`` on the schema's Tedge: the ELL kernel against the
-    host COO product, exactly for a one-hot x at the largest out-degree
-    vertex, within rtol=1e-5 for a random x. Returns (times, launches)."""
+    """``table_spmv`` on the schema's Tedge, on both routes (the ELL kernel,
+    and the PyTorch product on the card), against a float64 product on the
+    host from the table's scan: exactly for a one-hot x at the largest
+    out-degree vertex, within rtol=1e-5 (kernel, float32) or 1e-12 (the
+    float64 PyTorch route) for a random x. Returns (times, launches)."""
     import numpy as np
     from repro_torch.db import graphulo
-    from repro_torch.kernels import LAUNCHES, reset_launches
 
     n = len(DB.keydict)
-    r = DB["g_Tedge"].store.scan()[0]
+    r, c, v = DB["g_Tedge"].store.scan()
     counts = np.bincount(r, minlength=n)
-    k = int(counts.max())
-    log(f"phase 4d: ELL {n} rows x {k} slots, {8 * n * k} bytes of "
-        f"cols + vals for {len(r)} entries")
+    log(f"phase 4d: ELL {n} rows x {int(counts.max())} slots, "
+        f"{8 * n * int(counts.max())} bytes of cols + vals for {len(r)} "
+        "entries")
     hub = int(np.argmax(g.deg.out_deg[:n].cpu().numpy()))
     one_hot = np.zeros(n)
     one_hot[hub] = 1.0
     x_rand = np.random.default_rng(seed).random(n)
     times = {}
-    with record(stash, graphulo, "spmv_ell"):
-        reset_launches()
+    with kernel_run(stash) as launches:
         for label, x in (("one_hot", one_hot), ("random", x_rand)):
+            want = np.zeros(n)
+            np.add.at(want, r, v.astype(np.float64) * x[c])
             yk, times[label + "_kernel_s"] = timed_call(
                 lambda: graphulo.table_spmv(g.pair, x, use_pallas=True))
-            yh, times[label + "_host_s"] = timed_call(
+            yd, times[label + "_ops_s"] = timed_call(
                 lambda: graphulo.table_spmv(g.pair, x, use_pallas=False))
-            m = len(yh)
-            if yk.shape != (n,) or yk[m:].any():
-                raise AssertionError(f"phase 4d {label}: shape or tail")
+            m = int(r.max()) + 1
+            if yk.shape != (n,) or yd.shape != (m,) or want[m:].any():
+                raise AssertionError(f"phase 4d {label}: shapes")
             if label == "one_hot":
-                if not np.array_equal(yk[:m], yh):
+                if not (np.array_equal(yk, want)
+                        and np.array_equal(yd, want[:m])):
                     raise AssertionError("phase 4d one_hot: not exact")
             else:
-                np.testing.assert_allclose(yk[:m], yh, rtol=1e-5,
-                                           err_msg="phase 4d random")
-        launches = dict(LAUNCHES)
-    if launches["spmv_ell"] != 2:
-        raise AssertionError(f"phase 4d: spmv_ell launches {launches}")
+                np.testing.assert_allclose(yk, want, rtol=1e-5,
+                                           err_msg="phase 4d random, kernel")
+                np.testing.assert_allclose(yd, want[:m], rtol=1e-12,
+                                           err_msg="phase 4d random, ops")
+    if launches["spmv_ell"] != 2 or sum(launches.values()) != 2:
+        raise AssertionError(f"phase 4d: kernel launches {launches}")
     return times, launches
 
 
 # ------------------------------------------------------------------ phase 5
 def kernel_checks(stash, launches):
-    """Each kernel against its plain version at every input geometry its
-    path gave it (recorded in phases 3, 4b, 4c and 4d). Every time is the
-    mean per launch over the path's launches, so ms x launches is the
-    kernel's device time on the path."""
+    """Each kernel against its plain version at every input each path gave
+    it (``stash[path][kernel]``, recorded in phases 3, 4b, 4c and 4d: one
+    per geometry for #1-#3, every call for #4-#6). ``launches[path]`` are
+    the paths' launch counts. Every time is the mean per launch over all
+    the paths' launches, so ms x launches is the kernel's device time on
+    the paths."""
     import numpy as np
     import torch
     from repro_torch.kernels.common import I32_MAX
@@ -504,13 +547,19 @@ def kernel_checks(stash, launches):
     def steps(n):  # probe steps of a binary search over n entries
         return max(1, math.ceil(math.log2(n + 1)))
 
-    # bytes: each input read once, each output written once; operations:
-    # a compare and an add per probe step (rank search) or per pair (row
-    # rank), three compares and a select per probe step (pair rank)
+    def probed(n, n_q):  # table entries a binary search must read
+        return min(n, n_q * steps(n))
+
+    # bytes: the queries read and the output written once, and of each
+    # searched table only the entries the queries' binary searches probe
+    # (at most the table); operations: a compare and an add per probe step
+    # (rank search) or per pair (row rank), three compares and a select per
+    # probe step (pair rank)
     def search_cost(args, kw):
         tabs, qq = args
         k, n = tabs.shape
-        return (4 * (k * n + qq.numel() + k * qq.numel()),
+        return (4 * (k * probed(n, qq.numel()) + qq.numel()
+                     + k * qq.numel()),
                 2 * k * qq.numel() * steps(n))
 
     def row_cost(args, kw):
@@ -519,8 +568,9 @@ def kernel_checks(stash, launches):
 
     def pair_cost(args, kw):
         tr, _, qr, _ = args
-        return (4 * (2 * tr.numel() + 3 * qr.numel()),
-                4 * qr.numel() * steps(tr.shape[1]))
+        (n_s, m), n = tr.shape, qr.shape[1]
+        return (4 * (2 * n_s * probed(m, n) + 3 * qr.numel()),
+                4 * qr.numel() * steps(m))
 
     def rank_cost(args, kw):
         tab, qq = args[:2]
@@ -587,9 +637,10 @@ def kernel_checks(stash, launches):
         ("row_rank", row_rank, row_rank_ref, row_cost, None, (20, 3), check,
          PEAK_OPS_PER_S, False, "src/repro_torch/csrc/row_rank.cu",
          "src/repro/kernels/merge_rank/kernel.py:67"),
-        # the plain pair rank is a chunked quadratic count (up to ~1e11
-        # compares at a level run): one timed call, no warm-up
-        ("pair_rank", pair_rank, pair_rank_ref, pair_cost, pair_lib, (1, 0),
+        # the plain pair rank is a chunked quadratic count (up to ~7e11
+        # compares per shard at the single engine's flush): its time is
+        # that of the one call the check makes, no warm-up
+        ("pair_rank", pair_rank, pair_rank_ref, pair_cost, pair_lib, (0, 0),
          check, PEAK_OPS_PER_S, False, "src/repro_torch/csrc/pair_rank.cu",
          "src/repro/kernels/merge_rank/kernel.py:36"),
         # the plain 1-D rank is the compare count over the whole tablet
@@ -606,42 +657,53 @@ def kernel_checks(stash, launches):
     )
     for (name, fn, ref, cost, lib, (p_reps, p_warm), chk, peak, lib_eager,
          src, tpu) in specs:
-        calls = stash[name].calls
-        n_calls = sum(c for c, _ in calls.values())
-        if n_calls != launches[name]:
-            raise AssertionError(f"{name}: recorded {n_calls} calls, "
-                                 f"{launches[name]} launches")
+        by_path, inputs = {}, []
+        for path, recorders in stash.items():
+            calls = recorders[name].calls
+            by_path[path] = sum(c for c, _ in calls.values())
+            if by_path[path] != launches[path][name]:
+                raise AssertionError(
+                    f"{name} in {path}: recorded {by_path[path]} calls, "
+                    f"{launches[path][name]} launches")
+            inputs += [(path, key, *calls[key])
+                       for key in sorted(calls, key=lambda g: -calls[g][0])]
+        n_calls = sum(by_path.values())
+        if n_calls == 0:
+            raise AssertionError(f"{name}: launched on no path")
         err, tot = 0.0, dict.fromkeys(("ms", "eager", "plain", "lib", "bound"),
                                       0.0)
         ops_by = [0.0, 0.0]
-        for cnt, (args, kw) in calls.values():
-            err = max(err, chk(name, fn(*args, **kw), ref(*args, **kw)))
+        for _, _, cnt, (args, kw) in inputs:
+            want, t_plain = timed_once(lambda: ref(*args, **kw))
+            err = max(err, chk(name, fn(*args, **kw), want))
+            del want
             w = cnt / n_calls
             tot["ms"] += w * graph_ms(lambda: fn(*args, **kw), 50)
             tot["eager"] += w * cuda_ms(lambda: fn(*args, **kw), 50)
-            tot["plain"] += w * cuda_ms(lambda: ref(*args, **kw), p_reps,
-                                        warm=p_warm)
+            tot["plain"] += w * (cuda_ms(lambda: ref(*args, **kw), p_reps,
+                                         warm=p_warm) if p_reps else t_plain)
             if lib is not None:
                 timer = cuda_ms if lib_eager else graph_ms
                 tot["lib"] += w * timer(lib(args, kw), 50)
             b, by = bound_ms(*cost(args, kw), peak_ops=peak)
             tot["bound"] += w * b
             ops_by[by == "operations"] += w * b
-        geos = sorted(calls, key=lambda g: -calls[g][0])
         out.append({"name": name, "route": "cuda", "source": src,
-                    "replaces": tpu, "launches": launches[name],
+                    "replaces": tpu, "launches": n_calls,
                     "max_abs_err": err, "ms": tot["ms"],
                     "plain_ms": tot["plain"], "bound_ms": tot["bound"],
                     "bound_by": ("operations" if ops_by[1] > ops_by[0]
                                  else "bytes"),
                     "library_ms": tot["lib"] if lib else None,
                     "eager_ms": tot["eager"],
-                    "shapes": "; ".join(
-                        f"{calls[g][0]}x " + " ".join(
+                    "launches_by_path": {k: v for k, v in by_path.items()
+                                         if v},
+                    "inputs": "; ".join(
+                        f"{path} {cnt}x " + " ".join(
                             str(list(x)) if isinstance(x, tuple) else str(x)
-                            for x in g[0]) + "".join(
-                            f" {k}={v}" for k, v in g[1])
-                        for g in geos)})
+                            for x in key[0]) + "".join(
+                            f" {k}={v}" for k, v in key[1])
+                        for path, key, cnt, _ in inputs)})
 
     # #2 also at the widest row the path sends it ([512, 256]: 8 runs x 32),
     # as a check (not part of the path's mean)
@@ -702,8 +764,11 @@ def main(argv=None):
     for use_pallas in (True, False):
         cold = listing1(graph, use_pallas, cap)[2]
         log(f"cold run (use_pallas={use_pallas}): {json.dumps(cold)}")
-    stash = {}
-    reads, stats, times, launches = listing1(graph, True, cap, stash)
+    # each path's recorded kernel inputs and launch counts, for phase 5
+    stash = {p: {} for p in ("listing1", "fig4", "graphulo", "single")}
+    launches = {}
+    reads, stats, times, launches["listing1"] = listing1(
+        graph, True, cap, stash["listing1"])
     A = graph["A"]
     for key, sel in graph["sels"].items():
         same_triples(reads[key], A[sel], f"phase 3 {key} vs Assoc")
@@ -716,10 +781,10 @@ def main(argv=None):
         if v <= 0:
             raise AssertionError(f"phase 3: {k} = {v}")
     for k in ("rank_batched", "row_rank", "pair_rank"):
-        if launches[k] <= 0:
+        if launches["listing1"][k] <= 0:
             raise AssertionError(f"phase 3: kernel {k} never launched")
     log("phase 3 (use_pallas=True): " + json.dumps(
-        {"times": times, "engine": tot, "launches": launches,
+        {"times": times, "engine": tot, "launches": launches["listing1"],
          "nnz": {k: reads[k].nnz() for k in reads}}))
 
     # 4. the PyTorch-ops path on the card, then both paths again in the
@@ -753,23 +818,23 @@ def main(argv=None):
         f"{t_naive:.3f} s")
     for use_pallas in (False, True):
         g, DB, fl, ft = fig4(graph, cap, use_pallas, naive, args.seed,
-                             stash if use_pallas else None)
+                             stash["fig4"] if use_pallas else None)
         log(f"phase 4b (schema, use_pallas={use_pallas}): "
             + json.dumps({"times": ft, "launches": fl}))
         if use_pallas:
-            launches["segment_sum"] = fl["segment_sum"]
-            gt, gl = graphulo_spmv(g, DB, args.seed, stash)
-            launches["spmv_ell"] = gl["spmv_ell"]
+            launches["fig4"] = fl
+            gt, launches["graphulo"] = graphulo_spmv(g, DB, args.seed,
+                                                     stash["graphulo"])
             log("phase 4d (graphulo): " + json.dumps(
-                {"times": gt, "launches": gl}))
+                {"times": gt, "launches": launches["graphulo"]}))
         g.delete()
         if DB.ls():
             raise AssertionError(f"tables left after delete: {DB.ls()}")
     for use_pallas in (True, False):
         st, sl = single_engine(graph, cap, use_pallas, reads,
-                               stash if use_pallas else None)
+                               stash["single"] if use_pallas else None)
         if use_pallas:
-            launches["rank"] = sl["rank"]
+            launches["single"] = sl
         log(f"phase 4c (single engine, use_pallas={use_pallas}): "
             + json.dumps({"times": st, "launches": sl}))
     if args.profile is not None:  # one more run of each path, traced

@@ -37,22 +37,29 @@ def _dim(server: DBserver) -> int:
 
 
 def table_spmv(table, x: np.ndarray, use_pallas: bool = False) -> np.ndarray:
-    """y = A @ x over vertex-id space (x indexed by key id).
+    """y = A @ x over vertex-id space (x indexed by key id), on the table's
+    device.
 
     ``use_pallas=True`` builds the ELL on the host and runs the SpMV kernel
-    on the table's device (float32, one entry per key id); otherwise the
-    host COO product (float64, sized by the largest row id + 1)."""
+    (float32, one entry per key id); otherwise a COO ``index_add_`` in
+    float64, sized by the largest row id + 1 (the JAX host product's
+    shape)."""
     t = table.table if isinstance(table, TablePair) else table
     r, c, v = _table_coo(t)
     n = _dim(t.server)
+    dev = t.store.device
     if use_pallas:
         cols, vals = ell_from_coo(r.astype(np.int64), c, v, n)
-        dev = t.store.device
         y = spmv_ell(torch.as_tensor(cols, device=dev),
                      torch.as_tensor(vals, device=dev),
                      torch.as_tensor(np.asarray(x, np.float32), device=dev))
         return y.cpu().numpy()
-    return sg.spmv((r, c, v), np.asarray(x, np.float64))[: n]
+    rows = torch.as_tensor(r, device=dev)
+    xd = torch.as_tensor(np.asarray(x, np.float64), device=dev)
+    terms = torch.as_tensor(v, device=dev) * xd[torch.as_tensor(c, device=dev)]
+    n_out = min(int(r.max()) + 1 if len(r) else 0, n)
+    y = torch.zeros(n_out, dtype=torch.float64, device=dev)
+    return y.index_add_(0, rows, terms).cpu().numpy()
 
 
 def table_spgemm(table_a, table_b, server: DBserver,

@@ -186,7 +186,3 @@ def check_cuda(name: str, *pairs) -> None:
         if not t.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")
 
-
-def check_cuda_int32(name: str, *tensors: torch.Tensor) -> None:
-    """``check_cuda`` for int32 inputs."""
-    check_cuda(name, *((t, torch.int32) for t in tensors))

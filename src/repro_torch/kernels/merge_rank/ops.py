@@ -10,7 +10,7 @@ versions in ``ref.py``.
 """
 import torch
 
-from ..common import I32_MAX, check_cuda_int32, launch
+from ..common import I32_MAX, check_cuda, launch
 from .ref import merge_sorted_ref, pair_rank_ref, row_rank_ref
 
 
@@ -22,7 +22,7 @@ def pair_rank(tr, tc, qr, qc, strict: bool) -> torch.Tensor:
         raise ValueError("pair_rank takes runs [S, m] and queries [S, n]")
     if tr.device.type == "cpu":
         return pair_rank_ref(tr, tc, qr, qc, strict)
-    check_cuda_int32("pair_rank", tr, tc, qr, qc)
+    check_cuda("pair_rank", *((t, torch.int32) for t in (tr, tc, qr, qc)))
     n_s, m = tr.shape
     n = qr.shape[1]
     if n_s > 65535:
@@ -39,7 +39,7 @@ def row_rank(keys: torch.Tensor) -> torch.Tensor:
         raise ValueError("row_rank takes keys[Q, W]")
     if keys.device.type == "cpu":
         return row_rank_ref(keys)
-    check_cuda_int32("row_rank", keys)
+    check_cuda("row_rank", (keys, torch.int32))
     out = torch.empty_like(keys)
     launch("row_rank", keys.device, keys.data_ptr(), keys.shape[0],
            keys.shape[1], out.data_ptr())

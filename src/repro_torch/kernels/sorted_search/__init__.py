@@ -1,9 +1,7 @@
 from .ops import (rank, rank_batched, sorted_search, sorted_search_batched,
                   sorted_search_endpoints)
-from .ref import (rank_batched_ref, rank_ref, sorted_search_batched_ref,
-                  sorted_search_ref)
+from .ref import rank_batched_ref, rank_ref, sorted_search_batched_ref
 
 __all__ = ["rank", "rank_batched", "rank_batched_ref", "rank_ref",
            "sorted_search", "sorted_search_batched",
-           "sorted_search_batched_ref", "sorted_search_endpoints",
-           "sorted_search_ref"]
+           "sorted_search_batched_ref", "sorted_search_endpoints"]

@@ -4,7 +4,7 @@ search of the fused LSM read and range scan (``csrc/rank_batched.cu``). A
 CUDA tensor goes to the hand kernel; a CPU tensor to the plain version."""
 import torch
 
-from ..common import check_cuda_int32, launch
+from ..common import check_cuda, launch
 from .ref import rank_batched_ref, rank_ref
 
 
@@ -15,7 +15,7 @@ def rank(tab: torch.Tensor, q: torch.Tensor, strict: bool) -> torch.Tensor:
         raise ValueError("rank takes tab[N] and q[Q]")
     if tab.device.type == "cpu":
         return rank_ref(tab, q, strict)
-    check_cuda_int32("rank", tab, q)
+    check_cuda("rank", (tab, torch.int32), (q, torch.int32))
     out = torch.empty(q.shape[0], dtype=torch.int32, device=tab.device)
     launch("rank", tab.device, tab.data_ptr(), tab.shape[0], q.data_ptr(),
            q.shape[0], int(strict), out.data_ptr())
@@ -44,7 +44,8 @@ def rank_batched(tabs: torch.Tensor, q: torch.Tensor,
         raise ValueError("rank_batched takes tabs[K, N] and q[Q]")
     if tabs.device.type == "cpu":
         return rank_batched_ref(tabs, q, strict)
-    check_cuda_int32("rank_batched", tabs, q)
+    check_cuda("rank_batched", (tabs, torch.int32),
+               (q, torch.int32))
     n_k, n = tabs.shape
     if n_k > 65535:
         raise ValueError(f"rank_batched: K={n_k} exceeds the grid limit")

@@ -32,8 +32,3 @@ def rank_ref(tab: torch.Tensor, q: torch.Tensor, strict: bool) -> torch.Tensor:
     count over the one table ``tab[N]``. int32 [Q]."""
     return rank_batched_ref(tab[None], q, strict)[0]
 
-
-def sorted_search_ref(tab, n_valid, q, side: str = "left"):
-    """searchsorted over the valid prefix of ``tab``."""
-    return torch.searchsorted(tab[:n_valid], q, right=(side == "right"),
-                              out_int32=True)

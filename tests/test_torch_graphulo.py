@@ -1,7 +1,8 @@
 """Server-side GraphBLAS ops (``db.graphulo``) of the port against the JAX
 package's on the same tables (the fixture of ``tests/test_graphulo.py``)
 and against dense oracles: SpMV on both routes (the ELL kernel, or the
-host COO product), SpGEMM into a new table, and the triangle count."""
+float64 COO product in PyTorch on the table's device), SpGEMM into a new
+table, and the triangle count."""
 import numpy as np
 import pytest
 
@@ -31,7 +32,8 @@ def setup():
     a = Assoc(rows, cols, vals, func="last")
     for r, c, v in zip(*a.triples()):
         dense[st.keydict.get(r), st.keydict.get(c)] = v
-    return dict(st=st, sj=sj, t=t, j=j, dense=dense)
+    return dict(st=st, sj=sj, t=t, j=j, dense=dense,
+                raw=(rows, cols, vals))
 
 
 @pytest.mark.parametrize("use_pallas", [False, True])
@@ -71,3 +73,26 @@ def test_triangle_count_matches_jax_and_oracle(setup):
     want = int(round(np.trace(a @ a @ a) / 6.0))
     assert tg.table_tricount(setup["t"], setup["st"]) == want
     assert jg.table_tricount(setup["j"], setup["sj"]) == want
+
+
+@pytest.mark.gpu
+def test_spmv_routes_stay_on_card(setup):
+    """On a table on the card both routes compute there: the kernel route
+    launches the ELL kernel once, the PyTorch route launches no hand kernel,
+    and both agree with the JAX host product."""
+    import torch
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cfg = dict(num_shards=2, capacity_per_shard=4096, batch_cap=2048,
+               id_capacity=1 << 12)
+    sc = dbsetup("graphulo_c", cfg, device="cuda")
+    c = sc["cuda_A", "cuda_AT"]
+    c.put_triple(*setup["raw"])
+    x = np.random.default_rng(7).random(len(sc.keydict))
+    want = jg.table_spmv(setup["j"], x)
+    for use_pallas, launched in ((True, 1), (False, 0)):
+        reset_launches()
+        got = tg.table_spmv(c, x, use_pallas=use_pallas)
+        assert LAUNCHES["spmv_ell"] == launched
+        np.testing.assert_allclose(got[:len(want)], want, rtol=1e-5)
