@@ -5,7 +5,8 @@ Drives the paper's Listing-1 database path through the connector a user
 calls — ``dbsetup`` → bind the ``Tedge``/``TedgeT`` pair → ``put`` →
 row, column and range reads → ``delete`` — on a Graph500 graph, then the
 D4M 2.0 schema with its degree table and the Fig. 4 reads, the legacy
-single-run engine, and Graphulo's SpMV; builds the hand-written CUDA
+single-run engine, Graphulo's SpMV, and the LM serving path
+(``launch/serve.py`` → ``Engine`` → prefill / decode); builds the hand-written CUDA
 kernels from ``src/repro_torch/csrc``, shows that each path launched its
 kernels, and holds each kernel against its plain PyTorch version at the
 path's shapes.
@@ -33,12 +34,23 @@ Phases (each raises on failure):
   4d. Graphulo ``table_spmv`` on the schema's Tedge, both routes (the ELL
      kernel and the PyTorch product on the card) against a float64 product
      on the host, for a one-hot x at the largest out-degree and a random x;
+  6. LM serving: smollm-135m at full width (30 layers, d_model 576, 9
+     heads over 3 KV heads, hd 64, vocabulary 49,152, tied embeddings) in
+     bf16 from the port's seeded init, on the card: run a is
+     ``repro_torch.launch.serve``'s defaults (8 requests of 4-23 tokens,
+     16 new tokens each, 4 slots, max_len 128), run b a long context (4
+     requests of 1,920 tokens, 128 new tokens each, max_len 2,048). Every
+     request yields its tokens, self-attention runs only on the
+     flash-attention kernel (960 and 3,840 launches), the card's first
+     prefill equals the same weights' prefill on the CPU within 2e-2, and
+     prefill-then-decode equals the full prefill within 5e-2 (bf16);
   5. each kernel against its plain version on the card at every input
-     each path gave it (recorded in phases 3, 4b, 4c and 4d: per geometry
-     for the LSM kernels, per call for the 1-D rank, segment sum and SpMV),
-     ranks and degree sums exactly equal, SpMV within rtol=1e-5, with
-     kernel / plain / library-call times per launch (CUDA graphs and CUDA
-     events), averaged over all the paths' launches.
+     each path gave it (recorded in phases 3, 4b, 4c, 4d and 6: per
+     geometry for the LSM kernels and flash attention, per call for the
+     1-D rank, segment sum and SpMV), ranks and degree sums exactly equal,
+     SpMV within rtol=1e-5, attention within 2e-2 (bf16) / 2e-5 (float32),
+     with kernel / plain / library-call times per launch (CUDA graphs and
+     CUDA events), averaged over all the paths' launches.
 
 The second-to-last line is the kernels JSON; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA device
@@ -61,6 +73,7 @@ from pathlib import Path
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 64 * 132 * 1.98e9
 PEAK_F32_PER_S = 67e12
+PEAK_BF16_PER_S = 989e12  # dense bf16 tensor-core rate
 
 ROOT = Path(__file__).resolve().parent
 
@@ -314,12 +327,14 @@ def wrapper_sites():
     from repro_torch.db import graphulo, kvstore
     from repro_torch.kernels.merge_rank import ops as merge_ops
     from repro_torch.kernels.sorted_search import ops as search_ops
+    from repro_torch.models import layers
     return {"rank_batched": (search_ops, "rank_batched"),
             "row_rank": (merge_ops, "row_rank"),
             "pair_rank": (merge_ops, "pair_rank"),
             "rank": (search_ops, "rank"),
             "segment_sum": (kvstore, "segment_sum"),
-            "spmv_ell": (graphulo, "spmv_ell")}
+            "spmv_ell": (graphulo, "spmv_ell"),
+            "flash_attention": (layers, "flash_attention")}
 
 
 @contextlib.contextmanager
@@ -507,11 +522,132 @@ def graphulo_spmv(g, DB, seed, stash=None):
     return times, launches
 
 
+# ------------------------------------------------------------------ phase 6
+SERVE_ARCH = "smollm-135m"
+
+
+def serving(seed, stash, profile_dir=None):
+    """The LM serving path at full width, in bf16, on the card: run a
+    through ``repro_torch.launch.serve.main`` with its defaults, run b (a
+    long context at SmolLM-135M's published 2,048-token window) through
+    ``Engine``; then the card's first prefill of run a against the same
+    weights' prefill on the CPU, and prefill-then-decode against the full
+    prefill. With ``profile_dir`` set, both runs are then repeated under
+    torch.profiler. Returns (stats, launches) of the two runs."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import build, init_params, transformer
+    from repro_torch.serve import Engine, Request
+
+    cfg = get_config(SERVE_ARCH)
+    model = build(cfg)
+    log(f"phase 6: {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads over {cfg.n_kv_heads}, hd {cfg.hd}, vocab "
+        f"{cfg.vocab} (padded {cfg.vocab_padded}), {cfg.param_dtype}")
+    stats, launches = {}, {}
+    torch.cuda.reset_peak_memory_stats()
+    with kernel_run(stash["serve_a"]) as launches["serve_a"]:
+        stats["serve_a"] = launch_serve.main(["--arch", SERVE_ARCH,
+                                              "--seed", str(seed)])
+    # the CLI's weights and prompts: its seeded CPU generator and numpy rng
+    params = init_params(model.param_specs, torch.Generator().manual_seed(seed))
+    rng = np.random.default_rng(seed)
+    prompts_a = [rng.integers(1, cfg.vocab, rng.integers(4, 24)).astype(
+        np.int32) for _ in range(8)]
+    rng = np.random.default_rng(seed)
+    reqs = [Request(prompt=rng.integers(1, cfg.vocab, 1920).astype(np.int32),
+                    max_new=128) for _ in range(4)]
+    engine = Engine(model, params, batch_slots=4, max_len=2048)
+    with kernel_run(stash["serve_b"]) as launches["serve_b"]:
+        stats["serve_b"] = engine.run(reqs)
+    stats["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    # every request yields its tokens; self-attention is the kernel only:
+    # batches x (1 prefill + max_new - 1 decode steps) x layers
+    for run, n_tok, want in (("serve_a", 8 * 16, 2 * 16 * cfg.n_layers),
+                             ("serve_b", 4 * 128, 1 * 128 * cfg.n_layers)):
+        got = launches[run]
+        if stats[run]["tokens_out"] != n_tok:
+            raise AssertionError(f"phase 6 {run}: {stats[run]['tokens_out']} "
+                                 f"tokens, want {n_tok}")
+        if got["flash_attention"] != want or sum(got.values()) != want:
+            raise AssertionError(f"phase 6 {run}: launches {got}, want "
+                                 f"{want} of flash_attention only")
+    for r in reqs:
+        if len(r.out) != 128 or r.out.min() < 0 or \
+                r.out.max() >= cfg.vocab_padded:
+            raise AssertionError(f"phase 6 serve_b: tokens {r.out}")
+
+    # the card's first prefill of run a against the CPU's (plain attention)
+    plen = max(len(p) for p in prompts_a[:4])
+    toks = np.zeros((4, plen), np.int32)
+    for j, p in enumerate(prompts_a[:4]):
+        toks[j, plen - len(p):] = p
+    toks = torch.from_numpy(toks)
+    card, _ = transformer.prefill(cfg, engine.params, toks.cuda(), 128)
+    cpu, _ = transformer.prefill(cfg, params, toks, 128)
+    card = card.cpu()
+    if card.shape != (4, 1, cfg.vocab_padded) or \
+            not torch.isfinite(card).all():
+        raise AssertionError(f"phase 6: prefill logits {card.shape}")
+    err_cpu = float((card - cpu).abs().max())
+    torch.testing.assert_close(card, cpu, rtol=2e-2, atol=2e-2,
+                               msg=lambda m: f"phase 6 card vs CPU: {m}")
+    # prefill then one decode step equals the full prefill (bf16: the
+    # tolerance of tests/test_arch_smoke.py)
+    full, _ = transformer.prefill(cfg, engine.params, toks.cuda(), 128)
+    _, cache = transformer.prefill(cfg, engine.params, toks[:, :-1].cuda(),
+                                   128)
+    dec, _ = transformer.decode_step(cfg, engine.params, toks[:, -1:].cuda(),
+                                     cache, plen - 1)
+    err_dec = float((dec - full).abs().max())
+    torch.testing.assert_close(dec, full, rtol=5e-2, atol=5e-2,
+                               msg=lambda m: f"phase 6 decode vs prefill: {m}")
+    log(f"phase 6 checks: card vs CPU prefill max |diff| {err_cpu:.6f}, "
+        f"prefill-then-decode vs prefill max |diff| {err_dec:.6f}")
+    if profile_dir is not None:  # one more run of each, traced
+        profiled("serve_a", lambda: launch_serve.main(
+            ["--arch", SERVE_ARCH, "--seed", str(seed)]), profile_dir)
+        rng = np.random.default_rng(seed)
+        again = [Request(prompt=rng.integers(1, cfg.vocab, 1920).astype(
+            np.int32), max_new=128) for _ in range(4)]
+        profiled("serve_b", lambda: engine.run(again), profile_dir)
+        for r, a in zip(reqs, again):
+            if not np.array_equal(r.out, a.out):
+                raise AssertionError("phase 6: traced run b's tokens differ")
+    return stats, launches
+
+
 # ------------------------------------------------------------------ phase 5
+def input_groups(inputs):
+    """Group recorded inputs as 'path shapes kw=...': the decode steps'
+    positions (``q_offset``) fold into one group, shown as a range.
+    Returns {text: [indices into inputs]}."""
+    groups, offs = {}, {}
+    for n, (path, key, _, _) in enumerate(inputs):
+        kw = dict(key[1])
+        off = kw.pop("q_offset", None)
+        text = f"{path} " + " ".join(
+            str(list(x)) if isinstance(x, tuple) else str(x)
+            for x in key[0]) + "".join(f" {k}={v}" for k, v in kw.items())
+        groups.setdefault(text, []).append(n)
+        if off is not None:
+            offs.setdefault(text, []).append(off)
+    out = {}
+    for text, idx in groups.items():
+        o = offs.get(text, [])
+        span = (f" q_offset={min(o)}" if len(o) == 1 else
+                f" q_offset={min(o)}..{max(o)}" if o else "")
+        out[text + span] = idx
+    return out
+
+
 def kernel_checks(stash, launches):
     """Each kernel against its plain version at every input each path gave
-    it (``stash[path][kernel]``, recorded in phases 3, 4b, 4c and 4d: one
-    per geometry for #1-#3, every call for #4-#6). ``launches[path]`` are
+    it (``stash[path][kernel]``, recorded in phases 3, 4b, 4c, 4d and 6:
+    one per geometry for #1-#3 and #7, every call for #4-#6; a decode
+    step's position is part of #7's geometry). ``launches[path]`` are
     the paths' launch counts. Every time is the mean per launch over all
     the paths' launches, so ms x launches is the kernel's device time on
     the paths."""
@@ -525,6 +661,8 @@ def kernel_checks(stash, launches):
     from repro_torch.kernels.sorted_search import (rank, rank_batched,
                                                    rank_batched_ref, rank_ref)
     from repro_torch.kernels.spmv import spmv_ell, spmv_ell_ref
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_ref)
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(1)
@@ -542,6 +680,14 @@ def kernel_checks(stash, launches):
         than the plain row sum, so within rtol=1e-5."""
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6,
                                    msg=lambda m: f"{name}: {m}")
+        return float((got.double() - want.double()).abs().max())
+
+    def check_attn(name, got, want):
+        """Attention: the kernel's online softmax and dot products add in
+        another order than the plain version: the CPU tests' tolerances."""
+        tol = 2e-2 if got.dtype == torch.bfloat16 else 2e-5
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol, msg=lambda m: f"{name}: {m}")
         return float((got.double() - want.double()).abs().max())
 
     def steps(n):  # probe steps of a binary search over n entries
@@ -591,7 +737,35 @@ def kernel_checks(stash, launches):
         return (4 * (cols.numel() + nnz + x.numel() + cols.shape[0]),
                 2 * nnz)
 
+    # attention: q read and o written once, and of K and V only the keys
+    # some row may see (the causal limit of the last row); four flops per
+    # (row, key, dim) pair kept by the mask (q.k and p.v, multiply + add)
+    def attn_cost(args, kw):
+        q, k, _ = args
+        b, sq, h, hd = q.shape
+        sk, kvh = k.shape[1], k.shape[2]
+        off = kw.get("q_offset", 0)
+        if kw.get("causal", True):
+            pairs = int(np.minimum(sk, off + np.arange(sq) + 1).sum())
+            keys = min(sk, off + sq)
+        else:
+            pairs, keys = sq * sk, sk
+        es = q.element_size()
+        return (es * (2 * b * sq * h * hd + 2 * b * keys * kvh * hd),
+                4 * b * h * hd * pairs)
+
     # one PyTorch call computing the same function
+    def attn_lib(args, kw):  # SDPA, [B, H, S, hd] and the mask off the clock
+        q, k, v = (x.transpose(1, 2).contiguous() for x in args)
+        sq, sk = q.shape[2], k.shape[2]
+        mask = None
+        if kw.get("causal", True):
+            mask = (kw.get("q_offset", 0)
+                    + torch.arange(sq, device=dev)[:, None]
+                    >= torch.arange(sk, device=dev)[None, :])
+        return lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, enable_gqa=True)
+
     def search_lib(args, kw):
         tabs, qq = args
         qk = qq[None].expand(tabs.shape[0], -1).contiguous()
@@ -654,6 +828,10 @@ def kernel_checks(stash, launches):
         ("spmv_ell", spmv_ell, spmv_ell_ref, spmv_cost, spmv_lib, (3, 1),
          check_close, PEAK_F32_PER_S, True, "src/repro_torch/csrc/spmv_ell.cu",
          "src/repro/kernels/spmv/kernel.py:34"),
+        ("flash_attention", flash_attention, flash_attention_ref, attn_cost,
+         attn_lib, (5, 1), check_attn, PEAK_BF16_PER_S, False,
+         "src/repro_torch/csrc/flash_attention.cu",
+         "src/repro/kernels/flash_attention/kernel.py:64"),
     )
     for (name, fn, ref, cost, lib, (p_reps, p_warm), chk, peak, lib_eager,
          src, tpu) in specs:
@@ -670,24 +848,35 @@ def kernel_checks(stash, launches):
         n_calls = sum(by_path.values())
         if n_calls == 0:
             raise AssertionError(f"{name}: launched on no path")
-        err, tot = 0.0, dict.fromkeys(("ms", "eager", "plain", "lib", "bound"),
-                                      0.0)
+        err, per = 0.0, []  # per input: ms, eager, plain, lib, bound
         ops_by = [0.0, 0.0]
         for _, _, cnt, (args, kw) in inputs:
             want, t_plain = timed_once(lambda: ref(*args, **kw))
             err = max(err, chk(name, fn(*args, **kw), want))
             del want
-            w = cnt / n_calls
-            tot["ms"] += w * graph_ms(lambda: fn(*args, **kw), 50)
-            tot["eager"] += w * cuda_ms(lambda: fn(*args, **kw), 50)
-            tot["plain"] += w * (cuda_ms(lambda: ref(*args, **kw), p_reps,
-                                         warm=p_warm) if p_reps else t_plain)
+            t = {"ms": graph_ms(lambda: fn(*args, **kw), 50),
+                 "eager": cuda_ms(lambda: fn(*args, **kw), 50),
+                 "plain": (cuda_ms(lambda: ref(*args, **kw), p_reps,
+                                   warm=p_warm) if p_reps else t_plain),
+                 "lib": 0.0}
             if lib is not None:
                 timer = cuda_ms if lib_eager else graph_ms
-                tot["lib"] += w * timer(lib(args, kw), 50)
-            b, by = bound_ms(*cost(args, kw), peak_ops=peak)
-            tot["bound"] += w * b
-            ops_by[by == "operations"] += w * b
+                t["lib"] = timer(lib(args, kw), 50)
+            t["bound"], by = bound_ms(*cost(args, kw), peak_ops=peak)
+            ops_by[by == "operations"] += cnt * t["bound"]
+            per.append(t)
+
+        def mean(idx, k):  # launch-weighted mean over some inputs
+            n = sum(inputs[i][2] for i in idx)
+            return sum(inputs[i][2] * per[i][k] for i in idx) / n
+
+        groups = {f"{sum(inputs[i][2] for i in idx)}x {text}": idx
+                  for text, idx in input_groups(inputs).items()}
+        for text, idx in groups.items():
+            log(f"{name} {text}: ms {mean(idx, 'ms'):.6g}, plain "
+                f"{mean(idx, 'plain'):.6g}, library {mean(idx, 'lib'):.6g}, "
+                f"bound {mean(idx, 'bound'):.6g}")
+        tot = {k: mean(range(len(inputs)), k) for k in per[0]}
         out.append({"name": name, "route": "cuda", "source": src,
                     "replaces": tpu, "launches": n_calls,
                     "max_abs_err": err, "ms": tot["ms"],
@@ -698,12 +887,7 @@ def kernel_checks(stash, launches):
                     "eager_ms": tot["eager"],
                     "launches_by_path": {k: v for k, v in by_path.items()
                                          if v},
-                    "inputs": "; ".join(
-                        f"{path} {cnt}x " + " ".join(
-                            str(list(x)) if isinstance(x, tuple) else str(x)
-                            for x in key[0]) + "".join(
-                            f" {k}={v}" for k, v in key[1])
-                        for path, key, cnt, _ in inputs)})
+                    "inputs": "; ".join(groups)})
 
     # #2 also at the widest row the path sends it ([512, 256]: 8 runs x 32),
     # as a check (not part of the path's mean)
@@ -765,7 +949,8 @@ def main(argv=None):
         cold = listing1(graph, use_pallas, cap)[2]
         log(f"cold run (use_pallas={use_pallas}): {json.dumps(cold)}")
     # each path's recorded kernel inputs and launch counts, for phase 5
-    stash = {p: {} for p in ("listing1", "fig4", "graphulo", "single")}
+    stash = {p: {} for p in ("listing1", "fig4", "graphulo", "single",
+                             "serve_a", "serve_b")}
     launches = {}
     reads, stats, times, launches["listing1"] = listing1(
         graph, True, cap, stash["listing1"])
@@ -844,6 +1029,19 @@ def main(argv=None):
             g.delete()
             single_engine(graph, cap, use_pallas, reads,
                           profile_dir=args.profile)
+
+    # 6. LM serving at full width
+    serve_stats, serve_launches = serving(args.seed, stash, args.profile)
+    launches.update(serve_launches)
+    for run in ("serve_a", "serve_b"):
+        st = serve_stats[run]
+        log(f"phase 6 ({run}): " + json.dumps(
+            {"tok_per_s": st["tok_per_s"], "wall_s": st["wall_s"],
+             "prefill_s": st["prefill_s"], "decode_s": st["decode_s"],
+             "decode_steps": st["decode_steps"],
+             "tokens_out": st["tokens_out"], "batches": st["batches"],
+             "launches": serve_launches[run]["flash_attention"]}))
+    log(f"phase 6: peak device memory {serve_stats['peak_mem_gb']:.3f} GB")
 
     # 5. kernels against their plain versions
     kernels = kernel_checks(stash, launches)

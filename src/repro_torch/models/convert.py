@@ -1,0 +1,51 @@
+"""Weights carried across from the JAX package: its parameter pytree, as
+numpy arrays, to the port's parameter tree, bit for bit.
+
+A JAX bfloat16 array becomes numpy with dtype ``ml_dtypes.bfloat16``, which
+``torch.from_numpy`` rejects; its 16-bit words are reinterpreted through
+``int16`` instead, so nothing here imports ``ml_dtypes`` or jax."""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .config import ModelConfig
+from .spec import PSpec
+from . import transformer
+
+
+def tensor_from_numpy(arr: np.ndarray, dtype: torch.dtype,
+                      device="cpu") -> torch.Tensor:
+    """One leaf: a numpy array (a 2-byte float array is taken as bf16 words
+    when ``dtype`` is bf16) -> a tensor of ``dtype``, same bits."""
+    arr = np.ascontiguousarray(arr)
+    if dtype == torch.bfloat16:
+        if arr.dtype.itemsize != 2:
+            raise TypeError(f"expected 2-byte bf16 words, got {arr.dtype}")
+        t = torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(arr.copy())
+        if t.dtype != dtype:
+            raise TypeError(f"expected {dtype}, got {t.dtype}")
+    return t.to(device)
+
+
+def params_from_jax(cfg: ModelConfig, tree, device="cpu") -> dict:
+    """The JAX parameter pytree of ``transformer.param_specs(cfg)`` (numpy
+    leaves, stacked ``[L, ...]`` blocks) -> the port's parameter tree; every
+    leaf's shape must match its spec."""
+    specs = transformer.param_specs(cfg)
+
+    def pick(path_tree, spec_tree):
+        if isinstance(spec_tree, dict):
+            if set(path_tree) != set(spec_tree):
+                raise KeyError(f"keys {sorted(path_tree)} vs the specs' "
+                               f"{sorted(spec_tree)}")
+            return {k: pick(path_tree[k], spec_tree[k]) for k in spec_tree}
+        s: PSpec = spec_tree
+        arr = np.asarray(path_tree)
+        if tuple(arr.shape) != tuple(s.shape):
+            raise ValueError(f"shape {arr.shape} vs the spec's {s.shape}")
+        return tensor_from_numpy(arr, s.dtype, device)
+
+    return pick(tree, specs)

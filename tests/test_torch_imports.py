@@ -18,10 +18,12 @@ def test_port_imports_without_jax_or_repro():
             "repro_torch.kernels.merge_rank, repro_torch.data, "
             "repro_torch.obs.export, repro_torch.kernels.segment_reduce, "
             "repro_torch.kernels.spmv, repro_torch.db.schema, "
-            "repro_torch.db.naive, repro_torch.db.graphulo\n"
+            "repro_torch.db.naive, repro_torch.db.graphulo, "
+            "repro_torch.models, repro_torch.configs, repro_torch.serve, "
+            "repro_torch.launch.serve, repro_torch.kernels.flash_attention\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
-            "m.startswith('repro.'))\n"
+            "m.startswith('repro.') or m == 'ml_dtypes')\n"
             "print(bad)\nassert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=str(SRC))
     out = subprocess.run([sys.executable, "-c", code], env=env,
@@ -31,7 +33,7 @@ def test_port_imports_without_jax_or_repro():
 
 def test_no_source_file_names_jax_or_repro():
     pat = re.compile(r"^\s*(import jax|from jax|from repro\.|from repro import"
-                     r"|import repro\b)", re.M)
+                     r"|import repro\b|import ml_dtypes|from ml_dtypes)", re.M)
     files = sorted((SRC / "repro_torch").rglob("*.py"))
     assert files
     for p in files:
@@ -52,3 +54,23 @@ def test_entry_points_refuse_a_missing_card():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         LSMRuns(2, 256, 16, "last")
     assert dbsetup("cpu_ok", device="cpu").device.type == "cpu"
+
+
+def test_serving_entry_points_refuse_a_missing_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch.serve import main
+    from repro_torch.models import build, init_params
+    from repro_torch.serve import Engine
+    cfg = get_reduced("smollm-135m")
+    model = build(cfg)
+    params = init_params(model.param_specs, torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Engine(model, params)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(["--reduced"])
+    assert Engine(model, params, device="cpu").device.type == "cpu"
+    stats = main(["--reduced", "--device", "cpu", "--requests", "2",
+                  "--max-new", "3"])
+    assert stats["tokens_out"] == 6

@@ -383,7 +383,8 @@ def test_cpu_tensors_never_launch():
     tsp.spmv_ell(T(np.zeros((2, 3), np.int32)), T(np.ones((2, 3), np.float32)),
                  T(np.ones(4, np.float32)))
     assert LAUNCHES == {"rank_batched": 0, "pair_rank": 0, "row_rank": 0,
-                        "rank": 0, "segment_sum": 0, "spmv_ell": 0}
+                        "rank": 0, "segment_sum": 0, "spmv_ell": 0,
+                        "flash_attention": 0}
 
 
 @pytest.mark.gpu

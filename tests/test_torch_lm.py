@@ -1,0 +1,202 @@
+"""The port's LM serving path against the JAX package on the reduced
+configs of the four dense architectures, weights carried by
+``params_from_jax`` from ``repro.models.init_params(key 0)``:
+
+- the carried weights are bit-equal;
+- prefill logits and KV caches, then three decode steps, agree at float32
+  (``param_dtype="float32"``: atol/rtol 1e-4, summation order) and at
+  bf16 (atol/rtol 2e-2: the JAX ``_sdpa`` rounds scores and weights to
+  bf16 where the port's attention keeps float32, and the frameworks round
+  the bf16 products at other places);
+- the two ``Engine``s give the same greedy tokens in float32;
+- the port's prefill-then-decode equals its full prefill.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_reduced as jax_reduced
+from repro.models import build as jax_build
+from repro.models import init_params as jax_init
+from repro.models import layers as jax_layers
+from repro.models import transformer as jax_tf
+from repro.serve import Engine as JaxEngine
+from repro.serve import Request as JaxRequest
+from repro_torch.configs import get_reduced
+from repro_torch.models import build, layers, params_from_jax, transformer
+from repro_torch.models.convert import tensor_from_numpy
+from repro_torch.serve import Engine, Request
+
+DENSE = ["smollm-135m", "qwen2.5-3b", "yi-34b", "command-r-plus-104b"]
+TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+SH = lambda x, *a: x  # noqa: E731  (the JAX identity sharder)
+B, S, STEPS = 2, 9, 3
+
+
+def _cfgs(arch, dtype):
+    return (dataclasses.replace(jax_reduced(arch), param_dtype=dtype),
+            dataclasses.replace(get_reduced(arch), param_dtype=dtype))
+
+
+def _jax_params(jcfg, seed=0):
+    params = jax_init(jax_build(jcfg).param_specs, jax.random.key(seed))
+    return jax.tree.map(np.asarray, params)
+
+
+def _close(got, want, tol, what):
+    np.testing.assert_allclose(np.asarray(got.float()),
+                               np.asarray(want, np.float32), rtol=tol,
+                               atol=tol, err_msg=what)
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_params_from_jax_bit_equal(arch):
+    jcfg, cfg = _cfgs(arch, "bfloat16")
+    jp = _jax_params(jcfg)
+    tp = params_from_jax(cfg, jp)
+    flat = jax.tree_util.tree_flatten_with_path(jp)[0]
+    assert flat
+    for path, arr in flat:
+        leaf = tp
+        for key in path:
+            leaf = leaf[key.key]
+        assert tuple(leaf.shape) == arr.shape
+        if leaf.dtype == torch.bfloat16:
+            np.testing.assert_array_equal(
+                leaf.view(torch.int16).numpy(), arr.view(np.int16))
+        else:
+            np.testing.assert_array_equal(leaf.numpy(), arr)
+    if jcfg.qkv_bias:
+        assert tp["blocks"]["attn"]["bq"].dtype == torch.float32
+    with pytest.raises(ValueError, match="shape"):
+        bad = jax.tree.map(lambda x: x, jp)
+        bad["final_norm"]["scale"] = np.ones(3, np.float32)
+        params_from_jax(cfg, bad)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", DENSE)
+def test_prefill_and_decode_match_jax(arch, dtype):
+    jcfg, cfg = _cfgs(arch, dtype)
+    jp = _jax_params(jcfg)
+    tp = params_from_jax(cfg, jp)
+    tol = TOL[dtype]
+    max_len = S + STEPS
+    toks = np.random.default_rng(3).integers(1, cfg.vocab, (B, S)).astype(
+        np.int32)
+    jl, jc = jax.jit(lambda p, t: jax_tf.prefill(jcfg, p, t, SH, max_len))(
+        jp, jnp.asarray(toks))
+    tl, tc = transformer.prefill(cfg, tp, torch.from_numpy(toks), max_len)
+    assert tl.dtype == torch.float32 and tl.shape == (B, 1, cfg.vocab_padded)
+    assert tc[0].shape == (cfg.n_layers, B, max_len, cfg.n_kv_heads, cfg.hd)
+    _close(tl, jl, tol, "prefill logits")
+    for got, want, name in zip(tc, jc, "kv"):
+        _close(got, want, tol, f"prefill cache {name}")
+    jdec = jax.jit(lambda p, t, c, pos: jax_tf.decode_step(jcfg, p, t, c, pos,
+                                                           SH))
+    nxt = np.array(jnp.argmax(jl[:, -1], -1), np.int32)[:, None]
+    for step in range(STEPS):
+        pos = S + step
+        jl, jc = jdec(jp, jnp.asarray(nxt), jc, jnp.asarray(pos, jnp.int32))
+        tl, tc = transformer.decode_step(cfg, tp, torch.from_numpy(nxt), tc,
+                                         pos)
+        _close(tl, jl, tol, f"decode {step} logits")
+        for got, want, name in zip(tc, jc, "kv"):
+            _close(got, want, tol, f"decode {step} cache {name}")
+        # both packages continue from the JAX tokens, so one near-tie in
+        # bf16 cannot send them down different paths
+        nxt = np.array(jnp.argmax(jl[:, -1], -1), np.int32)[:, None]
+
+
+@pytest.mark.parametrize("arch", ["smollm-135m", "qwen2.5-3b"])
+def test_engine_greedy_tokens_match_jax(arch):
+    jcfg, cfg = _cfgs(arch, "float32")
+    jp = _jax_params(jcfg)
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(1, cfg.vocab, int(n)).astype(np.int32)
+               for n in rng.integers(3, 11, 5)]
+    jreqs = [JaxRequest(prompt=p, max_new=6) for p in prompts]
+    treqs = [Request(prompt=p, max_new=6) for p in prompts]
+    jstats = JaxEngine(jax_build(jcfg), jax.tree.map(jnp.asarray, jp),
+                       batch_slots=3, max_len=24).run(jreqs)
+    tstats = Engine(build(cfg), params_from_jax(cfg, jp), batch_slots=3,
+                    max_len=24, device="cpu").run(treqs)
+    assert tstats["tokens_out"] == jstats["tokens_out"] == 30
+    assert tstats["batches"] == 2
+    for jr, tr in zip(jreqs, treqs):
+        np.testing.assert_array_equal(tr.out, jr.out)
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_prefill_then_decode_matches_full_prefill(arch):
+    """logits(prefill t[:n]) then decode(t[n]) equal prefill(t[:n+1]) (the
+    check of tests/test_arch_smoke.py, on the port, in float32)."""
+    _, cfg = _cfgs(arch, "float32")
+    tp = params_from_jax(cfg, _jax_params(dataclasses.replace(
+        jax_reduced(arch), param_dtype="float32"), seed=1))
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        1, cfg.vocab, (B, 32)).astype(np.int32))
+    full, _ = transformer.prefill(cfg, tp, toks)
+    _, cache = transformer.prefill(cfg, tp, toks[:, :-1], max_len=32)
+    dec, _ = transformer.decode_step(cfg, tp, toks[:, -1:], cache, 31)
+    torch.testing.assert_close(dec, full, rtol=1e-4, atol=1e-4)
+
+
+def test_layernorm_and_gelu_match_jax():
+    """The layer branches the dense configs do not take (enc-dec's
+    LayerNorm and tanh-GELU MLP), against the JAX layers."""
+    jcfg = dataclasses.replace(jax_reduced("smollm-135m"), norm="layernorm",
+                               mlp="gelu", param_dtype="float32")
+    cfg = dataclasses.replace(get_reduced("smollm-135m"), norm="layernorm",
+                              mlp="gelu", param_dtype="float32")
+    rng = np.random.default_rng(2)
+    x = rng.normal(size=(2, 5, cfg.d_model)).astype(np.float32)
+    pn = {"scale": rng.normal(size=cfg.d_model).astype(np.float32),
+          "bias": rng.normal(size=cfg.d_model).astype(np.float32)}
+    pm = {"w_in": rng.normal(size=(cfg.d_model, cfg.d_ff)).astype(np.float32),
+          "w_out": rng.normal(size=(cfg.d_ff, cfg.d_model)).astype(np.float32)}
+    tn = {k: torch.from_numpy(v) for k, v in pn.items()}
+    tm = {k: torch.from_numpy(v) for k, v in pm.items()}
+    _close(layers.apply_norm(cfg, tn, torch.from_numpy(x)),
+           jax_layers.apply_norm(jcfg, pn, jnp.asarray(x)), 1e-5, "layernorm")
+    _close(layers.apply_mlp(cfg, tm, torch.from_numpy(x)),
+           jax_layers.apply_mlp(jcfg, pm, jnp.asarray(x), SH), 1e-4, "gelu")
+
+
+def test_build_serves_dense_only_and_refuses_training():
+    from repro.configs import get_config as jax_config
+    from repro.models import param_count as jax_param_count
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.models import param_count
+    for arch in ARCH_IDS:
+        cfg = get_reduced(arch)
+        if cfg.family == "dense":
+            model = build(cfg)
+            for port, ref in ((cfg, jax_reduced(arch)),
+                              (get_config(arch), jax_config(arch))):
+                assert param_count(build(port).param_specs) == \
+                    jax_param_count(jax_build(ref).param_specs)
+            with pytest.raises(NotImplementedError, match="item 11b"):
+                model.train_loss()
+            assert set(model.decode_input_specs(2, 16)) == {"token", "pos",
+                                                            "cache"}
+        else:
+            with pytest.raises(NotImplementedError, match="ROADMAP"):
+                build(cfg)
+    full = get_config("smollm-135m")
+    assert (full.n_layers, full.d_model, full.n_heads, full.n_kv_heads,
+            full.hd, full.vocab) == (30, 576, 9, 3, 64, 49152)
+
+
+def test_tensor_from_numpy_keeps_bf16_bits():
+    words = np.array([0x3F80, 0xC000, 0x7F7F, 0x0001], np.uint16)
+    arr = jnp.asarray(words.view(np.int16)).view(jnp.bfloat16)
+    t = tensor_from_numpy(np.asarray(arr), torch.bfloat16)
+    assert t.dtype == torch.bfloat16
+    np.testing.assert_array_equal(t.view(torch.int16).numpy(),
+                                  words.view(np.int16))
+    assert t[:2].tolist() == [1.0, -2.0]
