@@ -48,9 +48,12 @@ Phases (each raises on failure):
      each path gave it (recorded in phases 3, 4b, 4c, 4d and 6: per
      geometry for the LSM kernels and flash attention, per call for the
      1-D rank, segment sum and SpMV), ranks and degree sums exactly equal,
-     SpMV within rtol=1e-5, attention within 2e-2 (bf16) / 2e-5 (float32),
-     with kernel / plain / library-call times per launch (CUDA graphs and
-     CUDA events), averaged over all the paths' launches.
+     SpMV within rtol=1e-5, attention within about one bf16 ulp (rtol
+     8e-3, atol 1e-3; float32 2e-5) and an error norm within 1e-2 of the
+     output's, a limit that two planted faults at run b's inputs must
+     fail, with kernel / plain / library-call times per launch (CUDA
+     graphs and CUDA events; SDPA in the faster of its masked and
+     mask-free forms), averaged over all the paths' launches.
 
 The second-to-last line is the kernels JSON; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA device
@@ -682,13 +685,75 @@ def kernel_checks(stash, launches):
                                    msg=lambda m: f"{name}: {m}")
         return float((got.double() - want.double()).abs().max())
 
+    attn_rel = [0.0]  # the largest relative error norm #7's checks saw
+
+    def attn_err(got, want):
+        """(max |got - want|, ||got - want|| / ||want||, within the
+        limits). Both sides compute in float32 and round once to the
+        output dtype, adding in another order, so bf16 allows about one
+        ulp (rtol 8e-3) above atol 1e-3 (the outputs at run b's inputs
+        are ~1e-2), float32 2e-5; and for both an error norm within 1e-2
+        of the output's."""
+        if got.shape != want.shape or got.dtype != want.dtype:
+            raise AssertionError(f"attention: {got.shape} {got.dtype} vs "
+                                 f"{want.shape} {want.dtype}")
+        g, w = got.float(), want.float()
+        tol = (8e-3, 1e-3) if got.dtype == torch.bfloat16 else (2e-5, 2e-5)
+        d = (g - w).abs()
+        rel = float((g - w).norm() / w.norm().clamp_min(1e-30))
+        ok = bool((d <= tol[1] + tol[0] * w.abs()).all()) and rel <= 1e-2
+        return float(d.max()), rel, ok
+
     def check_attn(name, got, want):
-        """Attention: the kernel's online softmax and dot products add in
-        another order than the plain version: the CPU tests' tolerances."""
-        tol = 2e-2 if got.dtype == torch.bfloat16 else 2e-5
-        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
-                                   atol=tol, msg=lambda m: f"{name}: {m}")
-        return float((got.double() - want.double()).abs().max())
+        err, rel, ok = attn_err(got, want)
+        if not ok:
+            raise AssertionError(f"{name}: max |diff| {err:.3g}, relative "
+                                 f"error norm {rel:.3g} past the limits")
+        attn_rel[0] = max(attn_rel[0], rel)
+        return err
+
+    def masked_attention(q, k, v, keep):
+        """Plain float32 attention where key j is seen by row i iff
+        ``keep[i, j]``: makes the planted faults below."""
+        g = q.shape[2] // k.shape[2]
+        kk, vv = (x.float().repeat_interleave(g, dim=2) for x in (k, v))
+        sc = torch.einsum("bqhd,bkhd->bhqk", q.float(), kk) \
+            * q.shape[-1] ** -0.5
+        sc = sc.masked_fill(~keep, -1e30)
+        return torch.einsum("bhqk,bkhd->bqhd", sc.softmax(-1),
+                            vv).to(q.dtype)
+
+    def attn_faults():
+        """The power of #7's check at run b's inputs (its prefill and its
+        first decode step, where the cache holds 127 empty slots): two
+        planted faults, made with the plain math and a key mask, must
+        fail it: one of the decode's 8 key splits dropped (every 8th
+        32-key tile: the keys split s serves), and the causal limit moved
+        100 keys past each row's position. Returns the readings."""
+        calls = stash["serve_b"]["flash_attention"].calls
+        pre = [c[1] for key, c in calls.items() if key[0][0][1] > 1]
+        dec = [c[1] for key, c in calls.items() if key[0][0][1] == 1]
+        readings = {}
+        for label, (args, kw) in (("prefill", pre[0]), ("decode", min(
+                dec, key=lambda c: c[1]["q_offset"]))):
+            q, k, v = args
+            want = flash_attention_ref(*args, **kw)
+            rows = kw["q_offset"] + torch.arange(q.shape[1], device=dev)
+            keys = torch.arange(k.shape[1], device=dev)[None, :]
+            causal = rows[:, None] >= keys
+            for fault, keep in (
+                    ("split dropped", causal & ((keys // 32) % 8 != 7)),
+                    ("100 keys past", rows[:, None] + 100 >= keys)):
+                err, rel, ok = attn_err(masked_attention(q, k, v, keep),
+                                        want)
+                if ok:
+                    raise AssertionError(f"flash_attention: the check "
+                                         f"passes a planted fault ({fault}, "
+                                         f"run b {label})")
+                readings[f"{label}, {fault}"] = {"max_abs_err": err,
+                                                 "rel_err": rel}
+            del want
+        return readings
 
     def steps(n):  # probe steps of a binary search over n entries
         return max(1, math.ceil(math.log2(n + 1)))
@@ -755,16 +820,35 @@ def kernel_checks(stash, launches):
                 4 * b * h * hd * pairs)
 
     # one PyTorch call computing the same function
-    def attn_lib(args, kw):  # SDPA, [B, H, S, hd] and the mask off the clock
+    def attn_lib(args, kw):
+        """SDPA on [B, H, S, hd] copies (made off the clock) in two forms:
+        with the boolean causal mask, and without one where the function
+        allows it (``is_causal`` at q_offset 0, whose mask SDPA aligns
+        top-left; a decode row over the K/V slice it sees), which lets
+        SDPA take its fused flash backend. Each form's output is first
+        held against the plain version (the CPU tests' 2e-2)."""
+        sdpa = torch.nn.functional.scaled_dot_product_attention
         q, k, v = (x.transpose(1, 2).contiguous() for x in args)
         sq, sk = q.shape[2], k.shape[2]
-        mask = None
-        if kw.get("causal", True):
-            mask = (kw.get("q_offset", 0)
-                    + torch.arange(sq, device=dev)[:, None]
-                    >= torch.arange(sk, device=dev)[None, :])
-        return lambda: torch.nn.functional.scaled_dot_product_attention(
-            q, k, v, attn_mask=mask, enable_gqa=True)
+        off, causal = kw.get("q_offset", 0), kw.get("causal", True)
+        mask = (off + torch.arange(sq, device=dev)[:, None]
+                >= torch.arange(sk, device=dev)[None, :]) if causal else None
+        forms = {"lib_masked": lambda: sdpa(q, k, v, attn_mask=mask,
+                                            enable_gqa=True)}
+        if causal and off == 0:
+            forms["lib_free"] = lambda: sdpa(q, k, v, is_causal=True,
+                                             enable_gqa=True)
+        elif causal and sq == 1:
+            ks, vs = k[:, :, :off + 1], v[:, :, :off + 1]
+            forms["lib_free"] = lambda: sdpa(q, ks, vs, enable_gqa=True)
+        else:  # no mask, or no mask-free form: the same call
+            forms["lib_free"] = forms["lib_masked"]
+        want = flash_attention_ref(*args, **kw)
+        for form, fn in forms.items():
+            torch.testing.assert_close(
+                fn().transpose(1, 2), want, rtol=2e-2, atol=2e-2,
+                msg=lambda m: f"flash_attention library {form}: {m}")
+        return forms
 
     def search_lib(args, kw):
         tabs, qq = args
@@ -859,9 +943,14 @@ def kernel_checks(stash, launches):
                  "plain": (cuda_ms(lambda: ref(*args, **kw), p_reps,
                                    warm=p_warm) if p_reps else t_plain),
                  "lib": 0.0}
-            if lib is not None:
+            if lib is not None:  # the faster form where there are two
                 timer = cuda_ms if lib_eager else graph_ms
-                t["lib"] = timer(lib(args, kw), 50)
+                forms = lib(args, kw)
+                if callable(forms):
+                    forms = {"lib": forms}
+                for form, f in forms.items():
+                    t[form] = timer(f, 50)
+                t["lib"] = min(t[form] for form in forms)
             t["bound"], by = bound_ms(*cost(args, kw), peak_ops=peak)
             ops_by[by == "operations"] += cnt * t["bound"]
             per.append(t)
@@ -872,10 +961,12 @@ def kernel_checks(stash, launches):
 
         groups = {f"{sum(inputs[i][2] for i in idx)}x {text}": idx
                   for text, idx in input_groups(inputs).items()}
+        lib_forms = [k for k in per[0] if k.startswith("lib_")]
         for text, idx in groups.items():
             log(f"{name} {text}: ms {mean(idx, 'ms'):.6g}, plain "
-                f"{mean(idx, 'plain'):.6g}, library {mean(idx, 'lib'):.6g}, "
-                f"bound {mean(idx, 'bound'):.6g}")
+                f"{mean(idx, 'plain'):.6g}, library {mean(idx, 'lib'):.6g}"
+                + "".join(f" ({k[4:]} {mean(idx, k):.6g})" for k in lib_forms)
+                + f", bound {mean(idx, 'bound'):.6g}")
         tot = {k: mean(range(len(inputs)), k) for k in per[0]}
         out.append({"name": name, "route": "cuda", "source": src,
                     "replaces": tpu, "launches": n_calls,
@@ -888,6 +979,14 @@ def kernel_checks(stash, launches):
                     "launches_by_path": {k: v for k, v in by_path.items()
                                          if v},
                     "inputs": "; ".join(groups)})
+        if lib_forms:
+            out[-1]["library_forms_ms"] = {k[4:]: tot[k] for k in lib_forms}
+        if name == "flash_attention":
+            out[-1]["rel_err"] = attn_rel[0]
+            out[-1]["planted_faults"] = attn_faults()
+            log(f"flash_attention: largest relative error norm {attn_rel[0]:.3g}"
+                f"; planted faults, each failing the check: "
+                + json.dumps(out[-1]["planted_faults"]))
 
     # #2 also at the widest row the path sends it ([512, 256]: 8 runs x 32),
     # as a check (not part of the path's mean)

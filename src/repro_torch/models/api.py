@@ -31,7 +31,7 @@ class Model:
 
 
 def _tok_spec(gb: int, s: int) -> PSpec:
-    return PSpec((gb, s), ("batch", None), torch.int32, "zeros")
+    return PSpec((gb, s), torch.int32, "zeros")
 
 
 def _no_training(*_args, **_kw):
@@ -60,7 +60,7 @@ def build(cfg: ModelConfig) -> Model:
 
     def decode_in(gb, s):
         return {"token": _tok_spec(gb, 1),
-                "pos": PSpec((), (), torch.int32, "zeros"),
+                "pos": PSpec((), torch.int32, "zeros"),
                 "cache": transformer.cache_specs(cfg, gb, s)}
 
     return Model(cfg, transformer.param_specs(cfg), _no_training, prefill,

@@ -24,12 +24,11 @@ from .spec import PSpec
 
 # ------------------------------------------------------------------- norms
 def norm_specs(cfg: ModelConfig, prefix_shape=()) -> Dict:
-    axes = tuple([None] * len(prefix_shape)) + (None,)
-    base = {"scale": PSpec(prefix_shape + (cfg.d_model,), axes,
-                           dtype=torch.float32, init="ones")}
+    base = {"scale": PSpec(prefix_shape + (cfg.d_model,), torch.float32,
+                           "ones")}
     if cfg.norm == "layernorm":
-        base["bias"] = PSpec(prefix_shape + (cfg.d_model,), axes,
-                             dtype=torch.float32, init="zeros")
+        base["bias"] = PSpec(prefix_shape + (cfg.d_model,), torch.float32,
+                             "zeros")
     return base
 
 
@@ -66,20 +65,16 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
 # --------------------------------------------------------------- attention
 def attn_specs(cfg: ModelConfig, L=()) -> Dict:
     h, kv, d, hd = cfg.n_heads, cfg.n_kv_heads, cfg.d_model, cfg.hd
-    lax_ = tuple([None] * len(L))
     dt = cfg.dtype
     p = {
-        "wq": PSpec(L + (d, h * hd), lax_ + ("embed", "heads"), dt),
-        "wk": PSpec(L + (d, kv * hd), lax_ + ("embed", "kv_heads"), dt),
-        "wv": PSpec(L + (d, kv * hd), lax_ + ("embed", "kv_heads"), dt),
-        "wo": PSpec(L + (h * hd, d), lax_ + ("heads", "embed"), dt),
+        "wq": PSpec(L + (d, h * hd), dt),
+        "wk": PSpec(L + (d, kv * hd), dt),
+        "wv": PSpec(L + (d, kv * hd), dt),
+        "wo": PSpec(L + (h * hd, d), dt),
     }
     if cfg.qkv_bias:
-        for name, width, ax in (("bq", h * hd, "heads"),
-                                ("bk", kv * hd, "kv_heads"),
-                                ("bv", kv * hd, "kv_heads")):
-            p[name] = PSpec(L + (width,), lax_ + (ax,), torch.float32,
-                            "zeros")
+        for name, width in (("bq", h * hd), ("bk", kv * hd), ("bv", kv * hd)):
+            p[name] = PSpec(L + (width,), torch.float32, "zeros")
     return p
 
 
@@ -126,17 +121,16 @@ def attention(cfg: ModelConfig, p, x: torch.Tensor, positions: torch.Tensor,
 # ---------------------------------------------------------------------- mlp
 def mlp_specs(cfg: ModelConfig, L=()) -> Dict:
     d, f = cfg.d_model, cfg.d_ff
-    lax_ = tuple([None] * len(L))
     dt = cfg.dtype
     if cfg.mlp == "swiglu":
         return {
-            "w_gate": PSpec(L + (d, f), lax_ + ("embed", "ff"), dt),
-            "w_up": PSpec(L + (d, f), lax_ + ("embed", "ff"), dt),
-            "w_down": PSpec(L + (f, d), lax_ + ("ff", "embed"), dt),
+            "w_gate": PSpec(L + (d, f), dt),
+            "w_up": PSpec(L + (d, f), dt),
+            "w_down": PSpec(L + (f, d), dt),
         }
     return {
-        "w_in": PSpec(L + (d, f), lax_ + ("embed", "ff"), dt),
-        "w_out": PSpec(L + (f, d), lax_ + ("ff", "embed"), dt),
+        "w_in": PSpec(L + (d, f), dt),
+        "w_out": PSpec(L + (f, d), dt),
     }
 
 
@@ -149,11 +143,9 @@ def apply_mlp(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
 
 # ------------------------------------------------------------------- embed
 def embed_specs(cfg: ModelConfig) -> Dict:
-    d = {"embedding": PSpec((cfg.vocab_padded, cfg.d_model),
-                            ("vocab", "embed"), cfg.dtype)}
+    d = {"embedding": PSpec((cfg.vocab_padded, cfg.d_model), cfg.dtype)}
     if not cfg.tie_embeddings:
-        d["lm_head"] = PSpec((cfg.d_model, cfg.vocab_padded),
-                             ("embed", "vocab"), cfg.dtype)
+        d["lm_head"] = PSpec((cfg.d_model, cfg.vocab_padded), cfg.dtype)
     return d
 
 

@@ -1,29 +1,22 @@
 """Parameter specs: one declaration drives initialisation and the shapes of
 the serving inputs. A parameter tree is a nested dict of tensors with the
-JAX package's structure (stacked ``[L, ...]`` block leaves); ``Params``
-holds one as an ``nn.Module``."""
+JAX package's structure (stacked ``[L, ...]`` block leaves)."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Optional, Tuple
+from typing import Any, Callable, Tuple
 
 import numpy as np
 import torch
-from torch import nn
 
 
 @dataclasses.dataclass(frozen=True)
 class PSpec:
-    """Shape + dtype + logical axis names for one parameter leaf (the axis
-    names are kept for the mesh path; nothing reads them yet)."""
+    """Shape, dtype and initialiser of one parameter leaf (the JAX spec's
+    logical axis names come with the mesh item)."""
     shape: Tuple[int, ...]
-    axes: Tuple[Optional[str], ...]
     dtype: Any = torch.bfloat16
     init: str = "normal"              # normal | zeros | ones
-
-    def __post_init__(self):
-        if len(self.shape) != len(self.axes):
-            raise ValueError(f"PSpec: shape {self.shape} vs axes {self.axes}")
 
 
 def tree_map(fn: Callable, tree):
@@ -64,25 +57,3 @@ def param_count(specs) -> int:
     tree_map(lambda s: shapes.append(s.shape), specs)
     return sum(int(np.prod(shape)) for shape in shapes)
 
-
-class Params(nn.Module):
-    """A parameter tree as an ``nn.Module``: each dict is a submodule, each
-    tensor a frozen ``nn.Parameter``; ``p["name"]`` reads like the dict."""
-
-    def __init__(self, tree: dict):
-        super().__init__()
-        for k, x in tree.items():
-            if isinstance(x, dict):
-                self.add_module(k, Params(x))
-            else:
-                self.register_parameter(
-                    k, nn.Parameter(x, requires_grad=False))
-
-    def __getitem__(self, name: str):
-        return getattr(self, name)
-
-    def tree(self) -> dict:
-        """The nested dict of tensors this module holds."""
-        out = {k: m.tree() for k, m in self.named_children()}
-        out.update(self.named_parameters(recurse=False))
-        return out

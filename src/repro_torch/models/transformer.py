@@ -14,7 +14,7 @@ import torch
 
 from . import layers
 from .config import ModelConfig
-from .spec import Params, PSpec, tree_map
+from .spec import PSpec, tree_map
 
 Cache = Tuple[torch.Tensor, torch.Tensor]  # (k, v), each [L, B, Smax, KV, hd]
 
@@ -58,8 +58,6 @@ def apply_block(cfg: ModelConfig, p, x: torch.Tensor, positions, *,
 def _run_layers(cfg: ModelConfig, params, x, positions, cache: Cache,
                 pos: int):
     blocks = params["blocks"]
-    if isinstance(blocks, Params):
-        blocks = blocks.tree()
     for i in range(cfg.n_layers):  # layer i's parameters: views of the stack
         x, _ = apply_block(cfg, tree_map(lambda w: w[i], blocks), x,
                            positions, cache=(cache[0][i], cache[1][i]),
@@ -100,9 +98,7 @@ def decode_step(cfg: ModelConfig, params, token: torch.Tensor, cache: Cache,
 def cache_specs(cfg: ModelConfig, batch: int, max_len: int):
     """PSpec pair for the decode KV cache."""
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
-    axes = (None, "batch", "kv_seq", None, None)
-    return (PSpec(shape, axes, cfg.dtype, "zeros"),
-            PSpec(shape, axes, cfg.dtype, "zeros"))
+    return (PSpec(shape, cfg.dtype, "zeros"), PSpec(shape, cfg.dtype, "zeros"))
 
 
 def cache_zeros(cfg: ModelConfig, batch: int, max_len: int, device) -> Cache:

@@ -11,9 +11,8 @@ import numpy as np
 import torch
 
 from ..kernels.common import resolve_device
-from ..models import transformer
 from ..models.api import Model
-from ..models.spec import Params
+from ..models.spec import tree_map
 
 
 @dataclasses.dataclass
@@ -33,9 +32,7 @@ class Engine:
                  device: Union[str, torch.device] = "cuda"):
         self.device = resolve_device(device)
         self.model = model
-        # the weights as one frozen nn.Module on the engine's device
-        self.params = (params if isinstance(params, Params)
-                       else Params(params)).to(self.device)
+        self.params = tree_map(lambda w: w.to(self.device), params)
         self.slots = batch_slots
         self.max_len = max_len
 
@@ -58,16 +55,15 @@ class Engine:
         return logits[:, -1, :].argmax(-1).to(torch.int32).cpu().numpy()
 
     def _run_batch(self, batch: List[Request], stats: dict) -> None:
-        cfg = self.model.cfg
         b = len(batch)
         plen = max(len(r.prompt) for r in batch)
         toks = np.zeros((self.slots, plen), np.int32)
         for j, r in enumerate(batch):
             toks[j, plen - len(r.prompt):] = r.prompt  # left-pad
         t0 = time.perf_counter()
-        logits, cache = transformer.prefill(
-            cfg, self.params, torch.from_numpy(toks).to(self.device),
-            max_len=self.max_len)
+        logits, cache = self.model.prefill(
+            self.params, {"tokens": torch.from_numpy(toks).to(self.device),
+                          "max_len": self.max_len})
         new = self._greedy(logits)
         stats["prefill_s"] += time.perf_counter() - t0
         outs = [[int(new[j])] for j in range(b)]
@@ -78,8 +74,8 @@ class Engine:
             if pos >= self.max_len:
                 break
             token = torch.from_numpy(new[:, None]).to(self.device)
-            logits, cache = transformer.decode_step(cfg, self.params, token,
-                                                    cache, pos)
+            logits, cache = self.model.decode(
+                self.params, {"token": token, "cache": cache, "pos": pos})
             new = self._greedy(logits)
             stats["decode_steps"] += 1
             for j in range(b):
