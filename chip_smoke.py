@@ -31,9 +31,10 @@ Phases (each raises on failure):
   4c. the legacy single-run engine (``engine="single"``) on both paths:
      the phase-3 row-id read, row range and a column read (host scan +
      filter) equal phase 3's reads;
-  4d. Graphulo ``table_spmv`` on the schema's Tedge, both routes (the ELL
-     kernel and the PyTorch product on the card) against a float64 product
-     on the host, for a one-hot x at the largest out-degree and a random x;
+  4d. Graphulo ``table_spmv`` on the schema's Tedge, both routes (the CSR
+     kernel and the PyTorch product on the card), and the ELL kernel on the
+     ELL of the same scan, against a float64 product on the host, for a
+     one-hot x at the largest out-degree and a random x;
   6. LM serving: smollm-135m at full width (30 layers, d_model 576, 9
      heads over 3 KV heads, hd 64, vocabulary 49,152, tied embeddings) in
      bf16 from the port's seeded init, on the card: run a is
@@ -47,7 +48,7 @@ Phases (each raises on failure):
   5. each kernel against its plain version on the card at every input
      each path gave it (recorded in phases 3, 4b, 4c, 4d and 6: per
      geometry for the LSM kernels and flash attention, per call for the
-     1-D rank, segment sum and SpMV), ranks and degree sums exactly equal,
+     1-D rank, segment sum and SpMVs), ranks and degree sums exactly equal,
      SpMV within rtol=1e-5, attention within about one bf16 ulp (rtol
      8e-3, atol 1e-3; float32 2e-5) and an error norm within 1e-2 of the
      output's, a limit that two planted faults at run b's inputs must
@@ -322,7 +323,7 @@ def server(name, cap, use_pallas, **kw):
 # the slice's new kernels are checked at each call's inputs (their calls
 # are few, and the same geometry comes with different data: the one-hot
 # and random x of the SpMV, the out- and in-degree ids of the segment sum)
-EVERY_CALL = ("rank", "segment_sum", "spmv_ell")
+EVERY_CALL = ("rank", "segment_sum", "spmv_ell", "spmv_csr")
 
 
 def wrapper_sites():
@@ -330,13 +331,15 @@ def wrapper_sites():
     from repro_torch.db import graphulo, kvstore
     from repro_torch.kernels.merge_rank import ops as merge_ops
     from repro_torch.kernels.sorted_search import ops as search_ops
+    from repro_torch.kernels.spmv import ops as spmv_ops
     from repro_torch.models import layers
     return {"rank_batched": (search_ops, "rank_batched"),
             "row_rank": (merge_ops, "row_rank"),
             "pair_rank": (merge_ops, "pair_rank"),
             "rank": (search_ops, "rank"),
             "segment_sum": (kvstore, "segment_sum"),
-            "spmv_ell": (graphulo, "spmv_ell"),
+            "spmv_ell": (spmv_ops, "spmv_ell"),
+            "spmv_csr": (graphulo, "spmv_csr"),
             "flash_attention": (layers, "flash_attention")}
 
 
@@ -481,20 +484,30 @@ def single_engine(graph, cap, use_pallas, lsm_reads, stash=None,
 
 # ------------------------------------------------------------------ phase 4d
 def graphulo_spmv(g, DB, seed, stash=None):
-    """``table_spmv`` on the schema's Tedge, on both routes (the ELL kernel,
-    and the PyTorch product on the card), against a float64 product on the
-    host from the table's scan: exactly for a one-hot x at the largest
-    out-degree vertex, within rtol=1e-5 (kernel, float32) or 1e-12 (the
-    float64 PyTorch route) for a random x. Returns (times, launches)."""
+    """``table_spmv`` on the schema's Tedge, on both routes (the CSR kernel,
+    and the PyTorch product on the card), and the ELL kernel on the ELL of
+    the same scan (built and copied once, off the clock), against a float64
+    product on the host from the table's scan: exactly for a one-hot x at
+    the largest out-degree vertex, within rtol=1e-5 (kernels, float32) or
+    1e-12 (the float64 PyTorch route) for a random x. Returns (times,
+    launches)."""
     import numpy as np
+    import torch
     from repro_torch.db import graphulo
+    from repro_torch.kernels.spmv import ell_from_coo
+    from repro_torch.kernels.spmv import ops as spmv_ops
 
     n = len(DB.keydict)
     r, c, v = DB["g_Tedge"].store.scan()
+    order = np.lexsort((c, r))  # row-sorted, as the ELL build takes it
+    r, c, v = r[order], c[order], v[order].astype(np.float64)
     counts = np.bincount(r, minlength=n)
-    log(f"phase 4d: ELL {n} rows x {int(counts.max())} slots, "
-        f"{8 * n * int(counts.max())} bytes of cols + vals for {len(r)} "
-        "entries")
+    log(f"phase 4d: CSR {n} rows, {len(r)} entries, "
+        f"{4 * (2 * n + 1) + 8 * len(r) + 4 * n} bytes of indptr, cols, "
+        f"vals, x and y; the ELL of the same scan {n} x {int(counts.max())} "
+        f"slots, {8 * n * int(counts.max())} bytes of cols + vals")
+    dev = g.pair.table.store.device
+    ell = [torch.as_tensor(a, device=dev) for a in ell_from_coo(r, c, v, n)]
     hub = int(np.argmax(g.deg.out_deg[:n].cpu().numpy()))
     one_hot = np.zeros(n)
     one_hot[hub] = 1.0
@@ -503,24 +516,31 @@ def graphulo_spmv(g, DB, seed, stash=None):
     with kernel_run(stash) as launches:
         for label, x in (("one_hot", one_hot), ("random", x_rand)):
             want = np.zeros(n)
-            np.add.at(want, r, v.astype(np.float64) * x[c])
+            np.add.at(want, r, v * x[c])
             yk, times[label + "_kernel_s"] = timed_call(
                 lambda: graphulo.table_spmv(g.pair, x, use_pallas=True))
             yd, times[label + "_ops_s"] = timed_call(
                 lambda: graphulo.table_spmv(g.pair, x, use_pallas=False))
+            xd = torch.as_tensor(x.astype(np.float32), device=dev)
+            ye, times[label + "_ell_kernel_s"] = timed_call(
+                lambda: spmv_ops.spmv_ell(*ell, xd).cpu().numpy())
             m = int(r.max()) + 1
-            if yk.shape != (n,) or yd.shape != (m,) or want[m:].any():
+            if yk.shape != (n,) or ye.shape != (n,) or yd.shape != (m,) \
+                    or want[m:].any():
                 raise AssertionError(f"phase 4d {label}: shapes")
             if label == "one_hot":
-                if not (np.array_equal(yk, want)
+                if not (np.array_equal(yk, want) and np.array_equal(ye, want)
                         and np.array_equal(yd, want[:m])):
                     raise AssertionError("phase 4d one_hot: not exact")
             else:
                 np.testing.assert_allclose(yk, want, rtol=1e-5,
-                                           err_msg="phase 4d random, kernel")
+                                           err_msg="phase 4d random, CSR")
+                np.testing.assert_allclose(ye, want, rtol=1e-5,
+                                           err_msg="phase 4d random, ELL")
                 np.testing.assert_allclose(yd, want[:m], rtol=1e-12,
                                            err_msg="phase 4d random, ops")
-    if launches["spmv_ell"] != 2 or sum(launches.values()) != 2:
+    if launches["spmv_csr"] != 2 or launches["spmv_ell"] != 2 \
+            or sum(launches.values()) != 4:
         raise AssertionError(f"phase 4d: kernel launches {launches}")
     return times, launches
 
@@ -663,7 +683,8 @@ def kernel_checks(stash, launches):
                                                     segment_sum_ref)
     from repro_torch.kernels.sorted_search import (rank, rank_batched,
                                                    rank_batched_ref, rank_ref)
-    from repro_torch.kernels.spmv import spmv_ell, spmv_ell_ref
+    from repro_torch.kernels.spmv import (spmv_csr, spmv_csr_ref, spmv_ell,
+                                          spmv_ell_ref)
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_ref)
 
@@ -679,8 +700,8 @@ def kernel_checks(stash, launches):
         return float((got.double() - want.double()).abs().max())
 
     def check_close(name, got, want):
-        """SpMV: float atomics / the warp reduction add in another order
-        than the plain row sum, so within rtol=1e-5."""
+        """SpMV: the warp reduction and the segmented scan add in another
+        order than the plain row sum, so within rtol=1e-5."""
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6,
                                    msg=lambda m: f"{name}: {m}")
         return float((got.double() - want.double()).abs().max())
@@ -727,9 +748,9 @@ def kernel_checks(stash, launches):
         """The power of #7's check at run b's inputs (its prefill and its
         first decode step, where the cache holds 127 empty slots): two
         planted faults, made with the plain math and a key mask, must
-        fail it: one of the decode's 8 key splits dropped (every 8th
-        32-key tile: the keys split s serves), and the causal limit moved
-        100 keys past each row's position. Returns the readings."""
+        fail it: an eighth of the keys dropped (every 8th 32-key tile, as
+        a lost key split would), and the causal limit moved 100 keys past
+        each row's position. Returns the readings."""
         calls = stash["serve_b"]["flash_attention"].calls
         pre = [c[1] for key, c in calls.items() if key[0][0][1] > 1]
         dec = [c[1] for key, c in calls.items() if key[0][0][1] == 1]
@@ -819,6 +840,14 @@ def kernel_checks(stash, launches):
         return (es * (2 * b * sq * h * hd + 2 * b * keys * kvh * hd),
                 4 * b * h * hd * pairs)
 
+    # CSR SpMV: indptr, cols and vals read once, x read and y written once;
+    # a multiply and an add per entry whose column is in x
+    def csr_cost(args, kw):
+        indptr, cols, _, x = args
+        nnz = int(((cols >= 0) & (cols < x.numel())).sum())
+        return (4 * (indptr.numel() + 2 * cols.numel() + x.numel()
+                     + indptr.numel() - 1), 2 * nnz)
+
     # one PyTorch call computing the same function
     def attn_lib(args, kw):
         """SDPA on [B, H, S, hd] copies (made off the clock) in two forms:
@@ -885,6 +914,20 @@ def kernel_checks(stash, launches):
         xc = x[:, None]
         return lambda: a @ xc
 
+    def csr_lib(args, kw):  # cuSPARSE on the entries in x (off the clock)
+        indptr, cols, vals, x = args
+        rows = torch.repeat_interleave(
+            torch.arange(indptr.numel() - 1, device=dev),
+            (indptr[1:] - indptr[:-1]).long())
+        ok = (cols >= 0) & (cols < x.numel())
+        crow = torch.zeros(indptr.numel(), dtype=torch.int64, device=dev)
+        crow[1:] = torch.bincount(rows[ok], minlength=indptr.numel() - 1
+                                  ).cumsum(0)
+        a = torch.sparse_csr_tensor(crow, cols[ok].long(), vals[ok],
+                                    size=(indptr.numel() - 1, x.numel()))
+        xc = x[:, None]
+        return lambda: a @ xc
+
     # name, kernel, plain, cost, library, plain timing reps, check, op
     # peak, library timed eagerly (cuSPARSE is not captured in a graph)
     specs = (
@@ -911,6 +954,10 @@ def kernel_checks(stash, launches):
          "src/repro/kernels/segment_reduce/kernel.py:33"),
         ("spmv_ell", spmv_ell, spmv_ell_ref, spmv_cost, spmv_lib, (3, 1),
          check_close, PEAK_F32_PER_S, True, "src/repro_torch/csrc/spmv_ell.cu",
+         "src/repro/kernels/spmv/kernel.py:34"),
+        # the same TPU kernel's function on Graphulo's path, in CSR
+        ("spmv_csr", spmv_csr, spmv_csr_ref, csr_cost, csr_lib, (3, 1),
+         check_close, PEAK_F32_PER_S, True, "src/repro_torch/csrc/spmv_csr.cu",
          "src/repro/kernels/spmv/kernel.py:34"),
         ("flash_attention", flash_attention, flash_attention_ref, attn_cost,
          attn_lib, (5, 1), check_attn, PEAK_BF16_PER_S, False,

@@ -3,7 +3,7 @@
 Graphulo implements GraphBLAS kernels as Accumulo server-side iterators so
 graph algorithms run *inside* the database. The analogue here: operate on
 the shard-resident tablet arrays directly (no client round-trip through
-string space), using the ELL SpMV kernel / vectorized SpGEMM on the
+string space), using the CSR SpMV kernel / vectorized SpGEMM on the
 dictionary-encoded ids, and write results back through the combiner path.
 
 Provided kernels (GraphBLAS-style over the arithmetic semiring):
@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from ..core import sparsegemm as sg
-from ..kernels.spmv import ell_from_coo, spmv_ell
+from ..kernels.spmv import csr_from_coo, spmv_csr
 from .connector import DBserver, Table, TablePair
 
 
@@ -40,18 +40,18 @@ def table_spmv(table, x: np.ndarray, use_pallas: bool = False) -> np.ndarray:
     """y = A @ x over vertex-id space (x indexed by key id), on the table's
     device.
 
-    ``use_pallas=True`` builds the ELL on the host and runs the SpMV kernel
-    (float32, one entry per key id); otherwise a COO ``index_add_`` in
-    float64, sized by the largest row id + 1 (the JAX host product's
-    shape)."""
+    ``use_pallas=True`` builds the CSR of the table's row-sorted scan on
+    the host and runs the SpMV kernel (float32, one entry per key id);
+    otherwise a COO ``index_add_`` in float64, sized by the largest row id
+    + 1 (the JAX host product's shape)."""
     t = table.table if isinstance(table, TablePair) else table
     r, c, v = _table_coo(t)
     n = _dim(t.server)
     dev = t.store.device
     if use_pallas:
-        cols, vals = ell_from_coo(r.astype(np.int64), c, v, n)
-        y = spmv_ell(torch.as_tensor(cols, device=dev),
-                     torch.as_tensor(vals, device=dev),
+        indptr, cols, vals = csr_from_coo(r, c, v, n)
+        y = spmv_csr(*(torch.as_tensor(a, device=dev)
+                       for a in (indptr, cols, vals)),
                      torch.as_tensor(np.asarray(x, np.float32), device=dev))
         return y.cpu().numpy()
     rows = torch.as_tensor(r, device=dev)

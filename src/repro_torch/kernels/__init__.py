@@ -7,7 +7,8 @@ from .common import I32_MAX, LAUNCHES, reset_launches
 from .flash_attention import flash_attention
 from .merge_rank import merge_sorted
 from .segment_reduce import segment_sum
-from .spmv import ell_from_coo, spmv_ell
+from .spmv import csr_from_coo, ell_from_coo, spmv_csr, spmv_ell
 
-__all__ = ["I32_MAX", "LAUNCHES", "ell_from_coo", "flash_attention",
-           "merge_sorted", "reset_launches", "segment_sum", "spmv_ell"]
+__all__ = ["I32_MAX", "LAUNCHES", "csr_from_coo", "ell_from_coo",
+           "flash_attention", "merge_sorted", "reset_launches", "segment_sum",
+           "spmv_csr", "spmv_ell"]

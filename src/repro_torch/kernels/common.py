@@ -36,7 +36,8 @@ _lib = None
 # in ``launch`` (the one place a kernel is launched), so a run can show that
 # its path went through the kernels.
 LAUNCHES = {"rank_batched": 0, "pair_rank": 0, "row_rank": 0, "rank": 0,
-            "segment_sum": 0, "spmv_ell": 0, "flash_attention": 0}
+            "segment_sum": 0, "spmv_ell": 0, "spmv_csr": 0,
+            "flash_attention": 0}
 
 
 def reset_launches() -> None:
@@ -141,8 +142,11 @@ _SIGNATURES = {
     "segment_sum": (_P, _P, _I, _I, _P, _P),
     # cols, vals, R, K, x, C, y, stream
     "spmv_ell": (_P, _P, _I, _I, _P, _I, _P, _P),
-    # q, k, v, o, B, Sq, Sk, H, KV, hd, causal, q_offset, is_bf16, stream
-    "flash_attention": (_P, _P, _P, _P) + (_I,) * 9 + (_P,),
+    # indptr, R, cols, vals, nnz, x, C, y, carry, cross, stream
+    "spmv_csr": (_P, _I, _P, _P, _I, _P, _I, _P, _P, _P, _P),
+    # q, k, v, o, ws, B, Sq, Sk, H, KV, hd, causal, q_offset, is_bf16,
+    # splits, stream
+    "flash_attention": (_P,) * 5 + (_I,) * 10 + (_P,),
 }
 
 

@@ -1,4 +1,5 @@
-from .ops import ell_from_coo, spmv_ell
-from .ref import spmv_ell_ref
+from .ops import csr_from_coo, ell_from_coo, spmv_csr, spmv_ell
+from .ref import spmv_csr_ref, spmv_ell_ref
 
-__all__ = ["ell_from_coo", "spmv_ell", "spmv_ell_ref"]
+__all__ = ["csr_from_coo", "ell_from_coo", "spmv_csr", "spmv_csr_ref",
+           "spmv_ell", "spmv_ell_ref"]

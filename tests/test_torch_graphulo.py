@@ -1,6 +1,6 @@
 """Server-side GraphBLAS ops (``db.graphulo``) of the port against the JAX
 package's on the same tables (the fixture of ``tests/test_graphulo.py``)
-and against dense oracles: SpMV on both routes (the ELL kernel, or the
+and against dense oracles: SpMV on both routes (the CSR kernel, or the
 float64 COO product in PyTorch on the table's device), SpGEMM into a new
 table, and the triangle count."""
 import numpy as np
@@ -52,6 +52,45 @@ def test_spmv_matches_jax_and_dense(setup, use_pallas):
         np.testing.assert_allclose(got, (dense @ x)[:len(got)], rtol=1e-5)
 
 
+@pytest.mark.parametrize("x_kind", ["one_hot_first", "one_hot_hub",
+                                    "random"])
+def test_spmv_kernel_route_is_csr_and_matches_jax(setup, x_kind, monkeypatch):
+    """``table_spmv(use_pallas=True)`` goes through ``csr_from_coo`` +
+    ``spmv_csr`` and builds no ELL; its result is the JAX
+    ``table_spmv(use_pallas=True)``'s (float32, one entry per key id):
+    exactly for a one-hot x, within rtol=1e-5 for a random x."""
+    from repro_torch.kernels.spmv import ops as spmv_ops
+    t, j, dense = setup["t"], setup["j"], setup["dense"]
+    n = dense.shape[0]
+    calls = []
+    real = tg.spmv_csr
+
+    def counting(*args):
+        calls.append(args[0].shape[0] - 1)
+        return real(*args)
+
+    def no_ell(*args, **kw):
+        raise AssertionError("the kernel route built an ELL")
+    monkeypatch.setattr(tg, "spmv_csr", counting)
+    monkeypatch.setattr(spmv_ops, "ell_from_coo", no_ell)
+    x = np.zeros(n)
+    if x_kind == "one_hot_first":
+        x[0] = 1.0
+    elif x_kind == "one_hot_hub":
+        x[int(np.argmax((dense != 0).sum(0)))] = 1.0
+    else:
+        x = np.random.default_rng(8).random(n)
+    got = tg.table_spmv(t, x, use_pallas=True)
+    want = jg.table_spmv(j, x, use_pallas=True)
+    assert calls == [n]
+    assert got.dtype == np.float32 and got.shape == want.shape == (n,)
+    if x_kind == "random":
+        np.testing.assert_allclose(got, want, rtol=1e-5)
+    else:
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(got, (dense @ x).astype(np.float32))
+
+
 def test_spgemm_matches_jax_and_lands_in_table(setup):
     st, sj, t, j, dense = (setup[k] for k in ("st", "sj", "t", "j", "dense"))
     for got, want in zip(tg.table_spgemm(t, t, st), jg.table_spgemm(j, j, sj)):
@@ -78,7 +117,7 @@ def test_triangle_count_matches_jax_and_oracle(setup):
 @pytest.mark.gpu
 def test_spmv_routes_stay_on_card(setup):
     """On a table on the card both routes compute there: the kernel route
-    launches the ELL kernel once, the PyTorch route launches no hand kernel,
+    launches the CSR kernel once, the PyTorch route launches no hand kernel,
     and both agree with the JAX host product."""
     import torch
     from repro_torch.kernels import LAUNCHES, reset_launches
@@ -94,5 +133,5 @@ def test_spmv_routes_stay_on_card(setup):
     for use_pallas, launched in ((True, 1), (False, 0)):
         reset_launches()
         got = tg.table_spmv(c, x, use_pallas=use_pallas)
-        assert LAUNCHES["spmv_ell"] == launched
+        assert LAUNCHES["spmv_csr"] == launched
         np.testing.assert_allclose(got[:len(want)], want, rtol=1e-5)

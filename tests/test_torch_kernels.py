@@ -17,6 +17,7 @@ jsr = import_module("repro.kernels.segment_reduce.ops")
 jsr_ref = import_module("repro.kernels.segment_reduce.ref")
 jsp = import_module("repro.kernels.spmv.ops")
 jsp_ref = import_module("repro.kernels.spmv.ref")
+jsg = import_module("repro.core.sparsegemm")
 from repro_torch.kernels import LAUNCHES, reset_launches
 from repro_torch.kernels import merge_rank as tmr
 from repro_torch.kernels import segment_reduce as tsr
@@ -359,6 +360,81 @@ def test_ell_from_coo_matches_jax():
         np.testing.assert_array_equal(got, want)
 
 
+# ------------------------------------------------------------ CSR SpMV (#6)
+def _coo(rng, n_rows, n_c, hub=0, dup=False, out_of_range=0.0):
+    """Row-sorted COO with power-law-ish degrees, empty rows (about a third,
+    and the last rows), an optional hub row of ``hub`` entries, repeated
+    columns within a row and columns < 0 or >= n_c."""
+    deg = rng.integers(0, 9, n_rows) * (rng.random(n_rows) < 0.65)
+    deg[-3:] = 0
+    if hub:
+        deg[n_rows // 3] = hub
+    r = np.repeat(np.arange(n_rows), deg)
+    c = rng.integers(0, n_c, len(r))
+    if dup:  # every 3rd entry repeats the column before it
+        c[2::3] = c[1::3][:len(c[2::3])]
+    if out_of_range:
+        hit = rng.random(len(c)) < out_of_range
+        c = np.where(hit, np.where(rng.random(len(c)) < 0.5,
+                                   -rng.integers(1, 50, len(c)),
+                                   n_c + rng.integers(0, 50, len(c))), c)
+    v = rng.integers(-3, 6, len(r)).astype(np.float64)
+    return r, c, v
+
+
+_CSR_CASES = {  # n_rows, n_c, hub entries, duplicate cols, out-of-range share
+    "small": (7, 30, 0, False, 0.0),
+    "empty_rows": (200, 500, 0, False, 0.0),
+    "hub": (300, 4000, 3000, False, 0.0),  # longer than a block's 1,024
+    "duplicates": (120, 40, 0, True, 0.0),
+    "out_of_range": (150, 300, 0, False, 0.2),
+    "all": (400, 2500, 2100, True, 0.1),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_CSR_CASES))
+def test_spmv_csr_matches_jax(case):
+    """``csr_from_coo`` + ``spmv_csr`` against the JAX ``spmv_ell`` over
+    ``ell_from_coo`` of the same COO (both drop columns < 0 or >= len(x)),
+    and against the JAX host product over the in-range entries: exact for
+    integer-valued x, within rtol=1e-5 for random x."""
+    n_rows, n_c, hub, dup, oor = _CSR_CASES[case]
+    rng = np.random.default_rng(sum(map(ord, case)))
+    r, c, v = _coo(rng, n_rows, n_c, hub, dup, oor)
+    indptr, cols, vals = tsp.csr_from_coo(r, c, v, n_rows)
+    assert indptr.dtype == cols.dtype == np.int32 and vals.dtype == np.float32
+    assert indptr[0] == 0 and indptr[-1] == len(r)
+    np.testing.assert_array_equal(np.diff(indptr),
+                                  np.bincount(r, minlength=n_rows))
+    e_cols, e_vals = jsp.ell_from_coo(r, c, v, n_rows)
+    ok = (c >= 0) & (c < n_c)
+    for x in (rng.integers(-2, 5, n_c).astype(np.float32),
+              rng.random(n_c).astype(np.float32)):
+        got = tsp.spmv_csr(T(indptr), T(cols), T(vals), T(x)).numpy()
+        want = _np(jsp.spmv_ell(jnp.asarray(e_cols), jnp.asarray(e_vals),
+                                jnp.asarray(x), block_r=64, block_c=512))
+        host = jsg.spmv((r[ok], c[ok], v[ok]), x.astype(np.float64))
+        exact = bool((x == np.round(x)).all())
+        tol = dict(rtol=0, atol=0) if exact else dict(rtol=1e-5, atol=1e-6)
+        assert got.dtype == np.float32 and got.shape == (n_rows,)
+        np.testing.assert_allclose(got, want, **tol)
+        np.testing.assert_allclose(got[:len(host)], host, **tol)
+        assert not got[len(host):].any()
+
+
+def test_csr_from_coo_refuses_unsorted_or_out_of_range_rows():
+    with pytest.raises(ValueError):
+        tsp.csr_from_coo(np.array([1, 0]), np.array([0, 0]), np.ones(2), 3)
+    with pytest.raises(ValueError):
+        tsp.csr_from_coo(np.array([0, 3]), np.array([0, 0]), np.ones(2), 3)
+    indptr, cols, vals = tsp.csr_from_coo(np.zeros(0, np.int64),
+                                          np.zeros(0, np.int64),
+                                          np.zeros(0), 4)
+    np.testing.assert_array_equal(indptr, np.zeros(5, np.int32))
+    got = tsp.spmv_csr(T(indptr), T(cols), T(vals), torch.ones(3))
+    np.testing.assert_array_equal(got.numpy(), np.zeros(4, np.float32))
+
+
 def test_pair_rank_ref_matches_pallas_kernel():
     from repro.kernels.merge_rank.kernel import pair_rank_pallas
     a = _rand_run(64, 50, 5)
@@ -382,9 +458,11 @@ def test_cpu_tensors_never_launch():
     tsr.segment_sum(T(np.zeros(3, np.int32)), T(np.ones(3, np.float32)), 2)
     tsp.spmv_ell(T(np.zeros((2, 3), np.int32)), T(np.ones((2, 3), np.float32)),
                  T(np.ones(4, np.float32)))
+    tsp.spmv_csr(T(np.array([0, 1, 3], np.int32)), T(np.zeros(3, np.int32)),
+                 T(np.ones(3, np.float32)), T(np.ones(4, np.float32)))
     assert LAUNCHES == {"rank_batched": 0, "pair_rank": 0, "row_rank": 0,
                         "rank": 0, "segment_sum": 0, "spmv_ell": 0,
-                        "flash_attention": 0}
+                        "spmv_csr": 0, "flash_attention": 0}
 
 
 @pytest.mark.gpu
@@ -434,3 +512,29 @@ def test_new_kernels_on_card_match_plain_versions():
         got = tsp.spmv_ell(T(cols).cuda(), T(vals).cuda(), T(x).cuda()).cpu()
         want = tsp.spmv_ell_ref(T(cols), T(vals), T(x))
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_spmv_csr_on_card_matches_plain_version():
+    """The CSR kernel on the card against its plain version: a hub of 6,000
+    entries (a row across six blocks' runs), empty rows, duplicate and
+    out-of-range columns; integer-valued x exactly, random x within
+    rtol=1e-5 (the segmented scan adds in another order), and the same
+    result on a second run (no atomics)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(2)
+    for n_rows, n_c, hub in ((5000, 20000, 6000), (3, 10, 0), (2000, 500, 1500)):
+        r, c, v = _coo(rng, n_rows, n_c, hub, dup=True, out_of_range=0.05)
+        csr = [T(a) for a in tsp.csr_from_coo(r, c, v, n_rows)]
+        for x in (rng.integers(-2, 5, n_c).astype(np.float32),
+                  rng.random(n_c).astype(np.float32)):
+            reset_launches()
+            got = tsp.spmv_csr(*(a.cuda() for a in csr), T(x).cuda())
+            assert LAUNCHES["spmv_csr"] == 1
+            want = tsp.spmv_csr_ref(*csr, T(x))
+            exact = bool((x == np.round(x)).all())
+            tol = dict(rtol=0, atol=0) if exact else dict(rtol=1e-5, atol=1e-5)
+            torch.testing.assert_close(got.cpu(), want, **tol)
+            again = tsp.spmv_csr(*(a.cuda() for a in csr), T(x).cuda())
+            assert torch.equal(got, again)
