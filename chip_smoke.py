@@ -16,8 +16,10 @@ path's shapes.
 Phases (each raises on failure):
   1. device line (name and power limit, as nvidia-smi reports them);
   2. kernel build (one nvcc per source, in parallel);
-  3. Listing-1 at scale 16 with ``use_pallas=True`` (the hand kernels);
-     every read equals the host ``Assoc`` algebra's answer;
+  3. Listing-1 at scale 16 with ``use_pallas=True`` (the hand kernels:
+     the merge-path rank in every compaction, the two-sided fence search
+     once per probed run stack); every read equals the host ``Assoc``
+     algebra's answer;
   4. the same workload on the port's PyTorch-ops path
      (``use_pallas=False``); every read equals phase 3's. Both paths
      first run once untimed, then twice each in the order kernels,
@@ -30,7 +32,9 @@ Phases (each raises on failure):
      algebra and a ``NaiveTable`` fed the same triples;
   4c. the legacy single-run engine (``engine="single"``) on both paths:
      the phase-3 row-id read, row range and a column read (host scan +
-     filter) equal phase 3's reads;
+     filter) equal phase 3's reads; on the kernel path the binary-search
+     pair rank also ranks the flush's two runs both ways and equals the
+     merge-path ranks;
   4d. Graphulo ``table_spmv`` on the schema's Tedge, both routes (the CSR
      kernel and the PyTorch product on the card), and the ELL kernel on the
      ELL of the same scan, against a float64 product on the host, for a
@@ -48,7 +52,9 @@ Phases (each raises on failure):
   5. each kernel against its plain version on the card at every input
      each path gave it (recorded in phases 3, 4b, 4c, 4d and 6: per
      geometry for the LSM kernels and flash attention, per call for the
-     1-D rank, segment sum and SpMVs), ranks and degree sums exactly equal,
+     1-D rank, segment sum and SpMVs), ranks and degree sums exactly equal
+     (the merge-path ranks also to the binary-search pair rank's, timed
+     beside them),
      SpMV within rtol=1e-5, attention within about one bf16 ulp (rtol
      8e-3, atol 1e-3; float32 2e-5) and an error norm within 1e-2 of the
      output's, a limit that two planted faults at run b's inputs must
@@ -336,6 +342,7 @@ def wrapper_sites():
     return {"rank_batched": (search_ops, "rank_batched"),
             "row_rank": (merge_ops, "row_rank"),
             "pair_rank": (merge_ops, "pair_rank"),
+            "merge_path_rank": (merge_ops, "merge_ranks"),
             "rank": (search_ops, "rank"),
             "segment_sum": (kvstore, "segment_sum"),
             "spmv_ell": (spmv_ops, "spmv_ell"),
@@ -343,11 +350,38 @@ def wrapper_sites():
             "flash_attention": (layers, "flash_attention")}
 
 
+class Calls:
+    """Counts the calls of ``module.name`` while it stands there, and keeps
+    each call's (args, result) with ``keep``."""
+
+    def __init__(self, module, name, keep=False):
+        self.module, self.name, self.keep = module, name, keep
+        self.fn = getattr(module, name)
+        self.n, self.kept = 0, []
+
+    def __call__(self, *args, **kw):
+        self.n += 1
+        result = self.fn(*args, **kw)
+        if self.keep:
+            self.kept.append((args, result))
+        return result
+
+    def __enter__(self):
+        setattr(self.module, self.name, self)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+
 @contextlib.contextmanager
 def kernel_run(stash=None):
     """Counts every kernel's launches from 0 over the block; the dict it
     yields is filled on exit. With ``stash`` a dict, a Recorder stands at
-    each wrapper's call site for the block, under the kernel's name."""
+    each wrapper's call site for the block, under the kernel's name, and
+    ``stash["probe_stack"]`` counts the fused read's probed run stacks
+    (each searches its fences with one ``rank_batched`` launch)."""
+    from repro_torch.db.lsm import engine
     from repro_torch.kernels import LAUNCHES, reset_launches
     launches = {}
     with contextlib.ExitStack() as rec:
@@ -355,6 +389,8 @@ def kernel_run(stash=None):
             for name, (module, attr) in wrapper_sites().items():
                 stash[name] = rec.enter_context(
                     Recorder(module, attr, every_call=name in EVERY_CALL))
+            stash["probe_stack"] = rec.enter_context(
+                Calls(engine, "_probe_stack"))
         reset_launches()
         yield launches
         launches.update(LAUNCHES)
@@ -395,7 +431,7 @@ def fig4(graph, cap, use_pallas, naive, seed, stash=None, profile_dir=None):
     with kernel_run(stash) as launches:
         times = fig4_put_and_reads(g, graph, naive, seed, timed)
     if use_pallas and not (launches["segment_sum"] == 2
-                           and launches["pair_rank"] > 0
+                           and launches["merge_path_rank"] > 0
                            and launches["rank_batched"] > 0):
         raise AssertionError(f"phase 4b: kernel launches {launches}")
     if not use_pallas and any(launches.values()):
@@ -449,9 +485,13 @@ def single_engine(graph, cap, use_pallas, lsm_reads, stash=None,
     """The legacy single-run engine, bulk-load sized as in
     ``benchmarks/ingest_bench.py``: the phase-3 put, then the row-id read,
     the row range and a column read (host scan + filter on this engine).
+    On the kernel path the binary-search pair rank then ranks the flush's
+    two runs both ways, and its ranks must equal the merge-path ranks.
     Returns (times, launches)."""
     import numpy as np
+    import torch
     from repro_torch.db import delete, put
+    from repro_torch.kernels.merge_rank import ops as merge_ops
 
     A, verts, sels = graph["A"], graph["verts"], graph["sels"]
     batch_cap = 1 << 15
@@ -462,7 +502,8 @@ def single_engine(graph, cap, use_pallas, lsm_reads, stash=None,
     T.store.warmup()
     timed = path_timer(profile_dir, "single_" + ("kernels" if use_pallas
                                                  else "ops"))
-    with kernel_run(stash) as launches:
+    with kernel_run(stash) as launches, \
+            Calls(merge_ops, "merge_ranks", keep=True) as merges:
         _, t_put = timed("put", lambda: put(T, A))
         times = {"put_s": t_put, "ingest_entries_per_s": A.nnz() / t_put}
         for name in ("row_ids", "row_range", "col_ids"):
@@ -470,12 +511,26 @@ def single_engine(graph, cap, use_pallas, lsm_reads, stash=None,
             got, times[name + "_s"] = timed(name, lambda: T[sel])
             same_triples(got, lsm_reads[name], f"phase 4c {name} vs LSM")
             same_triples(got, A[sel], f"phase 4c {name} vs Assoc")
+        if use_pallas:  # the binary search on the flush's runs, both ways
+            for (ar, ac, br, bc), (rank_a, rank_b) in merges.kept:
+                if not (torch.equal(merge_ops.pair_rank(
+                        br, bc, ar, ac, strict=True), rank_a)
+                        and torch.equal(merge_ops.pair_rank(
+                            ar, ac, br, bc, strict=False), rank_b)):
+                    raise AssertionError(f"phase 4c: pair_rank differs from "
+                                         f"the merge ranks at {ar.shape} x "
+                                         f"{br.shape}")
+            log(f"phase 4c: pair_rank equals the merge ranks at "
+                + ", ".join(f"{list(a[0].shape)} x {list(a[2].shape)}"
+                            for a, _ in merges.kept))
     st = T.store.engine_stats()
     if st["flushes"] < 1:
         raise AssertionError(f"phase 4c: no flush ({st})")
-    if use_pallas and not (launches["rank"] > 0 and launches["pair_rank"] > 0):
-        raise AssertionError(f"phase 4c: rank / pair_rank never launched "
-                             f"({launches})")
+    if use_pallas and not (launches["rank"] > 0
+                           and launches["merge_path_rank"] > 0
+                           and launches["pair_rank"] > 0):
+        raise AssertionError(f"phase 4c: rank / merge_path_rank / pair_rank "
+                             f"never launched ({launches})")
     if not use_pallas and any(launches.values()):
         raise AssertionError(f"phase 4c launched a hand kernel: {launches}")
     delete(T)
@@ -677,12 +732,13 @@ def kernel_checks(stash, launches):
     import numpy as np
     import torch
     from repro_torch.kernels.common import I32_MAX
-    from repro_torch.kernels.merge_rank import (pair_rank, pair_rank_ref,
+    from repro_torch.kernels.merge_rank import (merge_ranks, merge_ranks_ref,
+                                                pair_rank, pair_rank_ref,
                                                 row_rank, row_rank_ref)
     from repro_torch.kernels.segment_reduce import (segment_sum,
                                                     segment_sum_ref)
     from repro_torch.kernels.sorted_search import (rank, rank_batched,
-                                                   rank_batched_ref, rank_ref)
+                                                   rank_ref, rank_sides_ref)
     from repro_torch.kernels.spmv import (spmv_csr, spmv_csr_ref, spmv_ell,
                                           spmv_ell_ref)
     from repro_torch.kernels.flash_attention import (flash_attention,
@@ -693,7 +749,10 @@ def kernel_checks(stash, launches):
     out = []
 
     def check(name, got, want):
-        """Ranks and degree sums (integer-valued) must be exactly equal."""
+        """Ranks and degree sums (integer-valued) must be exactly equal;
+        the merge ranks are a pair (rank_a, rank_b)."""
+        if isinstance(want, tuple):
+            return max(check(name, g, w) for g, w in zip(got, want))
         if not torch.equal(got, want):
             bad = int((got != want).sum())
             raise AssertionError(f"{name}: {bad} results differ from plain")
@@ -785,14 +844,15 @@ def kernel_checks(stash, launches):
     # bytes: the queries read and the output written once, and of each
     # searched table only the entries the queries' binary searches probe
     # (at most the table); operations: a compare and an add per probe step
-    # (rank search) or per pair (row rank), three compares and a select per
-    # probe step (pair rank)
+    # (rank search, for each side) or per pair (row rank), three compares
+    # and a select per probe step (pair rank)
     def search_cost(args, kw):
-        tabs, qq = args
+        tabs, qq, side = args
         k, n = tabs.shape
+        sides = 2 if side == "both" else 1
         return (4 * (k * probed(n, qq.numel()) + qq.numel()
-                     + k * qq.numel()),
-                2 * k * qq.numel() * steps(n))
+                     + sides * k * qq.numel()),
+                2 * sides * k * qq.numel() * steps(n))
 
     def row_cost(args, kw):
         (keys,) = args
@@ -804,9 +864,17 @@ def kernel_checks(stash, launches):
         return (4 * (2 * n_s * probed(m, n) + 3 * qr.numel()),
                 4 * qr.numel() * steps(m))
 
+    # merge ranks: each run's rows and cols read once and its ranks written
+    # once, 12 bytes per entry of both runs; a pair compare (three int
+    # compares and a select) per merged entry
+    def merge_cost(args, kw):
+        ar, _, br, _ = args
+        n = ar.numel() + br.numel()
+        return 12 * n, 4 * n
+
     def rank_cost(args, kw):
         tab, qq = args[:2]
-        return search_cost((tab[None], qq), kw)
+        return search_cost((tab[None], qq, "left"), kw)
 
     # segment sum: ids and values read, the [S] sums written; one float add
     # per entry (at the float32 rate, below)
@@ -879,11 +947,15 @@ def kernel_checks(stash, launches):
                 msg=lambda m: f"flash_attention library {form}: {m}")
         return forms
 
-    def search_lib(args, kw):
-        tabs, qq = args
+    def search_lib(args, kw):  # one searchsorted per side
+        tabs, qq, side = args
         qk = qq[None].expand(tabs.shape[0], -1).contiguous()
-        return lambda: torch.searchsorted(tabs, qk, right=not kw["strict"],
-                                          out_int32=True)
+        rights = {"left": (False,), "right": (True,), "both": (False, True)}
+
+        def run():
+            return [torch.searchsorted(tabs, qk, right=r, out_int32=True)
+                    for r in rights[side]]
+        return run
 
     def pair_lib(args, kw):
         tr, tc, qr, qc = args
@@ -891,6 +963,19 @@ def kernel_checks(stash, launches):
         qkey = (qr.long() << 32) | qc.long()
         return lambda: torch.searchsorted(tkey, qkey, right=not kw["strict"],
                                           out_int32=True)
+
+    def merge_lib(args, kw):  # the two int64 searchsorted calls
+        ar, ac, br, bc = args
+        akey = (ar.long() << 32) | ac.long()
+        bkey = (br.long() << 32) | bc.long()
+        return lambda: (
+            torch.searchsorted(bkey, akey, out_int32=True),
+            torch.searchsorted(akey, bkey, right=True, out_int32=True))
+
+    def merge_old(args, kw):  # the two binary-search pair_rank launches
+        ar, ac, br, bc = args
+        return lambda: (pair_rank(br, bc, ar, ac, True),
+                        pair_rank(ar, ac, br, bc, False))
 
     def rank_lib(args, kw):
         tab, qq = args
@@ -929,43 +1014,51 @@ def kernel_checks(stash, launches):
         return lambda: a @ xc
 
     # name, kernel, plain, cost, library, plain timing reps, check, op
-    # peak, library timed eagerly (cuSPARSE is not captured in a graph)
+    # peak, library timed eagerly (cuSPARSE is not captured in a graph),
+    # source, TPU kernel, and the kernel it redesigned (checked and timed
+    # beside it), if any
     specs = (
-        ("rank_batched", rank_batched, rank_batched_ref, search_cost,
+        ("rank_batched", rank_batched, rank_sides_ref, search_cost,
          search_lib, (20, 3), check, PEAK_OPS_PER_S, False,
          "src/repro_torch/csrc/rank_batched.cu",
-         "src/repro/kernels/sorted_search/kernel.py:66"),
+         "src/repro/kernels/sorted_search/kernel.py:66", None),
         ("row_rank", row_rank, row_rank_ref, row_cost, None, (20, 3), check,
          PEAK_OPS_PER_S, False, "src/repro_torch/csrc/row_rank.cu",
-         "src/repro/kernels/merge_rank/kernel.py:67"),
+         "src/repro/kernels/merge_rank/kernel.py:67", None),
         # the plain pair rank is a chunked quadratic count (up to ~7e11
         # compares per shard at the single engine's flush): its time is
         # that of the one call the check makes, no warm-up
         ("pair_rank", pair_rank, pair_rank_ref, pair_cost, pair_lib, (0, 0),
          check, PEAK_OPS_PER_S, False, "src/repro_torch/csrc/pair_rank.cu",
-         "src/repro/kernels/merge_rank/kernel.py:36"),
+         "src/repro/kernels/merge_rank/kernel.py:36", None),
+        # the same TPU kernel's function on the merge path, for two sorted
+        # runs (the plain version is a stable sort of the int64 keys)
+        ("merge_path_rank", merge_ranks, merge_ranks_ref, merge_cost,
+         merge_lib, (5, 1), check, PEAK_OPS_PER_S, False,
+         "src/repro_torch/csrc/merge_path.cu",
+         "src/repro/kernels/merge_rank/kernel.py:36", merge_old),
         # the plain 1-D rank is the compare count over the whole tablet
         ("rank", rank, rank_ref, rank_cost, rank_lib, (3, 1), check,
          PEAK_OPS_PER_S, False, "src/repro_torch/csrc/rank.cu",
-         "src/repro/kernels/sorted_search/kernel.py:30"),
+         "src/repro/kernels/sorted_search/kernel.py:30", None),
         ("segment_sum", segment_sum, segment_sum_ref, segsum_cost,
          segsum_lib, (20, 3), check, PEAK_F32_PER_S, False,
          "src/repro_torch/csrc/segment_sum.cu",
-         "src/repro/kernels/segment_reduce/kernel.py:33"),
+         "src/repro/kernels/segment_reduce/kernel.py:33", None),
         ("spmv_ell", spmv_ell, spmv_ell_ref, spmv_cost, spmv_lib, (3, 1),
          check_close, PEAK_F32_PER_S, True, "src/repro_torch/csrc/spmv_ell.cu",
-         "src/repro/kernels/spmv/kernel.py:34"),
+         "src/repro/kernels/spmv/kernel.py:34", None),
         # the same TPU kernel's function on Graphulo's path, in CSR
         ("spmv_csr", spmv_csr, spmv_csr_ref, csr_cost, csr_lib, (3, 1),
          check_close, PEAK_F32_PER_S, True, "src/repro_torch/csrc/spmv_csr.cu",
-         "src/repro/kernels/spmv/kernel.py:34"),
+         "src/repro/kernels/spmv/kernel.py:34", None),
         ("flash_attention", flash_attention, flash_attention_ref, attn_cost,
          attn_lib, (5, 1), check_attn, PEAK_BF16_PER_S, False,
          "src/repro_torch/csrc/flash_attention.cu",
-         "src/repro/kernels/flash_attention/kernel.py:64"),
+         "src/repro/kernels/flash_attention/kernel.py:64", None),
     )
     for (name, fn, ref, cost, lib, (p_reps, p_warm), chk, peak, lib_eager,
-         src, tpu) in specs:
+         src, tpu, old) in specs:
         by_path, inputs = {}, []
         for path, recorders in stash.items():
             calls = recorders[name].calls
@@ -984,12 +1077,14 @@ def kernel_checks(stash, launches):
         for _, _, cnt, (args, kw) in inputs:
             want, t_plain = timed_once(lambda: ref(*args, **kw))
             err = max(err, chk(name, fn(*args, **kw), want))
-            del want
             t = {"ms": graph_ms(lambda: fn(*args, **kw), 50),
                  "eager": cuda_ms(lambda: fn(*args, **kw), 50),
                  "plain": (cuda_ms(lambda: ref(*args, **kw), p_reps,
                                    warm=p_warm) if p_reps else t_plain),
                  "lib": 0.0}
+            if old is not None:  # the redesigned kernel: equal, and timed
+                chk(name + " (old kernel)", old(args, kw)(), want)
+                t["old"] = graph_ms(old(args, kw), 50)
             if lib is not None:  # the faster form where there are two
                 timer = cuda_ms if lib_eager else graph_ms
                 forms = lib(args, kw)
@@ -998,6 +1093,7 @@ def kernel_checks(stash, launches):
                 for form, f in forms.items():
                     t[form] = timer(f, 50)
                 t["lib"] = min(t[form] for form in forms)
+            del want
             t["bound"], by = bound_ms(*cost(args, kw), peak_ops=peak)
             ops_by[by == "operations"] += cnt * t["bound"]
             per.append(t)
@@ -1013,6 +1109,7 @@ def kernel_checks(stash, launches):
             log(f"{name} {text}: ms {mean(idx, 'ms'):.6g}, plain "
                 f"{mean(idx, 'plain'):.6g}, library {mean(idx, 'lib'):.6g}"
                 + "".join(f" ({k[4:]} {mean(idx, k):.6g})" for k in lib_forms)
+                + (f", old kernel {mean(idx, 'old'):.6g}" if old else "")
                 + f", bound {mean(idx, 'bound'):.6g}")
         tot = {k: mean(range(len(inputs)), k) for k in per[0]}
         out.append({"name": name, "route": "cuda", "source": src,
@@ -1028,6 +1125,15 @@ def kernel_checks(stash, launches):
                     "inputs": "; ".join(groups)})
         if lib_forms:
             out[-1]["library_forms_ms"] = {k[4:]: tot[k] for k in lib_forms}
+        if old is not None:
+            out[-1]["old_kernel_ms"] = tot["old"]
+        if name == "rank_batched":  # one launch per probed run stack
+            both = sum(c for _, key, c, _ in inputs if "both" in key[0])
+            probes = sum(r["probe_stack"].n for r in stash.values())
+            out[-1]["launches_per_probe_stack"] = both / max(probes, 1)
+            out[-1]["probe_stacks"] = probes
+            log(f"rank_batched: {both} two-sided launches for {probes} "
+                f"probed run stacks")
         if name == "flash_attention":
             out[-1]["rel_err"] = attn_rel[0]
             out[-1]["planted_faults"] = attn_faults()
@@ -1111,7 +1217,7 @@ def main(argv=None):
     for k, v in tot.items():
         if v <= 0:
             raise AssertionError(f"phase 3: {k} = {v}")
-    for k in ("rank_batched", "row_rank", "pair_rank"):
+    for k in ("rank_batched", "row_rank", "merge_path_rank"):
         if launches["listing1"][k] <= 0:
             raise AssertionError(f"phase 3: kernel {k} never launched")
     log("phase 3 (use_pallas=True): " + json.dumps(

@@ -5,12 +5,12 @@ range-partitioned by row id (pre-split tablets). Two storage engines:
 
   * ``engine="lsm"`` (default) — leveled sorted runs
     (``repro_torch.db.lsm``): memtable flushes are O(memtable), major
-    compactions k-way merge runs with the pair-rank kernel, and reads go
-    through bloom filters + fence pointers without flushing.
+    compactions k-way merge runs with the merge-path rank kernel, and reads
+    go through bloom filters + fence pointers without flushing.
   * ``engine="single"`` — one fixed-capacity sorted run per shard; every
-    flush merges the memtable into it (pair-rank kernel). Point reads are
-    rank searches (the 1-D rank kernel) + bounded gathers. Kept as the A/B
-    baseline of the paper-era benchmarks.
+    flush merges the memtable into it (merge-path rank kernel). Point reads
+    are rank searches (the 1-D rank kernel) + bounded gathers. Kept as the
+    A/B baseline of the paper-era benchmarks.
 
 Duplicate keys combine with Accumulo iterator semantics (last-wins
 versioning, sum/min/max combiners — ``db.iterators``). ``ShardedTable``
@@ -120,8 +120,8 @@ def tablet_insert(t: Tablet, br, bc, bv, combiner: str = "last",
     """Minor compaction: merge a batch (pads = I32_MAX keys) into the run.
 
     ``t`` is 1-D with a batch ``[b]``, or stacked ``[S, cap]`` with
-    batches ``[S, b]``: the merge ranks every shard in one pair-rank launch
-    per direction (the JAX engine ``vmap``s this function over shards).
+    batches ``[S, b]``: the merge ranks every shard in one merge-path
+    launch (the JAX engine ``vmap``s this function over shards).
     Returns the new tablet; ``new.n`` may exceed capacity — the caller
     MUST check for overflow (Accumulo back-pressure analogue).
     """

@@ -7,7 +7,7 @@ The PyTorch counterpart of ``repro.db.lsm.engine``, with the same layout:
      ▼
   L0: up to ``l0_slots`` independent sorted runs of memtable size
      │ major compaction when a shard's L0 fills: k-way merge by the
-     │ pair-rank kernel (``kernels.merge_rank.kway_merge``)
+     │ merge-path rank kernel (``kernels.merge_rank.kway_merge``)
      ▼
   L1..Ld: one geometrically larger sorted run per level
 
@@ -168,11 +168,10 @@ def _probe_stack(rows, cols, vals, fences, q, max_return: int, block: int,
     (cols[K, Q, R], vals[K, Q, R], ok[K, Q, R], counts[K, Q]).
 
     Under ``use_pallas`` the fence rank search is the batched rank kernel
-    (one launch per side for all K fence rows)."""
+    (one launch for both sides and all K fence rows)."""
     n_k, cap = rows.shape
     if use_pallas:
-        fl = sorted_search_batched(fences, q, "left")
-        fr = sorted_search_batched(fences, q, "right")
+        fl, fr = sorted_search_batched(fences, q, "both")
     else:
         qq = q.reshape(1, -1).expand(n_k, -1).contiguous()
         fl = torch.searchsorted(fences, qq, side="left")
@@ -667,7 +666,7 @@ class LSMRuns:
 
     def major_compact(self, mask: Optional[np.ndarray] = None) -> None:
         """Size-triggered major compaction: k-way merge the L0 runs and
-        levels 1..d into level d (the pair-rank kernel under
+        levels 1..d into level d (the merge-path rank kernel under
         ``use_pallas``).
 
         ``mask`` selects WHICH shards compact (default: every shard with

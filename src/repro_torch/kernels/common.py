@@ -35,9 +35,9 @@ _lib = None
 # Launches of each hand kernel since the last ``reset_launches()``: counted
 # in ``launch`` (the one place a kernel is launched), so a run can show that
 # its path went through the kernels.
-LAUNCHES = {"rank_batched": 0, "pair_rank": 0, "row_rank": 0, "rank": 0,
-            "segment_sum": 0, "spmv_ell": 0, "spmv_csr": 0,
-            "flash_attention": 0}
+LAUNCHES = {"rank_batched": 0, "pair_rank": 0, "merge_path_rank": 0,
+            "row_rank": 0, "rank": 0, "segment_sum": 0, "spmv_ell": 0,
+            "spmv_csr": 0, "flash_attention": 0}
 
 
 def reset_launches() -> None:
@@ -84,7 +84,7 @@ def _nvcc() -> str:
 
 def source_hash() -> str:
     h = hashlib.sha256()
-    for p in sorted(CSRC.glob("*.cu")):
+    for p in sorted([*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")]):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -130,10 +130,13 @@ def build() -> Path:
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # tabs, K, N, q, Q, strict, out, stream
+    # tabs, K, N, q, Q, sides (0 left, 1 right, 2 both), out, stream
     "rank_batched": (_P, _I, _I, _P, _I, _I, _P, _P),
     # tr, tc, n_t, qr, qc, n_q, batch, strict, out, stream
     "pair_rank": (_P, _P, _I, _P, _P, _I, _I, _I, _P, _P),
+    # ar, ac, n_a, br, bc, n_b, batch, bounds, n_bounds, rank_a, rank_b,
+    # stream
+    "merge_path_rank": (_P, _P, _I, _P, _P, _I, _I, _P, _I, _P, _P, _P),
     # keys, Q, W, out, stream
     "row_rank": (_P, _I, _I, _P, _P),
     # tab, N, q, Q, strict, out, stream

@@ -5,13 +5,19 @@ of the fused point read (``merge_combine_rows``).
 Invalid entries in either run must carry key (I32_MAX, I32_MAX); they sort
 to the tail of the merged output, so fixed-capacity runs merge without
 knowing their valid counts. A CUDA tensor goes to the hand kernels
-(``csrc/pair_rank.cu``, ``csrc/row_rank.cu``); a CPU tensor to the plain
-versions in ``ref.py``.
+(``csrc/merge_path.cu`` for the two-run merge, ``csrc/row_rank.cu``, and
+``csrc/pair_rank.cu`` for the rank of queries not known to be sorted); a
+CPU tensor to the plain versions in ``ref.py``.
 """
 import torch
 
-from ..common import I32_MAX, check_cuda, launch
-from .ref import merge_sorted_ref, pair_rank_ref, row_rank_ref
+from ..common import I32_MAX, cdiv, check_cuda, launch
+from .ref import (merge_ranks_ref, merge_sorted_ref, pair_rank_ref,
+                  row_rank_ref)
+
+# merged outputs per block of csrc/merge_path.cu (its kTile): the wrapper
+# sizes the co-rank scratch with it, and the C entry point checks the size
+MERGE_TILE = 2048
 
 
 def pair_rank(tr, tc, qr, qc, strict: bool) -> torch.Tensor:
@@ -33,6 +39,35 @@ def pair_rank(tr, tc, qr, qc, strict: bool) -> torch.Tensor:
     return out
 
 
+def merge_ranks(ar, ac, br, bc):
+    """The merge ranks of two runs sorted over their full width (pads
+    (I32_MAX, I32_MAX) at the tail), A before B on equal keys:
+    ``rank_a = pair_rank(B, A, strict=True)`` and ``rank_b = pair_rank(A,
+    B, strict=False)``, in one merge-path pass over both runs. Runs are
+    int32 [S, n_a] and [S, n_b]; returns int32 (rank_a [S, n_a], rank_b
+    [S, n_b])."""
+    if ar.dim() != 2 or br.dim() != 2 or ar.shape != ac.shape \
+            or br.shape != bc.shape or ar.shape[0] != br.shape[0]:
+        raise ValueError("merge_ranks takes runs A [S, n_a] and B [S, n_b]")
+    if ar.device.type == "cpu":
+        return merge_ranks_ref(ar, ac, br, bc)
+    check_cuda("merge_ranks", *((t, torch.int32) for t in (ar, ac, br, bc)))
+    n_s, n_a = ar.shape
+    n_b = br.shape[1]
+    if n_s > 65535:
+        raise ValueError(f"merge_ranks: S={n_s} exceeds the grid limit")
+    if n_a + n_b >= 2 ** 31:
+        raise ValueError(f"merge_ranks: n_a + n_b = {n_a + n_b} >= 2^31")
+    rank_a = torch.empty((n_s, n_a), dtype=torch.int32, device=ar.device)
+    rank_b = torch.empty((n_s, n_b), dtype=torch.int32, device=ar.device)
+    n_bounds = cdiv(n_a + n_b, MERGE_TILE) + 1
+    bounds = torch.empty((n_s, n_bounds), dtype=torch.int32, device=ar.device)
+    launch("merge_path_rank", ar.device, ar.data_ptr(), ac.data_ptr(), n_a,
+           br.data_ptr(), bc.data_ptr(), n_b, n_s, bounds.data_ptr(),
+           n_bounds, rank_a.data_ptr(), rank_b.data_ptr())
+    return rank_a, rank_b
+
+
 def row_rank(keys: torch.Tensor) -> torch.Tensor:
     """Per-row strict self-rank of ``keys[Q, W]`` (int32): int32 [Q, W]."""
     if keys.dim() != 2:
@@ -49,11 +84,13 @@ def row_rank(keys: torch.Tensor) -> torch.Tensor:
 def merge_sorted(ar, ac, av, br, bc, bv):
     """Merge sorted runs A and B (each sorted lex by (r, c), pads = I32_MAX).
 
-    Runs are 1-D, or [S, n] for S independent shards merged in one launch
-    per direction. Returns (r, c, v) of length len(A)+len(B) along the last
-    axis; valid entries first in sorted order, A-side entries preceding
-    B-side entries on equal keys (so a later dedup pass can implement
-    last-wins for the newer B side). Values in the pad tail are undefined.
+    Both runs must be sorted over their full width, pads included. Runs
+    are 1-D, or [S, n] for S independent shards ranked in one merge-path
+    launch (``merge_ranks``). Returns (r, c, v) of length len(A)+len(B)
+    along the last axis; valid entries first in sorted order, A-side
+    entries preceding B-side entries on equal keys (so a later dedup pass
+    can implement last-wins for the newer B side); the pad tail holds the
+    runs' pads and their values.
     """
     flat = ar.dim() == 1
     if flat:
@@ -63,18 +100,14 @@ def merge_sorted(ar, ac, av, br, bc, bv):
     n_s, n_a = ar.shape
     n_b = br.shape[1]
     dev = ar.device
-    rank_a = pair_rank(br, bc, ar, ac, strict=True)
-    rank_b = pair_rank(ar, ac, br, bc, strict=False)
-    # rank counts include the other side's pads only for pad queries,
-    # which always land at/after position len(valid A)+len(valid B)
-    last = max(n_a + n_b - 1, 0)
-    pos_a = (torch.arange(n_a, device=dev) + rank_a).clamp_(max=last)
-    pos_b = (torch.arange(n_b, device=dev) + rank_b).clamp_(max=last)
-    out_r = torch.full((n_s, n_a + n_b), I32_MAX, dtype=torch.int32,
-                       device=dev)
-    out_c = torch.full_like(out_r, I32_MAX)
-    out_v = torch.zeros((n_s, n_a + n_b), dtype=av.dtype, device=dev)
-    # valid A and valid B never share a slot; pads may collide (pad over pad)
+    rank_a, rank_b = merge_ranks(ar, ac, br, bc)
+    # the merge ranks place every entry, pads included, at its own slot of
+    # the merged run: the positions are a permutation of [0, n_a + n_b)
+    pos_a = torch.arange(n_a, device=dev) + rank_a
+    pos_b = torch.arange(n_b, device=dev) + rank_b
+    out_r = torch.empty((n_s, n_a + n_b), dtype=torch.int32, device=dev)
+    out_c = torch.empty_like(out_r)
+    out_v = torch.empty((n_s, n_a + n_b), dtype=av.dtype, device=dev)
     out_r.scatter_(1, pos_b, br).scatter_(1, pos_a, ar)
     out_c.scatter_(1, pos_b, bc).scatter_(1, pos_a, ac)
     out_v.scatter_(1, pos_b, bv).scatter_(1, pos_a, av)

@@ -24,6 +24,28 @@ def pair_rank_ref(tr, tc, qr, qc, strict: bool) -> torch.Tensor:
     return out
 
 
+def merge_ranks_ref(ar, ac, br, bc):
+    """Plain version of ``merge_ranks``: each entry's position in a stable
+    sort of the concatenated keys (A before B on equal keys) less its own
+    index, i.e. the number of the other run's entries placed before it.
+    Returns int32 (rank_a [S, n_a], rank_b [S, n_b])."""
+    n_a = ar.shape[-1]
+    key = pair_key(torch.cat([ar, br], dim=-1), torch.cat([ac, bc], dim=-1))
+    order = torch.sort(key, dim=-1, stable=True).indices
+    idx = torch.arange(key.shape[-1], device=key.device)
+    pos = torch.empty_like(order).scatter_(-1, order, idx.expand_as(order))
+    # less the entry's index in its own run
+    own = torch.cat([idx[:n_a], idx[:key.shape[-1] - n_a]])
+    rank = (pos - own).to(torch.int32)
+    return rank[..., :n_a], rank[..., n_a:]
+
+
+def pair_key(r, c):
+    """One int64 per (row, col) pair, in the pairs' lexicographic order for
+    the non-negative int32 keys (and I32_MAX pads) the runs hold."""
+    return (r.to(torch.int64) << 32) | c.to(torch.int64)
+
+
 def row_rank_ref(keys: torch.Tensor) -> torch.Tensor:
     """Per-row strict self-rank: ``o[i, j] = |{ k : keys[i, k] < keys[i, j] }|``."""
     return (keys[:, None, :] < keys[:, :, None]).sum(2, dtype=torch.int32)
@@ -34,8 +56,7 @@ def merge_sorted_ref(ar, ac, av, br, bc, bv):
     r = torch.cat([ar, br], dim=-1)
     c = torch.cat([ac, bc], dim=-1)
     v = torch.cat([av, bv], dim=-1)
-    key = (r.to(torch.int64) << 32) | c.to(torch.int64)
-    _, order = torch.sort(key, dim=-1, stable=True)
+    _, order = torch.sort(pair_key(r, c), dim=-1, stable=True)
     return (r.gather(-1, order), c.gather(-1, order), v.gather(-1, order))
 
 

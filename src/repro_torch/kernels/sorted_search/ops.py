@@ -5,7 +5,7 @@ CUDA tensor goes to the hand kernel; a CPU tensor to the plain version."""
 import torch
 
 from ..common import check_cuda, launch
-from .ref import rank_batched_ref, rank_ref
+from .ref import rank_ref, rank_sides_ref
 
 
 def rank(tab: torch.Tensor, q: torch.Tensor, strict: bool) -> torch.Tensor:
@@ -36,23 +36,30 @@ def sorted_search(tab: torch.Tensor, q: torch.Tensor,
     return rank(tab, q, strict=(side == "left"))
 
 
+_SIDES = {"left": 0, "right": 1, "both": 2}
+
+
 def rank_batched(tabs: torch.Tensor, q: torch.Tensor,
-                 strict: bool) -> torch.Tensor:
-    """Ranks of ``q[Q]`` in each sorted row of ``tabs[K, N]``: int32
-    [K, Q]. Rows must be sorted (pads I32_MAX); both inputs int32."""
+                 side: str) -> torch.Tensor:
+    """Ranks of ``q[Q]`` in each sorted row of ``tabs[K, N]`` (pads
+    I32_MAX; both inputs int32): ``side="left"`` counts the entries < q,
+    ``"right"`` those <= q, each int32 [K, Q]; ``"both"`` gives the two in
+    one launch, stacked left first: int32 [2, K, Q]."""
+    if side not in _SIDES:
+        raise ValueError(f"side must be one of {sorted(_SIDES)}, got {side!r}")
     if tabs.dim() != 2 or q.dim() != 1:
         raise ValueError("rank_batched takes tabs[K, N] and q[Q]")
     if tabs.device.type == "cpu":
-        return rank_batched_ref(tabs, q, strict)
+        return rank_sides_ref(tabs, q, side)
     check_cuda("rank_batched", (tabs, torch.int32),
                (q, torch.int32))
     n_k, n = tabs.shape
     if n_k > 65535:
         raise ValueError(f"rank_batched: K={n_k} exceeds the grid limit")
-    out = torch.empty((n_k, q.shape[0]), dtype=torch.int32,
-                      device=tabs.device)
+    shape = (n_k, q.shape[0]) if side != "both" else (2, n_k, q.shape[0])
+    out = torch.empty(shape, dtype=torch.int32, device=tabs.device)
     launch("rank_batched", tabs.device, tabs.data_ptr(), n_k, n,
-           q.data_ptr(), q.shape[0], int(strict), out.data_ptr())
+           q.data_ptr(), q.shape[0], _SIDES[side], out.data_ptr())
     return out
 
 
@@ -61,13 +68,13 @@ def sorted_search_batched(tabs: torch.Tensor, q: torch.Tensor,
     """Batched searchsorted: ranks of ``q`` in each row of ``tabs[K, N]``.
 
     Every row must be sorted and padded with I32_MAX past its valid prefix.
-    One kernel launch covers all K runs. Returns int32[K, Q].
+    One kernel launch covers all K runs. Returns int32[K, Q]; with
+    ``side="both"`` the left and right ranks of one launch, int32
+    [2, K, Q].
     """
-    if side not in ("left", "right"):
-        raise ValueError(f"side must be 'left' or 'right', got {side!r}")
     tabs = tabs.to(torch.int32).contiguous()
     q = q.to(torch.int32).reshape(-1).contiguous()
-    return rank_batched(tabs, q, strict=(side == "left"))
+    return rank_batched(tabs, q, side)
 
 
 def sorted_search_endpoints(tabs: torch.Tensor, lohi: torch.Tensor):

@@ -21,6 +21,17 @@ def rank_batched_ref(tabs: torch.Tensor, q: torch.Tensor,
     return out
 
 
+def rank_sides_ref(tabs: torch.Tensor, q: torch.Tensor,
+                   side: str) -> torch.Tensor:
+    """Plain version of ``rank_batched``: ``rank_batched_ref`` strict for
+    ``side="left"``, non-strict for ``"right"``, the two stacked (int32
+    [2, K, Q]) for ``"both"``."""
+    if side == "both":
+        return torch.stack([rank_batched_ref(tabs, q, True),
+                            rank_batched_ref(tabs, q, False)])
+    return rank_batched_ref(tabs, q, side == "left")
+
+
 def sorted_search_batched_ref(tabs, q, side: str = "left"):
     """Per-run searchsorted over stacked I32_MAX-padded runs ``tabs[K, N]``
     (pads count only for queries >= I32_MAX, which real ids never are)."""

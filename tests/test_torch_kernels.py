@@ -453,16 +453,292 @@ def test_cpu_tensors_never_launch():
     reset_launches()
     tss.sorted_search_batched(T(np.zeros((1, 4), np.int32)),
                               T(np.zeros(3, np.int32)))
+    tss.sorted_search_batched(T(np.zeros((1, 4), np.int32)),
+                              T(np.zeros(3, np.int32)), "both")
     tmr.row_rank(T(np.zeros((2, 3), np.int32)))
+    tmr.merge_ranks(*(T(np.zeros((2, 3), np.int32)) for _ in range(4)))
     tss.sorted_search(T(np.zeros(4, np.int32)), T(np.zeros(3, np.int32)))
     tsr.segment_sum(T(np.zeros(3, np.int32)), T(np.ones(3, np.float32)), 2)
     tsp.spmv_ell(T(np.zeros((2, 3), np.int32)), T(np.ones((2, 3), np.float32)),
                  T(np.ones(4, np.float32)))
     tsp.spmv_csr(T(np.array([0, 1, 3], np.int32)), T(np.zeros(3, np.int32)),
                  T(np.ones(3, np.float32)), T(np.ones(4, np.float32)))
-    assert LAUNCHES == {"rank_batched": 0, "pair_rank": 0, "row_rank": 0,
-                        "rank": 0, "segment_sum": 0, "spmv_ell": 0,
-                        "spmv_csr": 0, "flash_attention": 0}
+    assert LAUNCHES == {"rank_batched": 0, "pair_rank": 0,
+                        "merge_path_rank": 0, "row_rank": 0, "rank": 0,
+                        "segment_sum": 0, "spmv_ell": 0, "spmv_csr": 0,
+                        "flash_attention": 0}
+
+
+# ------------------------------------------------------ merge-path ranks (#3)
+def _pair_runs(rng, n_s, n, valid, keys=6, dup=True):
+    """[S, n] runs sorted over their full width: ``valid[s]`` entries from a
+    ``keys`` x ``keys`` key space (equal keys within and across runs when
+    ``dup``), then (I32_MAX, I32_MAX) pads."""
+    rr = np.full((n_s, n), I32_MAX, np.int32)
+    cc = np.full((n_s, n), I32_MAX, np.int32)
+    for s in range(n_s):
+        m = valid[s]
+        if dup:
+            r, c = rng.integers(0, keys, m), rng.integers(0, keys, m)
+        else:
+            flat = np.sort(rng.choice(keys * keys, m, replace=False))
+            r, c = flat // keys, flat % keys
+        o = np.lexsort((c, r))
+        rr[s, :m], cc[s, :m] = r[o], c[o]
+    return rr, cc
+
+
+_MERGE_CASES = {
+    # name: (S, n_a, valid_a, n_b, valid_b, keys)
+    "ties": (1, 40, [40], 40, [40], 3),
+    "dup_inside_a": (1, 64, [64], 16, [16], 4),
+    "pads_meet_pads": (1, 24, [10], 32, [7], 5),
+    "uneven": (1, 37, [30], 200, [180], 12),
+    "empty_a": (1, 0, [0], 20, [15], 6),
+    "empty_b": (1, 20, [12], 0, [0], 6),
+    "all_pads": (1, 16, [0], 8, [0], 6),
+    "shards": (3, 48, [48, 5, 0], 40, [0, 40, 17], 7),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_MERGE_CASES))
+def test_merge_ranks_matches_jax_pair_rank(case):
+    """Both merge-rank vectors equal the JAX pair_rank_pallas calls
+    (interpret mode, B ranked in A strictly and A in B non-strictly) and
+    the port's compare-count pair_rank_ref, exactly."""
+    from repro.kernels.merge_rank.kernel import pair_rank_pallas
+    n_s, n_a, va, n_b, vb, keys = _MERGE_CASES[case]
+    rng = np.random.default_rng(len(case))
+    ar, ac = _pair_runs(rng, n_s, n_a, va, keys)
+    br, bc = _pair_runs(rng, n_s, n_b, vb, keys)
+    rank_a, rank_b = tmr.merge_ranks(T(ar), T(ac), T(br), T(bc))
+    assert rank_a.dtype == rank_b.dtype == torch.int32
+    assert rank_a.shape == (n_s, n_a) and rank_b.shape == (n_s, n_b)
+    np.testing.assert_array_equal(
+        rank_a, tmr.pair_rank_ref(T(br), T(bc), T(ar), T(ac), True))
+    np.testing.assert_array_equal(
+        rank_b, tmr.pair_rank_ref(T(ar), T(ac), T(br), T(bc), False))
+
+    def jax_rank(tr, tc, qr, qc, strict):
+        if qr.size == 0:
+            return np.zeros(0, np.int32)
+        if tr.size == 0:  # no table to tile: every rank is 0
+            return np.zeros(qr.size, np.int32)
+        n_q = -(-qr.size // 8) * 8  # queries padded to the query block
+        pad = lambda x: np.pad(x, (0, n_q - x.size))
+        return _np(pair_rank_pallas(
+            jnp.asarray(tr)[None], jnp.asarray(tc)[None],
+            jnp.asarray(pad(qr))[:, None], jnp.asarray(pad(qc))[:, None],
+            strict=strict, block_q=n_q, block_t=tr.size,
+            interpret=True))[:qr.size, 0]
+
+    for s in range(n_s):
+        np.testing.assert_array_equal(
+            rank_a[s], jax_rank(br[s], bc[s], ar[s], ac[s], True))
+        np.testing.assert_array_equal(
+            rank_b[s], jax_rank(ar[s], ac[s], br[s], bc[s], False))
+
+
+def _corank(a, b, d, lanes=32):
+    """The partition kernel's co-rank of diagonal d (one warp, 32-ary):
+    each round ``lanes`` probes, a ballot, and the range cut to one step.
+    ``a``, ``b`` are lists of (row, col) tuples; a_first is ``<=``."""
+    lo, hi = max(0, d - len(b)), min(d, len(a))
+    while hi > lo:
+        n = hi - lo
+        step = -(-n // lanes)
+        ok = [a[p - 1] <= b[d - p]
+              for p in (lo + min((k + 1) * step, n) for k in range(lanes))]
+        assert ok == sorted(ok, reverse=True)  # the ballot is a prefix
+        m = sum(ok)
+        if m == lanes:
+            lo = hi
+        else:
+            lo, hi = lo + min(m * step, n), lo + min((m + 1) * step, n) - 1
+    return lo
+
+
+def _merge_path_model(a, b, tile, items):
+    """csrc/merge_path.cu in plain Python: co-ranks at every tile diagonal,
+    then per tile each thread's co-rank (binary search in the tile's
+    windows) and its sequential merge of ``items`` outputs."""
+    total = len(a) + len(b)
+    n_tiles = -(-total // tile)
+    bounds = [_corank(a, b, min(t * tile, total)) for t in range(n_tiles + 1)]
+    rank_a, rank_b = [None] * len(a), [None] * len(b)
+    for t in range(n_tiles):
+        d0, d1 = t * tile, min((t + 1) * tile, total)
+        i0, i1 = bounds[t], bounds[t + 1]
+        j0 = d0 - i0
+        wa, wb = a[i0:i1], b[j0:d1 - i1]
+        na, nb = len(wa), len(wb)
+        for th in range(tile // items):
+            dl = min(th * items, na + nb)
+            lo, hi = max(0, dl - nb), min(dl, na)
+            while lo < hi:
+                mid = (lo + hi + 1) // 2
+                if wa[mid - 1] <= wb[dl - mid]:
+                    lo = mid
+                else:
+                    hi = mid - 1
+            i, j = lo, dl - lo
+            for _ in range(dl, min(dl + items, na + nb)):
+                if j >= nb or (i < na and wa[i] <= wb[j]):
+                    rank_a[i0 + i] = j0 + j
+                    i += 1
+                else:
+                    rank_b[j0 + j] = i0 + i
+                    j += 1
+    return np.asarray(rank_a, np.int64), np.asarray(rank_b, np.int64)
+
+
+@pytest.mark.parametrize("tile,items", [(4, 2), (8, 4), (24, 8), (2048, 8)])
+def test_merge_path_partition_model_equals_stable_sort(tile, items):
+    """The merge-path scheme at small tiles, where equal-key groups (runs
+    of 30 copies of one key in both A and B) and the two runs' pads
+    straddle tile boundaries, gives the stable-sort ranks; 2,000-entry
+    runs take the 32-ary search through several rounds."""
+    rng = np.random.default_rng(tile)
+    for n_a, va, n_b, vb in ((120, 100, 90, 70), (2000, 1990, 1500, 1480),
+                             (50, 0, 60, 45)):
+        ar, ac = _pair_runs(rng, 1, n_a, [va], keys=4)
+        br, bc = _pair_runs(rng, 1, n_b, [vb], keys=4)
+        ar[0, 10:40], ac[0, 10:40] = ar[0, 10], ac[0, 10]  # a group of 30
+        key = (int(ar[0, 10]), int(ac[0, 10]))
+        lo = np.searchsorted(br[0].astype(np.int64) * 2 ** 32 + bc[0],
+                             key[0] * 2 ** 32 + key[1])
+        br[0, lo:lo + 30], bc[0, lo:lo + 30] = key  # and 30 in B
+        o = np.lexsort((bc[0], br[0]))
+        br[0], bc[0] = br[0, o], bc[0, o]
+        a = list(zip(ar[0].tolist(), ac[0].tolist()))
+        b = list(zip(br[0].tolist(), bc[0].tolist()))
+        got_a, got_b = _merge_path_model(a, b, tile, items)
+        want_a, want_b = tmr.merge_ranks_ref(T(ar), T(ac), T(br), T(bc))
+        np.testing.assert_array_equal(got_a, want_a[0].numpy())
+        np.testing.assert_array_equal(got_b, want_b[0].numpy())
+
+
+def test_merge_inputs_are_sorted_over_full_width(monkeypatch):
+    """Every run the merge kernel is given, by the LSM engine's flushes and
+    major compactions and by the single engine's tablet_insert, is sorted
+    lexicographically over its whole width, pads included: the merge path
+    (unlike the binary search) needs sorted queries."""
+    from repro_torch.db.kvstore import ShardedTable
+    from repro_torch.kernels.merge_rank import ops as merge_ops
+    from repro_torch.kernels.merge_rank.ref import pair_key
+    seen = []
+    real = merge_ops.merge_ranks
+
+    def checked(ar, ac, br, bc):
+        for r, c in ((ar, ac), (br, bc)):
+            key = pair_key(r, c)
+            assert bool((key[:, 1:] >= key[:, :-1]).all()), "unsorted run"
+            assert bool(((r == I32_MAX) == (c == I32_MAX)).all())
+        seen.append(ar.shape)
+        return real(ar, ac, br, bc)
+
+    monkeypatch.setattr(merge_ops, "merge_ranks", checked)
+    rng = np.random.default_rng(4)
+    for engine, kw in (("lsm", dict(memtable_cap=16, l0_slots=2)),
+                       ("single", dict(memtable_cap=64))):
+        t = ShardedTable(f"torch_sorted_{engine}", engine=engine,
+                         num_shards=2, capacity_per_shard=512, batch_cap=32,
+                         id_capacity=128, use_pallas=True, device="cpu", **kw)
+        before = len(seen)
+        for _ in range(12):
+            n = int(rng.integers(1, 17))
+            t.insert(rng.integers(0, 128, n).astype(np.int32),
+                     rng.integers(0, 128, n).astype(np.int32),
+                     np.ones(n, np.float32))
+        t.flush()
+        if engine == "lsm":
+            t.major_compact()
+        assert len(seen) > before, engine
+
+
+# ------------------------------------------------ two-sided fence search (#1)
+def _fence_model(row, x, side, stage):
+    """csrc/rank_batched.cu for one row and query in plain Python: the
+    branch-free search of the staged row, or of every stride-th entry
+    (stride 32, doubled until the samples fit ``stage``) narrowed in the
+    row to 32 entries and counted. ``both`` searches the right bound from
+    the left one. Returns the rank, or (left, right)."""
+    n = len(row)
+    stride = 1
+    if n > stage:
+        stride = 32
+        while -(-n // stride) > stage:
+            stride *= 2
+    s = row[::stride]
+
+    def search(lo, strict):
+        before = (lambda v: v < x) if strict else (lambda v: v <= x)
+        if lo >= len(s):
+            return lo
+        base, ln = lo, len(s) - lo
+        while ln > 1:
+            half = ln >> 1
+            base = base + half if before(s[base + half]) else base
+            ln -= half
+        return base + before(s[base])
+
+    def finish(c, strict):
+        before = (lambda v: v < x) if strict else (lambda v: v <= x)
+        if stride == 1 or c == 0:
+            return c
+        lo = (c - 1) * stride
+        ln = min(stride, n - lo)
+        while ln > 32:
+            half = ln >> 1
+            if before(row[lo + half]):
+                lo, ln = lo + half, ln - half
+            else:
+                ln = half
+        return lo + sum(before(v) for v in row[lo:lo + ln])
+
+    c = search(0, side != "right")
+    first = finish(c, side != "right")
+    if side != "both":
+        return first
+    return first, finish(search(c, False), False)
+
+
+@pytest.mark.parametrize("n,stage", [(0, 8), (7, 8), (300, 512), (300, 8),
+                                     (600, 4), (2048, 16)])
+def test_two_level_fence_search_model(n, stage):
+    """The kernel's search, dense (a row that fits) and sampled (every
+    32nd fence, or every 64th.. when the samples outgrow the stage, then a
+    32-entry window), against rank_batched_ref for all three modes, on
+    rows with runs of duplicate fences and I32_MAX pads."""
+    rng = np.random.default_rng(n + stage)
+    tabs = _tabs(rng, 3, n, hi=60)  # 60 values: long duplicate runs
+    if n:
+        tabs[0] = np.sort(rng.integers(0, 60, n))  # no pads
+    q = np.concatenate([rng.integers(-2, 63, 40),
+                        [0, 59, I32_MAX - 1, I32_MAX]]).astype(np.int32)
+    for side in ("left", "right", "both"):
+        want = tss.rank_sides_ref(T(tabs), T(q), side).numpy()
+        got = np.asarray([[_fence_model(list(tabs[k]), int(x), side, stage)
+                           for x in q] for k in range(3)])
+        if side == "both":
+            got = got.transpose(2, 0, 1)
+        np.testing.assert_array_equal(got, want, err_msg=side)
+
+
+@pytest.mark.parametrize("n_tab", [1, 300, 2048])
+def test_rank_batched_both_matches_jax(n_tab):
+    """side="both" (one launch on the card) equals the JAX batched search's
+    left and right ranks, stacked."""
+    rng = np.random.default_rng(n_tab + 7)
+    tabs = _tabs(rng, 3, n_tab)
+    q = rng.integers(-5, 510, 70).astype(np.int32)
+    got = tss.sorted_search_batched(T(tabs), T(q), "both").numpy()
+    assert got.shape == (2, 3, 70) and got.dtype == np.int32
+    for i, side in enumerate(("left", "right")):
+        want = _np(jss.sorted_search_batched(jnp.asarray(tabs),
+                                             jnp.asarray(q), side,
+                                             block_q=64, block_t=256))
+        np.testing.assert_array_equal(got[i], want, err_msg=side)
 
 
 @pytest.mark.gpu
@@ -474,9 +750,9 @@ def test_kernels_on_card_match_plain_versions():
     rng = np.random.default_rng(0)
     tabs = _tabs(rng, 4, 1000)
     q = rng.integers(-5, 510, 700).astype(np.int32)
-    for strict in (True, False):
-        got = tss.rank_batched(T(tabs).cuda(), T(q).cuda(), strict).cpu()
-        assert torch.equal(got, tss.rank_batched_ref(T(tabs), T(q), strict))
+    for side in ("left", "right", "both"):
+        got = tss.rank_batched(T(tabs).cuda(), T(q).cuda(), side).cpu()
+        assert torch.equal(got, tss.rank_sides_ref(T(tabs), T(q), side))
     a, b = _rand_run(3000, 2500, 1), _rand_run(500, 400, 2)
     for strict in (True, False):
         args = [T(x)[None] for x in (a[0], a[1], b[0], b[1])]
@@ -538,3 +814,58 @@ def test_spmv_csr_on_card_matches_plain_version():
             torch.testing.assert_close(got.cpu(), want, **tol)
             again = tsp.spmv_csr(*(a.cuda() for a in csr), T(x).cuda())
             assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+def test_merge_path_rank_on_card_matches_plain_and_pair_rank():
+    """The merge-path kernel on the card against its plain version and the
+    binary-search pair_rank kernel (both directions), exactly: 10,000
+    copies of one key in both runs (a group across many tiles), all-pad
+    runs, empty sides, a run of 3 entries, and S = 4 at 815,709 entries
+    (the single engine's flush). One launch counted per call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(3)
+    same = [np.full((1, 10_000), 5, np.int32)] * 2
+    pads = [np.full((2, 3000), I32_MAX, np.int32)] * 2
+    cases = [(same, same), (pads, pads),
+             (_pair_runs(rng, 2, 0, [0, 0]), _pair_runs(rng, 2, 50, [50, 9])),
+             (_pair_runs(rng, 2, 70, [70, 1]), _pair_runs(rng, 2, 0, [0, 0])),
+             (_pair_runs(rng, 1, 3, [3]), _pair_runs(rng, 1, 3, [2])),
+             (_pair_runs(rng, 1, 3, [3]), same),
+             (_pair_runs(rng, 4, 815_709, [815_709, 800_000, 10, 0],
+                         keys=2000),
+              _pair_runs(rng, 4, 815_709, [0, 815_709, 700_001, 3],
+                         keys=2000))]
+    for (ar, ac), (br, bc) in cases:
+        args = [T(x).cuda() for x in (ar, ac, br, bc)]
+        reset_launches()
+        got_a, got_b = tmr.merge_ranks(*args)
+        assert LAUNCHES["merge_path_rank"] == 1
+        want_a, want_b = tmr.merge_ranks_ref(*args)
+        assert torch.equal(got_a, want_a) and torch.equal(got_b, want_b)
+        ar_, ac_, br_, bc_ = args
+        assert torch.equal(got_a, tmr.pair_rank(br_, bc_, ar_, ac_, True))
+        assert torch.equal(got_b, tmr.pair_rank(ar_, ac_, br_, bc_, False))
+
+
+@pytest.mark.gpu
+def test_rank_batched_on_card_all_modes_and_row_lengths():
+    """The fence search on the card in all three modes against the plain
+    version, exactly: rows that fit the shared-memory stage (16, 800 and
+    8,192 entries) and rows that take the sampled search (8,193 and 20,000:
+    every 32nd entry; 300,000: every 64th), with duplicate runs and pads;
+    one launch for both sides."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(4)
+    for n in (16, 800, 8192, 8193, 20_000, 300_000):
+        tabs = _tabs(rng, 3, n, hi=n // 4 + 2)
+        q = np.concatenate([rng.integers(-2, n // 4 + 4, 600),
+                            [I32_MAX - 1, I32_MAX]]).astype(np.int32)
+        for side in ("left", "right", "both"):
+            reset_launches()
+            got = tss.rank_batched(T(tabs).cuda(), T(q).cuda(), side).cpu()
+            assert LAUNCHES["rank_batched"] == 1
+            assert torch.equal(got, tss.rank_sides_ref(T(tabs), T(q), side)), \
+                (n, side)

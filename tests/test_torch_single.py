@@ -172,12 +172,14 @@ def test_single_engine_cpu_tensors_never_launch():
 
 @pytest.mark.gpu
 def test_single_engine_on_card_launches_rank_and_pair_rank():
-    """Under use_pallas the flush merges through the pair-rank kernel and
-    the point read rank-searches through the 1-D rank kernel."""
+    """Under use_pallas the flush merges through the merge-path rank kernel
+    (one launch; the binary-search pair rank no longer runs there) and the
+    point read rank-searches through the 1-D rank kernel."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     launches = _route_run("cuda")
-    assert launches["pair_rank"] == 2 and launches["rank"] == 2
+    assert launches["merge_path_rank"] == 1 and launches["pair_rank"] == 0
+    assert launches["rank"] == 2
 
 
 def test_single_flush_overflow_leaves_tablets_unchanged():
