@@ -18,8 +18,10 @@ Phases (each raises on failure):
   2. kernel build (one nvcc per source, in parallel);
   3. Listing-1 at scale 16 with ``use_pallas=True`` (the hand kernels:
      the merge-path rank in every compaction, the two-sided fence search
-     once per probed run stack); every read equals the host ``Assoc``
-     algebra's answer;
+     once per probed run stack, the row merge once per point-read
+     combine); every read equals the host ``Assoc`` algebra's answer, and
+     the route the row merge replaced (the row rank, then scatters) equals
+     it on every one of its inputs;
   4. the same workload on the port's PyTorch-ops path
      (``use_pallas=False``); every read equals phase 3's. Both paths
      first run once untimed, then twice each in the order kernels,
@@ -52,9 +54,11 @@ Phases (each raises on failure):
   5. each kernel against its plain version on the card at every input
      each path gave it (recorded in phases 3, 4b, 4c, 4d and 6: per
      geometry for the LSM kernels and flash attention, per call for the
-     1-D rank, segment sum and SpMVs), ranks and degree sums exactly equal
-     (the merge-path ranks also to the binary-search pair rank's, timed
-     beside them),
+     1-D rank, segment sum and SpMVs), ranks, merged rows and degree sums
+     exactly equal (the merge-path ranks also to the binary-search pair
+     rank's, the row merge to the row rank + scatters, the segment sum to
+     the one-atomic-per-entry kernel, each timed beside them; an empty
+     kernel timed as the launch floor),
      SpMV within rtol=1e-5, attention within about one bf16 ulp (rtol
      8e-3, atol 1e-3; float32 2e-5) and an error norm within 1e-2 of the
      output's, a limit that two planted faults at run b's inputs must
@@ -244,6 +248,7 @@ def listing1(graph, use_pallas, cap, stash=None, profile_dir=None):
     (their times then include its cost)."""
     import numpy as np
     from repro_torch.db import delete, put
+    from repro_torch.kernels.merge_rank import ops as merge_ops
 
     A, verts, sels = graph["A"], graph["verts"], graph["sels"]
     DB = server("smoke", cap, use_pallas)
@@ -256,12 +261,14 @@ def listing1(graph, use_pallas, cap, stash=None, profile_dir=None):
     Tedge.table.store.warmup()
 
     timed = path_timer(profile_dir, "kernels" if use_pallas else "ops")
-    with kernel_run(stash) as launches:
+    with kernel_run(stash) as launches, \
+            Calls(merge_ops, "row_merge", keep=stash is not None) as merges:
         _, t_put = timed("put", lambda: put(Tedge, A))
         reads, times = {}, {"put_s": t_put,
                             "ingest_entries_per_s": A.nnz() / t_put}
         for name, sel in sels.items():
             reads[name], times[name + "_s"] = timed(name, lambda: Tedge[sel])
+        old_merge_route(merges.kept)
     store = Tedge.table.store
     stats = {"Tedge": store.engine_stats(),
              "TedgeT": store.t_store.engine_stats()}
@@ -269,6 +276,20 @@ def listing1(graph, use_pallas, cap, stash=None, profile_dir=None):
     if DB.ls():
         raise AssertionError(f"tables left after delete: {DB.ls()}")
     return reads, stats, times, launches
+
+
+def old_merge_route(kept):
+    """The route the fused row merge replaced, on each of its calls' inputs:
+    the row-rank kernel, then the rank applied by scatters, equals the
+    merge. This keeps ``row_rank`` launched on a path."""
+    import torch
+    from repro_torch.kernels.merge_rank import apply_row_rank
+    from repro_torch.kernels.merge_rank import ops as merge_ops
+    for (keys, vals), got in kept:
+        want = apply_row_rank(keys, vals, merge_ops.row_rank(keys))
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"phase 3: row_rank + scatter differs from "
+                                 f"row_merge at {list(keys.shape)}")
 
 
 def make_graph(scale, seed):
@@ -341,6 +362,7 @@ def wrapper_sites():
     from repro_torch.models import layers
     return {"rank_batched": (search_ops, "rank_batched"),
             "row_rank": (merge_ops, "row_rank"),
+            "row_merge": (merge_ops, "row_merge"),
             "pair_rank": (merge_ops, "pair_rank"),
             "merge_path_rank": (merge_ops, "merge_ranks"),
             "rank": (search_ops, "rank"),
@@ -378,9 +400,11 @@ class Calls:
 def kernel_run(stash=None):
     """Counts every kernel's launches from 0 over the block; the dict it
     yields is filled on exit. With ``stash`` a dict, a Recorder stands at
-    each wrapper's call site for the block, under the kernel's name, and
+    each wrapper's call site for the block, under the kernel's name,
     ``stash["probe_stack"]`` counts the fused read's probed run stacks
-    (each searches its fences with one ``rank_batched`` launch)."""
+    (each searches its fences with one ``rank_batched`` launch) and
+    ``stash["combine_rows"]`` its ``merge_combine_rows`` calls (one
+    ``row_merge`` launch each)."""
     from repro_torch.db.lsm import engine
     from repro_torch.kernels import LAUNCHES, reset_launches
     launches = {}
@@ -391,6 +415,8 @@ def kernel_run(stash=None):
                     Recorder(module, attr, every_call=name in EVERY_CALL))
             stash["probe_stack"] = rec.enter_context(
                 Calls(engine, "_probe_stack"))
+            stash["combine_rows"] = rec.enter_context(
+                Calls(engine, "merge_combine_rows"))
         reset_launches()
         yield launches
         launches.update(LAUNCHES)
@@ -432,7 +458,8 @@ def fig4(graph, cap, use_pallas, naive, seed, stash=None, profile_dir=None):
         times = fig4_put_and_reads(g, graph, naive, seed, timed)
     if use_pallas and not (launches["segment_sum"] == 2
                            and launches["merge_path_rank"] > 0
-                           and launches["rank_batched"] > 0):
+                           and launches["rank_batched"] > 0
+                           and launches["row_merge"] > 0):
         raise AssertionError(f"phase 4b: kernel launches {launches}")
     if not use_pallas and any(launches.values()):
         raise AssertionError(f"phase 4b launched a hand kernel: {launches}")
@@ -732,10 +759,15 @@ def kernel_checks(stash, launches):
     import numpy as np
     import torch
     from repro_torch.kernels.common import I32_MAX
-    from repro_torch.kernels.merge_rank import (merge_ranks, merge_ranks_ref,
+    from repro_torch.kernels import common
+    from repro_torch.kernels.merge_rank import (apply_row_rank,
+                                                merge_combine_rows_ref,
+                                                merge_ranks, merge_ranks_ref,
                                                 pair_rank, pair_rank_ref,
+                                                row_merge, row_merge_ref,
                                                 row_rank, row_rank_ref)
     from repro_torch.kernels.segment_reduce import (segment_sum,
+                                                    segment_sum_direct,
                                                     segment_sum_ref)
     from repro_torch.kernels.sorted_search import (rank, rank_batched,
                                                    rank_ref, rank_sides_ref)
@@ -857,6 +889,13 @@ def kernel_checks(stash, launches):
     def row_cost(args, kw):
         (keys,) = args
         return 4 * 2 * keys.numel(), 2 * keys.shape[0] * keys.shape[1] ** 2
+
+    # row merge: keys and values read once, both written once (values of
+    # their own width); the row rank's compares and adds
+    def row_merge_cost(args, kw):
+        keys, vals = args
+        n_bytes = (4 + vals.element_size()) * 2 * keys.numel()
+        return n_bytes, row_cost((keys,), kw)[1]
 
     def pair_cost(args, kw):
         tr, _, qr, _ = args
@@ -982,6 +1021,16 @@ def kernel_checks(stash, launches):
         return lambda: torch.searchsorted(tab, qq, right=not kw["strict"],
                                           out_int32=True)
 
+    def row_merge_lib(args, kw):  # the engine's wide-row route: stable sort
+        return lambda: merge_combine_rows_ref(*args)  # + gather
+
+    def row_merge_old(args, kw):  # the row-rank launch, then the scatters
+        keys, vals = args
+        return lambda: apply_row_rank(keys, vals, row_rank(keys))
+
+    def segsum_old(args, kw):  # one global atomic per entry
+        return lambda: segment_sum_direct(*args, **kw)
+
     def segsum_lib(args, kw):  # index_add_ on the valid ids (off the clock)
         ids, vals = args
         n_seg = kw["n_segments"]
@@ -1022,9 +1071,17 @@ def kernel_checks(stash, launches):
          search_lib, (20, 3), check, PEAK_OPS_PER_S, False,
          "src/repro_torch/csrc/rank_batched.cu",
          "src/repro/kernels/sorted_search/kernel.py:66", None),
+        # the generic rank, launched on phase 3's path by the check of the
+        # route the row merge replaced
         ("row_rank", row_rank, row_rank_ref, row_cost, None, (20, 3), check,
          PEAK_OPS_PER_S, False, "src/repro_torch/csrc/row_rank.cu",
          "src/repro/kernels/merge_rank/kernel.py:67", None),
+        # the same TPU kernel's function as the point read applies it (rank,
+        # then the merged row), in one launch
+        ("row_merge", row_merge, row_merge_ref, row_merge_cost, row_merge_lib,
+         (20, 3), check, PEAK_OPS_PER_S, False,
+         "src/repro_torch/csrc/row_rank.cu",
+         "src/repro/kernels/merge_rank/kernel.py:67", row_merge_old),
         # the plain pair rank is a chunked quadratic count (up to ~7e11
         # compares per shard at the single engine's flush): its time is
         # that of the one call the check makes, no warm-up
@@ -1044,7 +1101,7 @@ def kernel_checks(stash, launches):
         ("segment_sum", segment_sum, segment_sum_ref, segsum_cost,
          segsum_lib, (20, 3), check, PEAK_F32_PER_S, False,
          "src/repro_torch/csrc/segment_sum.cu",
-         "src/repro/kernels/segment_reduce/kernel.py:33", None),
+         "src/repro/kernels/segment_reduce/kernel.py:33", segsum_old),
         ("spmv_ell", spmv_ell, spmv_ell_ref, spmv_cost, spmv_lib, (3, 1),
          check_close, PEAK_F32_PER_S, True, "src/repro_torch/csrc/spmv_ell.cu",
          "src/repro/kernels/spmv/kernel.py:34", None),
@@ -1057,6 +1114,14 @@ def kernel_checks(stash, launches):
          "src/repro_torch/csrc/flash_attention.cu",
          "src/repro/kernels/flash_attention/kernel.py:64", None),
     )
+
+    def empty_launch():
+        stream = torch.cuda.current_stream().cuda_stream
+        err = common.lib().launch_floor(stream)
+        if err:
+            raise RuntimeError(f"launch_floor: CUDA error {err}")
+    floor_ms = graph_ms(empty_launch, 200)
+    log(f"launch floor (an empty kernel, graph replay): {floor_ms:.6g} ms")
     for (name, fn, ref, cost, lib, (p_reps, p_warm), chk, peak, lib_eager,
          src, tpu, old) in specs:
         by_path, inputs = {}, []
@@ -1119,7 +1184,7 @@ def kernel_checks(stash, launches):
                     "bound_by": ("operations" if ops_by[1] > ops_by[0]
                                  else "bytes"),
                     "library_ms": tot["lib"] if lib else None,
-                    "eager_ms": tot["eager"],
+                    "eager_ms": tot["eager"], "launch_floor_ms": floor_ms,
                     "launches_by_path": {k: v for k, v in by_path.items()
                                          if v},
                     "inputs": "; ".join(groups)})
@@ -1134,6 +1199,13 @@ def kernel_checks(stash, launches):
             out[-1]["probe_stacks"] = probes
             log(f"rank_batched: {both} two-sided launches for {probes} "
                 f"probed run stacks")
+        if name == "row_merge":  # one launch per merge_combine_rows call
+            combines = sum(r["combine_rows"].n for r in stash.values())
+            out[-1]["launches_per_merge_combine_rows"] = n_calls / max(
+                combines, 1)
+            out[-1]["merge_combine_rows_calls"] = combines
+            log(f"row_merge: {n_calls} launches for {combines} "
+                f"merge_combine_rows calls")
         if name == "flash_attention":
             out[-1]["rel_err"] = attn_rel[0]
             out[-1]["planted_faults"] = attn_faults()
@@ -1149,9 +1221,13 @@ def kernel_checks(stash, launches):
     fill = rng.integers(0, 33, (512, 8, 1))
     keys = np.where(np.arange(32) < fill, keys, I32_MAX).reshape(512, 256)
     kt = torch.as_tensor(keys.astype(np.int32), device=dev)
+    vt = torch.as_tensor(rng.normal(size=keys.shape).astype(np.float32),
+                         device=dev)
     check("row_rank", row_rank(kt), row_rank_ref(kt))
+    check("row_merge", row_merge(kt, vt), row_merge_ref(kt, vt))
     log(f"row_rank [512,256]: equal to plain; "
-        f"{graph_ms(lambda: row_rank(kt), 100):.6f} ms per launch")
+        f"{graph_ms(lambda: row_rank(kt), 100):.6f} ms per launch; row_merge "
+        f"equal to plain, {graph_ms(lambda: row_merge(kt, vt), 100):.6f} ms")
     return out
 
 
@@ -1217,7 +1293,7 @@ def main(argv=None):
     for k, v in tot.items():
         if v <= 0:
             raise AssertionError(f"phase 3: {k} = {v}")
-    for k in ("rank_batched", "row_rank", "merge_path_rank"):
+    for k in ("rank_batched", "row_rank", "row_merge", "merge_path_rank"):
         if launches["listing1"][k] <= 0:
             raise AssertionError(f"phase 3: kernel {k} never launched")
     log("phase 3 (use_pallas=True): " + json.dumps(

@@ -215,7 +215,7 @@ def _fused_query(q, levels, level_blocks, level_hashes, l0, b0: int, h0: int,
     the filter rules out is absent from the run (no false negatives), so
     masking gives what skipping a missed run would. Under ``pack`` the
     (col, age) pair packs into one int32 key, unique per query row, merged
-    by ``merge_combine_rows`` (the row-rank kernel under ``use_pallas``)
+    by ``merge_combine_rows`` (the row-merge kernel under ``use_pallas``)
     while the candidate width stays <= 256; wider rows and unpackable
     geometry fall back to a sort.
 

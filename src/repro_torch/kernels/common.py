@@ -36,8 +36,8 @@ _lib = None
 # in ``launch`` (the one place a kernel is launched), so a run can show that
 # its path went through the kernels.
 LAUNCHES = {"rank_batched": 0, "pair_rank": 0, "merge_path_rank": 0,
-            "row_rank": 0, "rank": 0, "segment_sum": 0, "spmv_ell": 0,
-            "spmv_csr": 0, "flash_attention": 0}
+            "row_rank": 0, "row_merge": 0, "rank": 0, "segment_sum": 0,
+            "spmv_ell": 0, "spmv_csr": 0, "flash_attention": 0}
 
 
 def reset_launches() -> None:
@@ -139,10 +139,12 @@ _SIGNATURES = {
     "merge_path_rank": (_P, _P, _I, _P, _P, _I, _I, _P, _I, _P, _P, _P),
     # keys, Q, W, out, stream
     "row_rank": (_P, _I, _I, _P, _P),
+    # keys, vals, Q, W, out_k, out_v, stream
+    "row_merge": (_P, _P, _I, _I, _P, _P, _P),
     # tab, N, q, Q, strict, out, stream
     "rank": (_P, _I, _P, _I, _I, _P, _P),
-    # ids, vals, N, n_segments, out, stream
-    "segment_sum": (_P, _P, _I, _I, _P, _P),
+    # ids, vals, N, n_segments, direct, out, stream
+    "segment_sum": (_P, _P, _I, _I, _I, _P, _P),
     # cols, vals, R, K, x, C, y, stream
     "spmv_ell": (_P, _P, _I, _I, _P, _I, _P, _P),
     # indptr, R, cols, vals, nnz, x, C, y, carry, cross, stream
@@ -150,6 +152,8 @@ _SIGNATURES = {
     # q, k, v, o, ws, B, Sq, Sk, H, KV, hd, causal, q_offset, is_bf16,
     # splits, stream
     "flash_attention": (_P,) * 5 + (_I,) * 10 + (_P,),
+    # stream: an empty kernel, the launch floor (timed, never counted)
+    "launch_floor": (_P,),
 }
 
 

@@ -5,15 +5,16 @@ of the fused point read (``merge_combine_rows``).
 Invalid entries in either run must carry key (I32_MAX, I32_MAX); they sort
 to the tail of the merged output, so fixed-capacity runs merge without
 knowing their valid counts. A CUDA tensor goes to the hand kernels
-(``csrc/merge_path.cu`` for the two-run merge, ``csrc/row_rank.cu``, and
-``csrc/pair_rank.cu`` for the rank of queries not known to be sorted); a
-CPU tensor to the plain versions in ``ref.py``.
+(``csrc/merge_path.cu`` for the two-run merge, ``csrc/row_rank.cu`` for the
+row rank and the row merge, and ``csrc/pair_rank.cu`` for the rank of
+queries not known to be sorted); a CPU tensor to the plain versions in
+``ref.py``.
 """
 import torch
 
-from ..common import I32_MAX, cdiv, check_cuda, launch
+from ..common import cdiv, check_cuda, launch
 from .ref import (merge_ranks_ref, merge_sorted_ref, pair_rank_ref,
-                  row_rank_ref)
+                  row_merge_ref, row_rank_ref)
 
 # merged outputs per block of csrc/merge_path.cu (its kTile): the wrapper
 # sizes the co-rank scratch with it, and the C entry point checks the size
@@ -79,6 +80,28 @@ def row_rank(keys: torch.Tensor) -> torch.Tensor:
     launch("row_rank", keys.device, keys.data_ptr(), keys.shape[0],
            keys.shape[1], out.data_ptr())
     return out
+
+
+def row_merge(keys: torch.Tensor, vals: torch.Tensor):
+    """Merge each row of ``keys[Q, W]`` (int32) into ascending key order in
+    one launch, ``vals[Q, W]`` riding along: every valid key (not I32_MAX)
+    goes to the slot its strict self-rank names, and slots [n_valid, W) get
+    I32_MAX and 0. Precondition: valid keys are unique within a row (pads
+    may sit anywhere, also inside a segment); a row that breaks it has no
+    defined result. The kernel moves 4-byte values (float32, int32) as
+    bits. Returns (keys, vals) [Q, W]."""
+    if keys.dim() != 2 or vals.shape != keys.shape:
+        raise ValueError("row_merge takes keys[Q, W] and vals[Q, W]")
+    if keys.device.type == "cpu":
+        return row_merge_ref(keys, vals)
+    check_cuda("row_merge", (keys, torch.int32), (vals, vals.dtype))
+    if vals.element_size() != 4:
+        raise TypeError(f"row_merge: values of 4 bytes, got {vals.dtype}")
+    out_k = torch.empty_like(keys)
+    out_v = torch.empty_like(vals)
+    launch("row_merge", keys.device, keys.data_ptr(), vals.data_ptr(),
+           keys.shape[0], keys.shape[1], out_k.data_ptr(), out_v.data_ptr())
+    return out_k, out_v
 
 
 def merge_sorted(ar, ac, av, br, bc, bv):
@@ -150,21 +173,11 @@ def merge_combine_rows(keys, vals, use_pallas: bool = False):
     run, (col, age)-packed by the fused query so valid keys are unique per
     row); pads carry I32_MAX. ``vals[Q, W]`` rides along. Because valid
     keys are unique, an element's strict self-rank against its row IS its
-    merged position. The rank comes from the hand kernel under
-    ``use_pallas`` (the plain compare count otherwise); the permutation is
-    applied as a direct scatter of the valid entries into a buffer of width
-    W + 1 (all pads rank at n_valid, so they go to the spare column).
-    Returns (keys, vals) with every row in ascending key order; unfilled
-    slots hold I32_MAX (keys) / 0 (vals).
+    merged position. Under ``use_pallas`` the rank and the scatter are one
+    hand-kernel launch (``row_merge``); otherwise the plain compare count
+    and a scatter (``row_merge_ref``). Returns (keys, vals) with every row
+    in ascending key order; unfilled slots hold I32_MAX (keys) / 0 (vals).
     """
-    n_q, n_w = keys.shape
     keys = keys.to(torch.int32).contiguous()
-    rank = row_rank(keys) if use_pallas else row_rank_ref(keys)
-    valid = keys != I32_MAX
-    dst = torch.where(valid, rank.to(torch.int64), n_w)
-    out_k = torch.full((n_q, n_w + 1), I32_MAX, dtype=torch.int32,
-                       device=keys.device)
-    out_v = torch.zeros((n_q, n_w + 1), dtype=vals.dtype, device=keys.device)
-    out_k.scatter_(1, dst, keys)
-    out_v.scatter_(1, dst, torch.where(valid, vals, torch.zeros_like(vals)))
-    return out_k[:, :n_w], out_v[:, :n_w]
+    vals = vals.contiguous()
+    return row_merge(keys, vals) if use_pallas else row_merge_ref(keys, vals)

@@ -2,6 +2,8 @@
 built on them (the definitions the CUDA kernels are held against)."""
 import torch
 
+from ..common import I32_MAX
+
 # compare-count chunking: at most this many [query, run] pairs at once
 _CHUNK = 1 << 24
 
@@ -49,6 +51,29 @@ def pair_key(r, c):
 def row_rank_ref(keys: torch.Tensor) -> torch.Tensor:
     """Per-row strict self-rank: ``o[i, j] = |{ k : keys[i, k] < keys[i, j] }|``."""
     return (keys[:, None, :] < keys[:, :, None]).sum(2, dtype=torch.int32)
+
+
+def row_merge_ref(keys: torch.Tensor, vals: torch.Tensor):
+    """Plain version of ``row_merge``: the strict self-rank of every valid
+    key (not I32_MAX) is its slot in the merged row (every pad ranks at
+    n_valid). Returns (keys, vals) [Q, W]; slots [n_valid, W) hold I32_MAX
+    and 0."""
+    return apply_row_rank(keys, vals, row_rank_ref(keys))
+
+
+def apply_row_rank(keys, vals, rank):
+    """Place every valid key of ``keys[Q, W]`` and its value at the slot
+    ``rank`` names, by a scatter into a buffer of width W + 1 (pads go to
+    the spare column); slots [n_valid, W) hold I32_MAX and 0."""
+    n_q, n_w = keys.shape
+    valid = keys != I32_MAX
+    dst = torch.where(valid, rank.to(torch.int64), n_w)
+    out_k = torch.full((n_q, n_w + 1), I32_MAX, dtype=torch.int32,
+                       device=keys.device)
+    out_v = torch.zeros((n_q, n_w + 1), dtype=vals.dtype, device=keys.device)
+    out_k.scatter_(1, dst, keys)
+    out_v.scatter_(1, dst, torch.where(valid, vals, torch.zeros_like(vals)))
+    return out_k[:, :n_w], out_v[:, :n_w]
 
 
 def merge_sorted_ref(ar, ac, av, br, bc, bv):

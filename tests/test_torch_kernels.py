@@ -463,10 +463,12 @@ def test_cpu_tensors_never_launch():
                  T(np.ones(4, np.float32)))
     tsp.spmv_csr(T(np.array([0, 1, 3], np.int32)), T(np.zeros(3, np.int32)),
                  T(np.ones(3, np.float32)), T(np.ones(4, np.float32)))
+    tmr.row_merge(T(np.zeros((2, 3), np.int32)),
+                  T(np.ones((2, 3), np.float32)))
     assert LAUNCHES == {"rank_batched": 0, "pair_rank": 0,
-                        "merge_path_rank": 0, "row_rank": 0, "rank": 0,
-                        "segment_sum": 0, "spmv_ell": 0, "spmv_csr": 0,
-                        "flash_attention": 0}
+                        "merge_path_rank": 0, "row_rank": 0, "row_merge": 0,
+                        "rank": 0, "segment_sum": 0, "spmv_ell": 0,
+                        "spmv_csr": 0, "flash_attention": 0}
 
 
 # ------------------------------------------------------ merge-path ranks (#3)
