@@ -34,9 +34,12 @@ Phases (each raises on failure):
      algebra and a ``NaiveTable`` fed the same triples;
   4c. the legacy single-run engine (``engine="single"``) on both paths:
      the phase-3 row-id read, row range and a column read (host scan +
-     filter) equal phase 3's reads; on the kernel path the binary-search
-     pair rank also ranks the flush's two runs both ways and equals the
-     merge-path ranks;
+     filter) equal phase 3's reads; on the kernel path the row-id read of
+     each queried shard is ``tablet_read``, one two-sided ``rank`` launch
+     and one ``tablet_gather`` launch (counted per read), and each result
+     equals the padded read it replaced (``tablet_query_rows`` widened,
+     then ``nonzero``) at the same inputs; the binary-search pair rank also
+     ranks the flush's two runs both ways and equals the merge-path ranks;
   4d. Graphulo ``table_spmv`` on the schema's Tedge, both routes (the CSR
      kernel and the PyTorch product on the card), and the ELL kernel on the
      ELL of the same scan, against a float64 product on the host, for a
@@ -54,11 +57,14 @@ Phases (each raises on failure):
   5. each kernel against its plain version on the card at every input
      each path gave it (recorded in phases 3, 4b, 4c, 4d and 6: per
      geometry for the LSM kernels and flash attention, per call for the
-     1-D rank, segment sum and SpMVs), ranks, merged rows and degree sums
-     exactly equal (the merge-path ranks also to the binary-search pair
-     rank's, the row merge to the row rank + scatters, the segment sum to
-     the one-atomic-per-entry kernel, each timed beside them; an empty
-     kernel timed as the launch floor),
+     1-D rank, the tablet gather, segment sum and SpMVs), ranks, merged
+     rows, read entries and degree sums exactly equal (the merge-path
+     ranks also to the binary-search pair rank's, the row merge to the row
+     rank + scatters, the segment sum to the one-atomic-per-entry kernel,
+     the 1-D rank to the one-thread binary search, a launch per side, each
+     timed beside them; every ``tablet_read`` of 4c whole, beside its plain
+     version and the padded read on the binary search, CUDA events; an
+     empty kernel timed as the launch floor),
      SpMV within rtol=1e-5, attention within about one bf16 ulp (rtol
      8e-3, atol 1e-3; float32 2e-5) and an error norm within 1e-2 of the
      output's, a limit that two planted faults at run b's inputs must
@@ -350,7 +356,7 @@ def server(name, cap, use_pallas, **kw):
 # the slice's new kernels are checked at each call's inputs (their calls
 # are few, and the same geometry comes with different data: the one-hot
 # and random x of the SpMV, the out- and in-degree ids of the segment sum)
-EVERY_CALL = ("rank", "segment_sum", "spmv_ell", "spmv_csr")
+EVERY_CALL = ("rank", "tablet_gather", "segment_sum", "spmv_ell", "spmv_csr")
 
 
 def wrapper_sites():
@@ -366,6 +372,7 @@ def wrapper_sites():
             "pair_rank": (merge_ops, "pair_rank"),
             "merge_path_rank": (merge_ops, "merge_ranks"),
             "rank": (search_ops, "rank"),
+            "tablet_gather": (search_ops, "tablet_gather"),
             "segment_sum": (kvstore, "segment_sum"),
             "spmv_ell": (spmv_ops, "spmv_ell"),
             "spmv_csr": (graphulo, "spmv_csr"),
@@ -507,17 +514,38 @@ def fig4_put_and_reads(g, graph, naive, seed, timed):
 
 
 # ------------------------------------------------------------------ phase 4c
+def padded_read(block, q, max_return=256):
+    """The single engine's point read before the compacting gather, as the
+    JAX engine reads: ``block(width)`` gives the padded ``[Q, width]``
+    candidate block (cols, vals, valid, counts); it is widened to the
+    longest queried row (a second pass), then ``nonzero`` compacts it.
+    (r, c, v) on the device."""
+    import torch
+    cols, vals, ok, cnt = block(max_return)
+    top = int(cnt.max())
+    if top > max_return:  # widen (batch scanner)
+        cols, vals, ok, cnt = block(top)
+    qi, ki = torch.nonzero(ok, as_tuple=True)
+    return q[qi], cols[qi, ki], vals[qi, ki]
+
+
 def single_engine(graph, cap, use_pallas, lsm_reads, stash=None,
                   profile_dir=None):
     """The legacy single-run engine, bulk-load sized as in
     ``benchmarks/ingest_bench.py``: the phase-3 put, then the row-id read,
     the row range and a column read (host scan + filter on this engine).
-    On the kernel path the binary-search pair rank then ranks the flush's
-    two runs both ways, and its ranks must equal the merge-path ranks.
+    On the kernel path every point read of a shard is ``tablet_read``: one
+    two-sided ``rank`` launch and one ``tablet_gather`` launch per queried
+    shard (logged per read), and each result equals the route it replaced
+    at the same inputs (``tablet_query_rows``, widened, then ``nonzero``);
+    the binary-search pair rank then ranks the flush's two runs both ways,
+    and its ranks must equal the merge-path ranks. With ``stash`` the
+    inputs of every ``tablet_read`` go to ``stash["tablet_read"]``.
     Returns (times, launches)."""
     import numpy as np
     import torch
-    from repro_torch.db import delete, put
+    from repro_torch.db import delete, kvstore, put
+    from repro_torch.kernels import LAUNCHES
     from repro_torch.kernels.merge_rank import ops as merge_ops
 
     A, verts, sels = graph["A"], graph["verts"], graph["sels"]
@@ -529,13 +557,19 @@ def single_engine(graph, cap, use_pallas, lsm_reads, stash=None,
     T.store.warmup()
     timed = path_timer(profile_dir, "single_" + ("kernels" if use_pallas
                                                  else "ops"))
+    per_read = {}
     with kernel_run(stash) as launches, \
-            Calls(merge_ops, "merge_ranks", keep=True) as merges:
+            Calls(merge_ops, "merge_ranks", keep=True) as merges, \
+            Calls(kvstore, "tablet_read", keep=True) as reads:
         _, t_put = timed("put", lambda: put(T, A))
         times = {"put_s": t_put, "ingest_entries_per_s": A.nnz() / t_put}
         for name in ("row_ids", "row_range", "col_ids"):
             sel = sels[name]
+            before, n_reads = dict(LAUNCHES), reads.n
             got, times[name + "_s"] = timed(name, lambda: T[sel])
+            per_read[name] = {k: v - before[k] for k, v in LAUNCHES.items()
+                              if v != before[k]}
+            per_read[name]["tablet_read_calls"] = reads.n - n_reads
             same_triples(got, lsm_reads[name], f"phase 4c {name} vs LSM")
             same_triples(got, A[sel], f"phase 4c {name} vs Assoc")
         if use_pallas:  # the binary search on the flush's runs, both ways
@@ -550,14 +584,37 @@ def single_engine(graph, cap, use_pallas, lsm_reads, stash=None,
             log(f"phase 4c: pair_rank equals the merge ranks at "
                 + ", ".join(f"{list(a[0].shape)} x {list(a[2].shape)}"
                             for a, _ in merges.kept))
+    log(f"phase 4c (use_pallas={use_pallas}) launches per read: "
+        + json.dumps(per_read))
+    if use_pallas:
+        for name, got in per_read.items():
+            n = got["tablet_read_calls"]
+            if not (got.get("rank", 0) == got.get("tablet_gather", 0) == n
+                    and n == (1 if name == "row_ids" else 0)):
+                raise AssertionError(f"phase 4c {name}: launches {got}, want "
+                                     f"one rank and one tablet_gather per "
+                                     f"queried shard")
+        for (rows, cols, vals, q), got in reads.kept:  # the route replaced
+            t = kvstore.Tablet(rows=rows, cols=cols, vals=vals, n=None)
+            want = padded_read(lambda w: kvstore.tablet_query_rows(t, q, w),
+                               q)
+            if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                raise AssertionError(f"phase 4c: tablet_read differs from "
+                                     f"the padded read at {list(q.shape)}")
+        log(f"phase 4c: tablet_read equals the padded read at "
+            + ", ".join(f"Q={a[3].shape[0]} ({g[0].shape[0]} entries)"
+                        for a, g in reads.kept))
+        if stash is not None:
+            stash["tablet_read"] = [([a.clone() for a in args], got)
+                                    for args, got in reads.kept]
     st = T.store.engine_stats()
     if st["flushes"] < 1:
         raise AssertionError(f"phase 4c: no flush ({st})")
-    if use_pallas and not (launches["rank"] > 0
-                           and launches["merge_path_rank"] > 0
-                           and launches["pair_rank"] > 0):
-        raise AssertionError(f"phase 4c: rank / merge_path_rank / pair_rank "
-                             f"never launched ({launches})")
+    if use_pallas and not all(launches[k] > 0 for k in (
+            "rank", "tablet_gather", "merge_path_rank", "pair_rank")):
+        raise AssertionError(f"phase 4c: rank / tablet_gather / "
+                             f"merge_path_rank / pair_rank never launched "
+                             f"({launches})")
     if not use_pallas and any(launches.values()):
         raise AssertionError(f"phase 4c launched a hand kernel: {launches}")
     delete(T)
@@ -751,8 +808,9 @@ def input_groups(inputs):
 def kernel_checks(stash, launches):
     """Each kernel against its plain version at every input each path gave
     it (``stash[path][kernel]``, recorded in phases 3, 4b, 4c, 4d and 6:
-    one per geometry for #1-#3 and #7, every call for #4-#6; a decode
-    step's position is part of #7's geometry). ``launches[path]`` are
+    one per geometry for #1-#3 and #7, every call for #4-#6 and the
+    tablet gather; a decode step's position is part of #7's geometry;
+    ``stash[path]["tablet_read"]`` the 4c reads). ``launches[path]`` are
     the paths' launch counts. Every time is the mean per launch over all
     the paths' launches, so ms x launches is the kernel's device time on
     the paths."""
@@ -770,7 +828,12 @@ def kernel_checks(stash, launches):
                                                     segment_sum_direct,
                                                     segment_sum_ref)
     from repro_torch.kernels.sorted_search import (rank, rank_batched,
-                                                   rank_ref, rank_sides_ref)
+                                                   rank_binary, rank_ref,
+                                                   rank_sides_ref,
+                                                   tablet_gather,
+                                                   tablet_gather_ref,
+                                                   tablet_read,
+                                                   tablet_read_ref)
     from repro_torch.kernels.spmv import (spmv_csr, spmv_csr_ref, spmv_ell,
                                           spmv_ell_ref)
     from repro_torch.kernels.flash_attention import (flash_attention,
@@ -912,8 +975,15 @@ def kernel_checks(stash, launches):
         return 12 * n, 4 * n
 
     def rank_cost(args, kw):
-        tab, qq = args[:2]
-        return search_cost((tab[None], qq, "left"), kw)
+        tab, qq, side = args
+        return search_cost((tab[None], qq, side), kw)
+
+    # compacting gather: each copied entry's col and value read and its
+    # (row, col, value) written, 20 bytes; each query's id, start and end
+    # offset read once; an add (the entry's source) per entry
+    def gather_cost(args, kw):
+        q, total = args[4:]
+        return 20 * total + 12 * q.numel(), total
 
     # segment sum: ids and values read, the [S] sums written; one float add
     # per entry (at the float32 rate, below)
@@ -1016,10 +1086,16 @@ def kernel_checks(stash, launches):
         return lambda: (pair_rank(br, bc, ar, ac, True),
                         pair_rank(ar, ac, br, bc, False))
 
-    def rank_lib(args, kw):
-        tab, qq = args
-        return lambda: torch.searchsorted(tab, qq, right=not kw["strict"],
-                                          out_int32=True)
+    def rank_lib(args, kw):  # one searchsorted per side
+        tab, qq, side = args
+        rights = {"left": (False,), "right": (True,), "both": (False, True)}
+        return lambda: [torch.searchsorted(tab, qq, right=r, out_int32=True)
+                        for r in rights[side]]
+
+    def rank_old(args, kw):  # the binary search, one launch per side
+        tab, qq, side = args
+        sides = ("left", "right") if side == "both" else (side,)
+        return lambda: tuple(rank_binary(tab, qq, x) for x in sides)
 
     def row_merge_lib(args, kw):  # the engine's wide-row route: stable sort
         return lambda: merge_combine_rows_ref(*args)  # + gather
@@ -1094,9 +1170,16 @@ def kernel_checks(stash, launches):
          merge_lib, (5, 1), check, PEAK_OPS_PER_S, False,
          "src/repro_torch/csrc/merge_path.cu",
          "src/repro/kernels/merge_rank/kernel.py:36", merge_old),
-        # the plain 1-D rank is the compare count over the whole tablet
+        # the plain 1-D rank is the compare count over the whole tablet;
+        # the warp search beside the one-thread binary search it replaced
         ("rank", rank, rank_ref, rank_cost, rank_lib, (3, 1), check,
          PEAK_OPS_PER_S, False, "src/repro_torch/csrc/rank.cu",
+         "src/repro/kernels/sorted_search/kernel.py:30", rank_old),
+        # the rest of the same TPU kernel's caller, the single engine's point
+        # read: the compacting copy of the ranked rows (no library call)
+        ("tablet_gather", tablet_gather, tablet_gather_ref, gather_cost,
+         None, (20, 3), check, PEAK_OPS_PER_S, False,
+         "src/repro_torch/csrc/rank.cu",
          "src/repro/kernels/sorted_search/kernel.py:30", None),
         ("segment_sum", segment_sum, segment_sum_ref, segsum_cost,
          segsum_lib, (20, 3), check, PEAK_F32_PER_S, False,
@@ -1114,6 +1197,50 @@ def kernel_checks(stash, launches):
          "src/repro_torch/csrc/flash_attention.cu",
          "src/repro/kernels/flash_attention/kernel.py:64", None),
     )
+
+    def binary_block(rows, cols, vals, q, width):
+        """The padded block as the parent's ``tablet_query_rows`` built
+        it: a binary-search rank launch per side, then the gathers."""
+        start, end = (rank_binary(rows, q, side) for side in ("left", "right"))
+        idx = start[:, None] + torch.arange(width, dtype=torch.int32,
+                                            device=dev)[None, :]
+        idxc = idx.clamp(0, rows.shape[0] - 1).long()
+        return cols[idxc], vals[idxc], idx < end[:, None], end - start
+
+    def read_routes(stash):
+        """Every recorded ``tablet_read`` (phase 4c) against its plain
+        version and the route it replaced (``padded_read`` on the binary
+        search, four rank launches with the widen), each equal to the
+        path's result and timed whole with CUDA events (their host syncs
+        keep them out of a graph); launches per read."""
+        reads = [r for recs in stash.values() for r in
+                 recs.get("tablet_read", [])]
+        per = []
+        for args, got in reads:
+            rows, cols, vals, q = args
+            routes = {
+                "route": lambda: tablet_read(*args),
+                "plain_route": lambda: tablet_read_ref(*args),
+                "old_route": lambda: padded_read(
+                    lambda w: binary_block(rows, cols, vals, q, w), q)}
+            t = {}
+            for k, fn in routes.items():
+                if not all(torch.equal(g, w) for g, w in zip(fn(), got)):
+                    raise AssertionError(f"tablet_read: the {k} differs at "
+                                         f"Q={q.shape[0]}")
+                t[k + "_ms"] = cuda_ms(fn, 20)
+            per.append(t)
+            log(f"tablet_read Q={q.shape[0]} ({got[0].shape[0]} entries): "
+                + ", ".join(f"{k} {v:.6g}" for k, v in t.items()))
+        if not reads:
+            raise AssertionError("tablet_read: no recorded read")
+        res = {k: sum(t[k] for t in per) / len(per) for k in per[0]}
+        res["reads"] = len(reads)
+        for name in ("rank", "tablet_gather"):
+            res[f"{name}_launches_per_read"] = sum(
+                c for recs in stash.values()
+                for c, _ in recs[name].calls.values()) / len(reads)
+        return res
 
     def empty_launch():
         stream = torch.cuda.current_stream().cuda_stream
@@ -1148,7 +1275,10 @@ def kernel_checks(stash, launches):
                                    warm=p_warm) if p_reps else t_plain),
                  "lib": 0.0}
             if old is not None:  # the redesigned kernel: equal, and timed
-                chk(name + " (old kernel)", old(args, kw)(), want)
+                got_old = old(args, kw)()
+                if isinstance(got_old, tuple) and not isinstance(want, tuple):
+                    got_old = torch.stack(got_old)
+                chk(name + " (old kernel)", got_old, want)
                 t["old"] = graph_ms(old(args, kw), 50)
             if lib is not None:  # the faster form where there are two
                 timer = cuda_ms if lib_eager else graph_ms
@@ -1206,6 +1336,8 @@ def kernel_checks(stash, launches):
             out[-1]["merge_combine_rows_calls"] = combines
             log(f"row_merge: {n_calls} launches for {combines} "
                 f"merge_combine_rows calls")
+        if name == "tablet_gather":  # the single engine's whole point read
+            out[-1].update(read_routes(stash))
         if name == "flash_attention":
             out[-1]["rel_err"] = attn_rel[0]
             out[-1]["planted_faults"] = attn_faults()

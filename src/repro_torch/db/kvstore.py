@@ -9,8 +9,9 @@ range-partitioned by row id (pre-split tablets). Two storage engines:
     go through bloom filters + fence pointers without flushing.
   * ``engine="single"`` — one fixed-capacity sorted run per shard; every
     flush merges the memtable into it (merge-path rank kernel). Point reads
-    are rank searches (the 1-D rank kernel) + bounded gathers. Kept as the
-    A/B baseline of the paper-era benchmarks.
+    are one two-sided rank search (the 1-D rank kernel) and one compacting
+    gather (``tablet_read``). Kept as the A/B baseline of the paper-era
+    benchmarks.
 
 Duplicate keys combine with Accumulo iterator semantics (last-wins
 versioning, sum/min/max combiners — ``db.iterators``). ``ShardedTable``
@@ -28,7 +29,7 @@ import torch
 from ..kernels.common import I32_MAX, resolve_device
 from ..kernels.merge_rank import merge_sorted, merge_sorted_ref
 from ..kernels.segment_reduce import segment_sum
-from ..kernels.sorted_search import sorted_search
+from ..kernels.sorted_search import sorted_search, tablet_read
 from ..obs import default_registry, default_tracer
 
 COMBINERS = ("last", "sum", "min", "max")
@@ -148,8 +149,7 @@ def tablet_query_rows(t: Tablet, q: torch.Tensor, max_return: int,
     """
     q = q.to(torch.int32)
     if use_pallas:
-        start = sorted_search(t.rows, q, "left")
-        end = sorted_search(t.rows, q, "right")
+        start, end = sorted_search(t.rows, q, "both")
     else:
         start = torch.searchsorted(t.rows, q, out_int32=True)
         end = torch.searchsorted(t.rows, q, right=True, out_int32=True)
@@ -692,16 +692,20 @@ class ShardedTable:
             t_sh = perf_counter()
             t = self._shard_tablet(s)
             q_dev = torch.as_tensor(q, device=self.device)
-            cols, vals, ok, cnt = tablet_query_rows(
-                t, q_dev, max_return, use_pallas=self.use_pallas)
-            top = int(cnt.max())
-            if top > max_return:  # widen (batch scanner)
+            if self.use_pallas:  # one compacting read, one copy to the host
+                from .lsm.engine import _to_host
+                r, c, v = _to_host(tablet_read(t.rows, t.cols, t.vals, q_dev))
+            else:  # the JAX engine's padded block, widened, then nonzero
                 cols, vals, ok, cnt = tablet_query_rows(
-                    t, q_dev, top, use_pallas=self.use_pallas)
-            qi, ki = torch.nonzero(ok, as_tuple=True)  # row-major order
-            r = q[qi.cpu().numpy()]
-            c = cols[qi, ki].cpu().numpy()
-            v = vals[qi, ki].cpu().numpy()
+                    t, q_dev, max_return, use_pallas=False)
+                top = int(cnt.max())
+                if top > max_return:  # widen (batch scanner)
+                    cols, vals, ok, cnt = tablet_query_rows(
+                        t, q_dev, top, use_pallas=False)
+                qi, ki = torch.nonzero(ok, as_tuple=True)  # row-major order
+                r = q[qi.cpu().numpy()]
+                c = cols[qi, ki].cpu().numpy()
+                v = vals[qi, ki].cpu().numpy()
             self._h_shard_query[s].observe(perf_counter() - t_sh)
             out.append((r, c, v))
         return out

@@ -36,8 +36,9 @@ _lib = None
 # in ``launch`` (the one place a kernel is launched), so a run can show that
 # its path went through the kernels.
 LAUNCHES = {"rank_batched": 0, "pair_rank": 0, "merge_path_rank": 0,
-            "row_rank": 0, "row_merge": 0, "rank": 0, "segment_sum": 0,
-            "spmv_ell": 0, "spmv_csr": 0, "flash_attention": 0}
+            "row_rank": 0, "row_merge": 0, "rank": 0, "tablet_gather": 0,
+            "segment_sum": 0, "spmv_ell": 0, "spmv_csr": 0,
+            "flash_attention": 0}
 
 
 def reset_launches() -> None:
@@ -141,8 +142,10 @@ _SIGNATURES = {
     "row_rank": (_P, _I, _I, _P, _P),
     # keys, vals, Q, W, out_k, out_v, stream
     "row_merge": (_P, _P, _I, _I, _P, _P, _P),
-    # tab, N, q, Q, strict, out, stream
-    "rank": (_P, _I, _P, _I, _I, _P, _P),
+    # tab, N, q, Q, sides (0 left, 1 right, 2 both), binary, out, stream
+    "rank": (_P, _I, _P, _I, _I, _I, _P, _P),
+    # cols, vals, start, ends, q, Q, total, out_r, out_c, out_v, stream
+    "tablet_gather": (_P,) * 5 + (_I, _I) + (_P,) * 4,
     # ids, vals, N, n_segments, direct, out, stream
     "segment_sum": (_P, _P, _I, _I, _I, _P, _P),
     # cols, vals, R, K, x, C, y, stream

@@ -1,24 +1,46 @@
 """Public wrappers of the rank searches: the 1-D search of the legacy
-single-run engine's point reads (``csrc/rank.cu``) and the batched fence
+single-run engine's point reads and the compacting copy that finishes them
+(``csrc/rank.cu``; ``tablet_read`` runs the two), and the batched fence
 search of the fused LSM read and range scan (``csrc/rank_batched.cu``). A
 CUDA tensor goes to the hand kernel; a CPU tensor to the plain version."""
 import torch
 
 from ..common import check_cuda, launch
-from .ref import rank_ref, rank_sides_ref
+from .ref import rank_ref, rank_sides_ref, tablet_gather_ref
+
+_SIDES = {"left": 0, "right": 1, "both": 2}
 
 
-def rank(tab: torch.Tensor, q: torch.Tensor, strict: bool) -> torch.Tensor:
-    """Ranks of ``q[Q]`` in the sorted table ``tab[N]`` (pads I32_MAX):
-    int32 [Q]. Both inputs int32."""
+def rank(tab: torch.Tensor, q: torch.Tensor, side: str) -> torch.Tensor:
+    """Ranks of ``q[Q]`` in the sorted table ``tab[N]`` (pads I32_MAX; both
+    inputs int32): ``side="left"`` counts the entries < q, ``"right"`` those
+    <= q, each int32 [Q]; ``"both"`` gives the two in one launch, stacked
+    left first: int32 [2, Q]. On the card, a 32-lane warp search."""
+    return _rank(tab, q, side, binary=False)
+
+
+def rank_binary(tab: torch.Tensor, q: torch.Tensor, side: str) -> torch.Tensor:
+    """``rank`` by the kernel's earlier design, one thread a query and a
+    binary search per side: the yardstick the warp search is timed against
+    (``chip_smoke.py``). No path calls it; a launch counts under
+    ``rank``."""
+    return _rank(tab, q, side, binary=True)
+
+
+def _rank(tab, q, side: str, binary: bool) -> torch.Tensor:
+    if side not in _SIDES:
+        raise ValueError(f"side must be one of {sorted(_SIDES)}, got {side!r}")
     if tab.dim() != 1 or q.dim() != 1:
         raise ValueError("rank takes tab[N] and q[Q]")
     if tab.device.type == "cpu":
-        return rank_ref(tab, q, strict)
+        return rank_ref(tab, q, side)
     check_cuda("rank", (tab, torch.int32), (q, torch.int32))
-    out = torch.empty(q.shape[0], dtype=torch.int32, device=tab.device)
-    launch("rank", tab.device, tab.data_ptr(), tab.shape[0], q.data_ptr(),
-           q.shape[0], int(strict), out.data_ptr())
+    n_q = q.shape[0]
+    out = torch.empty((n_q,) if side != "both" else (2, n_q),
+                      dtype=torch.int32, device=tab.device)
+    if n_q:
+        launch("rank", tab.device, tab.data_ptr(), tab.shape[0], q.data_ptr(),
+               n_q, _SIDES[side], int(binary), out.data_ptr())
     return out
 
 
@@ -27,16 +49,61 @@ def sorted_search(tab: torch.Tensor, q: torch.Tensor,
     """Vectorized searchsorted: positions of ``q`` in sorted 1-D ``tab``.
 
     ``tab`` must be padded with I32_MAX beyond its valid prefix (the pad
-    never counts: every real query is < I32_MAX). Returns int32[Q].
+    never counts: every real query is < I32_MAX). Returns int32[Q]; with
+    ``side="both"`` the left and right positions of one launch, int32
+    [2, Q].
     """
-    if side not in ("left", "right"):
-        raise ValueError(f"side must be 'left' or 'right', got {side!r}")
     tab = tab.to(torch.int32).reshape(-1).contiguous()
     q = q.to(torch.int32).reshape(-1).contiguous()
-    return rank(tab, q, strict=(side == "left"))
+    return rank(tab, q, side)
 
 
-_SIDES = {"left": 0, "right": 1, "both": 2}
+def tablet_gather(cols: torch.Tensor, vals: torch.Tensor, start: torch.Tensor,
+                  ends: torch.Tensor, q: torch.Tensor, total: int):
+    """The compacting copy of the single engine's point read: query ``i``
+    owns the ``cnt[i] = ends[i] - ends[i - 1]`` tablet entries from
+    ``start[i]`` (``ends`` is the inclusive sum of the counts, ``total`` its
+    last value), written at output offsets ``ends[i] - cnt[i]`` onward with
+    ``q[i]`` beside each. Returns (r int32, c int32, v float32) [total]."""
+    if cols.dim() != 1 or cols.shape != vals.shape:
+        raise ValueError("tablet_gather takes cols[N] and vals[N]")
+    if not start.shape == ends.shape == q.shape or q.dim() != 1:
+        raise ValueError("tablet_gather takes start, ends and q of one [Q]")
+    if cols.device.type == "cpu":
+        return tablet_gather_ref(cols, vals, start, ends, q, total)
+    check_cuda("tablet_gather", (cols, torch.int32), (vals, torch.float32),
+               (start, torch.int32), (ends, torch.int32), (q, torch.int32))
+    if not 0 <= total <= 2 ** 31 - 2 ** 11:
+        raise ValueError(f"tablet_gather: {total} entries exceed the int32 "
+                         "indexing")
+    dev = cols.device
+    r = torch.empty(total, dtype=torch.int32, device=dev)
+    c = torch.empty(total, dtype=torch.int32, device=dev)
+    v = torch.empty(total, dtype=torch.float32, device=dev)
+    if total:
+        launch("tablet_gather", dev, cols.data_ptr(), vals.data_ptr(),
+               start.data_ptr(), ends.data_ptr(), q.data_ptr(), q.shape[0],
+               total, r.data_ptr(), c.data_ptr(), v.data_ptr())
+    return r, c, v
+
+
+def tablet_read(rows: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
+                q: torch.Tensor):
+    """Every entry of every queried row of one tablet (``rows[N]`` sorted,
+    I32_MAX pads; ``cols``, ``vals`` [N]), in query order and then in run
+    order, duplicate queries repeated: (r int32, c int32, v float32)
+    [total]. One two-sided ``rank`` launch, a scan of the counts, one host
+    read of the total, and one ``tablet_gather`` launch (none when no
+    entry matches). On the CPU both take their plain versions."""
+    q = q.to(torch.int32).reshape(-1).contiguous()
+    ranks = rank(rows, q, "both")
+    ends = torch.cumsum(ranks[1] - ranks[0], 0, dtype=torch.int32)
+    total = int(ends[-1]) if q.shape[0] else 0
+    if total == 0:
+        z = torch.empty(0, dtype=torch.int32, device=rows.device)
+        return z, z.clone(), torch.empty(0, dtype=torch.float32,
+                                         device=rows.device)
+    return tablet_gather(cols, vals, ranks[0], ends, q, total)
 
 
 def rank_batched(tabs: torch.Tensor, q: torch.Tensor,

@@ -255,14 +255,14 @@ def test_rank_pallas_kernel_matches_plain():
     rng = np.random.default_rng(11)
     tab = _tabs(rng, 1, 256)[0]
     q = rng.integers(0, 500, 64).astype(np.int32)
-    for strict in (True, False):
+    for strict, side in ((True, "left"), (False, "right")):
         want = _np(rank_pallas(jnp.asarray(tab).reshape(1, -1),
                                jnp.asarray(q).reshape(-1, 1), strict=strict,
                                block_q=64, block_t=128, interpret=True))[:, 0]
-        np.testing.assert_array_equal(tss.rank(T(tab), T(q), strict).numpy(),
+        np.testing.assert_array_equal(tss.rank(T(tab), T(q), side).numpy(),
                                       want)
         np.testing.assert_array_equal(
-            tss.rank_ref(T(tab), T(q), strict).numpy(), want)
+            tss.rank_ref(T(tab), T(q), side).numpy(), want)
 
 
 # ------------------------------------------------------- segment sum (#5)
@@ -458,6 +458,8 @@ def test_cpu_tensors_never_launch():
     tmr.row_rank(T(np.zeros((2, 3), np.int32)))
     tmr.merge_ranks(*(T(np.zeros((2, 3), np.int32)) for _ in range(4)))
     tss.sorted_search(T(np.zeros(4, np.int32)), T(np.zeros(3, np.int32)))
+    tss.tablet_read(*(T(np.zeros(4, np.int32)) for _ in range(2)),
+                    T(np.ones(4, np.float32)), T(np.zeros(3, np.int32)))
     tsr.segment_sum(T(np.zeros(3, np.int32)), T(np.ones(3, np.float32)), 2)
     tsp.spmv_ell(T(np.zeros((2, 3), np.int32)), T(np.ones((2, 3), np.float32)),
                  T(np.ones(4, np.float32)))
@@ -467,8 +469,8 @@ def test_cpu_tensors_never_launch():
                   T(np.ones((2, 3), np.float32)))
     assert LAUNCHES == {"rank_batched": 0, "pair_rank": 0,
                         "merge_path_rank": 0, "row_rank": 0, "row_merge": 0,
-                        "rank": 0, "segment_sum": 0, "spmv_ell": 0,
-                        "spmv_csr": 0, "flash_attention": 0}
+                        "rank": 0, "tablet_gather": 0, "segment_sum": 0,
+                        "spmv_ell": 0, "spmv_csr": 0, "flash_attention": 0}
 
 
 # ------------------------------------------------------ merge-path ranks (#3)
@@ -776,9 +778,9 @@ def test_new_kernels_on_card_match_plain_versions():
     rng = np.random.default_rng(1)
     tab = _tabs(rng, 1, 5000)[0]
     q = rng.integers(-5, 510, 3000).astype(np.int32)
-    for strict in (True, False):
-        got = tss.rank(T(tab).cuda(), T(q).cuda(), strict).cpu()
-        assert torch.equal(got, tss.rank_ref(T(tab), T(q), strict))
+    for side in ("left", "right", "both"):
+        got = tss.rank(T(tab).cuda(), T(q).cuda(), side).cpu()
+        assert torch.equal(got, tss.rank_ref(T(tab), T(q), side))
     ids = rng.integers(-3, 3000, 200_000).astype(np.int32)
     ids[:5000] = 7  # a hub: thousands of atomics on one address
     vals = rng.integers(0, 4, 200_000).astype(np.float32)

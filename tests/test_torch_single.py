@@ -174,12 +174,13 @@ def test_single_engine_cpu_tensors_never_launch():
 def test_single_engine_on_card_launches_rank_and_pair_rank():
     """Under use_pallas the flush merges through the merge-path rank kernel
     (one launch; the binary-search pair rank no longer runs there) and the
-    point read rank-searches through the 1-D rank kernel."""
+    point read of the one queried shard is one two-sided launch of the 1-D
+    rank kernel and one of the compacting gather (no widen pass)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     launches = _route_run("cuda")
     assert launches["merge_path_rank"] == 1 and launches["pair_rank"] == 0
-    assert launches["rank"] == 2
+    assert launches["rank"] == 1 and launches["tablet_gather"] == 1
 
 
 def test_single_flush_overflow_leaves_tablets_unchanged():
