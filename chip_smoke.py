@@ -5,7 +5,8 @@ Drives the paper's Listing-1 database path through the connector a user
 calls — ``dbsetup`` → bind the ``Tedge``/``TedgeT`` pair → ``put`` →
 row, column and range reads → ``delete`` — on a Graph500 graph, then the
 D4M 2.0 schema with its degree table and the Fig. 4 reads, the legacy
-single-run engine, Graphulo's SpMV, and the LM serving path
+single-run engine, Graphulo's SpMV, the per-run read path, a crash and
+recovery of the pair from its write-ahead log, and the LM serving path
 (``launch/serve.py`` → ``Engine`` → prefill / decode); builds the hand-written CUDA
 kernels from ``src/repro_torch/csrc``, shows that each path launched its
 kernels, and holds each kernel against its plain PyTorch version at the
@@ -44,6 +45,22 @@ Phases (each raises on failure):
      kernel and the PyTorch product on the card), and the ELL kernel on the
      ELL of the same scan, against a float64 product on the host, for a
      one-hot x at the largest out-degree and a random x;
+  4e. the per-run read path (``fused_reads=False``) on phase 3's server and
+     graph: every read equals phase 3's; during the reads no fused
+     dispatch runs, per-run dispatches do, and no hand kernel launches
+     (the put's compactions launch the merge path, counted apart); timed
+     interleaved with the fused read (fused, per-run, per-run, fused);
+  7. a crash and recovery at full width: a child process (this script
+     with ``--crash-child``) runs phase 3's server with ``wal_root`` and
+     the hand kernels, binds the pair, puts half the graph, checkpoints
+     the pair, puts the other half and dies with ``os._exit(1)``; on the
+     card ``recover_connector`` rebuilds the pair (the WAL suffix replays
+     through the merge path, the reads run the fence search and the row
+     merge), and every Listing-1 read and ``nnz`` equal phase 3's; a copy
+     whose log is cut inside its last frame recovers to exactly the
+     batches before it, and a write after that recovery survives a second
+     one. The WAL and snapshot sizes, the put with the WAL, the
+     checkpoint and the recovery (load, then suffix replay) are timed;
   6. LM serving: smollm-135m at full width (30 layers, d_model 576, 9
      heads over 3 KV heads, hd 64, vocabulary 49,152, tied embeddings) in
      bf16 from the port's seeded init, on the card: run a is
@@ -55,7 +72,7 @@ Phases (each raises on failure):
      prefill equals the same weights' prefill on the CPU within 2e-2, and
      prefill-then-decode equals the full prefill within 5e-2 (bf16);
   5. each kernel against its plain version on the card at every input
-     each path gave it (recorded in phases 3, 4b, 4c, 4d and 6: per
+     each path gave it (recorded in phases 3, 4b, 4c, 4d, 7 and 6: per
      geometry for the LSM kernels and flash attention, per call for the
      1-D rank, the tablet gather, segment sum and SpMVs), ranks, merged
      rows, read entries and degree sums exactly equal (the merge-path
@@ -246,18 +263,21 @@ class Recorder:
         setattr(self.module, self.name, self.fn)
 
 
-def listing1(graph, use_pallas, cap, stash=None, profile_dir=None):
+def listing1(graph, use_pallas, cap, stash=None, profile_dir=None, **conf):
     """Listing-1 through the connector. Returns (reads, stats, timings,
-    kernel launches of the put and the reads). With ``stash`` set, the
-    inputs of every kernel launch are recorded for phase 5. With
-    ``profile_dir`` set, the put and each read run under torch.profiler
-    (their times then include its cost)."""
+    kernel launches of the put and the reads); ``stats["reads"]`` holds the
+    kernel launches and the engine counters of the reads alone. With
+    ``stash`` set, the inputs of every kernel launch are recorded for phase
+    5. With ``profile_dir`` set, the put and each read run under
+    torch.profiler (their times then include its cost). ``conf`` overrides
+    fields of the phase-3 configuration."""
     import numpy as np
     from repro_torch.db import delete, put
+    from repro_torch.kernels import LAUNCHES
     from repro_torch.kernels.merge_rank import ops as merge_ops
 
     A, verts, sels = graph["A"], graph["verts"], graph["sels"]
-    DB = server("smoke", cap, use_pallas)
+    DB = server("smoke", cap, use_pallas, **conf)
     # the vertex names are interned in sorted order first (a sorted bulk
     # load), so string ranges map to contiguous ids and run as scans
     DB.encode_keys(np.asarray(verts, dtype=object))
@@ -272,16 +292,30 @@ def listing1(graph, use_pallas, cap, stash=None, profile_dir=None):
         _, t_put = timed("put", lambda: put(Tedge, A))
         reads, times = {}, {"put_s": t_put,
                             "ingest_entries_per_s": A.nnz() / t_put}
+        store = Tedge.table.store
+        put_launches = dict(LAUNCHES)
+        before = engine_counters(store)
         for name, sel in sels.items():
             reads[name], times[name + "_s"] = timed(name, lambda: Tedge[sel])
+        after = engine_counters(store)
+        read_stats = {
+            "launches": {k: v - put_launches[k] for k, v in LAUNCHES.items()},
+            "engine": {k: after[k] - before[k] for k in after}}
         old_merge_route(merges.kept)
-    store = Tedge.table.store
     stats = {"Tedge": store.engine_stats(),
-             "TedgeT": store.t_store.engine_stats()}
+             "TedgeT": store.t_store.engine_stats(), "reads": read_stats}
     delete(Tedge)
     if DB.ls():
         raise AssertionError(f"tables left after delete: {DB.ls()}")
     return reads, stats, times, launches
+
+
+def engine_counters(store):
+    """The read counters of a pair's two tables, summed."""
+    keys = ("fused_dispatches", "perrun_dispatches", "scan_dispatches",
+            "runs_probed", "runs_skipped")
+    a, b = store.engine_stats(), store.t_store.engine_stats()
+    return {k: a[k] + b[k] for k in keys}
 
 
 def old_merge_route(kept):
@@ -443,6 +477,212 @@ def path_timer(profile_dir, tag):
             return profiled(f"{tag}_{label}", fn, profile_dir)
         return timed_call(fn)
     return timed
+
+
+# ------------------------------------------------------------------ phase 4e
+def perrun_reads(graph, cap, reads):
+    """The per-run read path (``fused_reads=False``) on phase 3's server
+    and graph, timed interleaved with the fused read (fused, per-run,
+    per-run, fused: the A/B the port's benchmark will set). Every read
+    equals phase 3's; during the per-run reads no fused dispatch runs,
+    per-run dispatches do, and no hand kernel launches (the put's
+    compactions launch the merge path, counted apart). Returns the four
+    runs' timings and the per-run reads' counters."""
+    runs, counters = [], []
+    for fused in (True, False, False, True):
+        got, stats, times, _ = listing1(graph, True, cap, fused_reads=fused)
+        for key in reads:
+            same_triples(got[key], reads[key],
+                         f"phase 4e fused_reads={fused} {key} vs phase 3")
+        rs = stats["reads"]
+        if not fused:
+            if rs["engine"]["fused_dispatches"] or any(
+                    rs["launches"].values()):
+                raise AssertionError(f"phase 4e: the per-run reads ran a "
+                                     f"fused dispatch or a kernel: {rs}")
+            if rs["engine"]["perrun_dispatches"] <= 0:
+                raise AssertionError(f"phase 4e: no per-run dispatch: {rs}")
+            counters.append(rs["engine"])
+        runs.append({"fused_reads": fused, "times": times,
+                     "read_engine": rs["engine"],
+                     "read_launches": {k: v for k, v in
+                                       rs["launches"].items() if v}})
+    return runs, counters
+
+
+# ------------------------------------------------------------------ phase 7
+WAL_DIR = ROOT / "build" / "phase7"
+
+
+def crash_child(wal_root, scale, seed):
+    """Phase 7's writer, a process of its own: phase 3's server with
+    ``wal_root`` and the hand kernels binds the pair, puts the first half
+    of the graph's triples, checkpoints, puts the second half, prints its
+    timings as one JSON line and dies with ``os._exit(1)``, closing
+    nothing."""
+    import os
+    import numpy as np
+    graph, cap = make_graph(scale, seed)
+    DB = server("crash", cap, True, wal_root=str(wal_root))
+    DB.encode_keys(np.asarray(graph["verts"], dtype=object))
+    Tedge = DB["Tedge", "TedgeT"]
+    Tedge.table.store.warmup()
+    r, c, v = graph["A"].triples()
+    h = len(r) // 2
+    _, t1 = timed_call(lambda: Tedge.put_triple(r[:h], c[:h], v[:h]))
+    _, t_ckpt = timed_call(Tedge.checkpoint)
+    _, t2 = timed_call(lambda: Tedge.put_triple(r[h:], c[h:], v[h:]))
+    print(json.dumps({"put_halves_s": [t1, t2], "put_s": t1 + t2,
+                      "checkpoint_s": t_ckpt, "entries": len(r),
+                      "first_half": h}), flush=True)
+    os._exit(1)
+
+
+@contextlib.contextmanager
+def replay_clock():
+    """Stamps the suffix replay of ``recover`` (synchronised host clock):
+    when it starts (manifest, dictionaries and snapshot loaded onto the
+    card, blooms and fences rebuilt) and when its last batch has gone
+    through ``insert``; counts the frames and entries replayed."""
+    from repro_torch.db.lsm import manifest
+    from repro_torch.db.lsm.wal import WriteAheadLog
+
+    seen = {"stamps": [], "frames": 0, "entries": 0}
+
+    class Timed(WriteAheadLog):
+        @staticmethod
+        def replay_full(path, start=0):
+            seen["stamps"].append(clock())
+            for item in WriteAheadLog.replay_full(path, start=start):
+                if item[0] == "data":
+                    seen["frames"] += 1
+                    seen["entries"] += len(item[2])
+                yield item
+            seen["stamps"].append(clock())
+
+    manifest.WriteAheadLog = Timed
+    try:
+        yield seen
+    finally:
+        manifest.WriteAheadLog = WriteAheadLog
+
+
+def crash_recovery(graph, cap, reads, put_s, args, smi, stash):
+    """Phase 7: a real crash of the pair at full width and its recovery on
+    the card. Returns the recovery's kernel launches (its inputs go into
+    ``stash`` for phase 5)."""
+    import os
+    import shutil
+    import numpy as np
+    from repro_torch.db import batching, delete, recover_connector
+    from repro_torch.db.lsm import WriteAheadLog
+
+    shutil.rmtree(WAL_DIR, ignore_errors=True)
+    WAL_DIR.mkdir(parents=True)
+    t0 = time.perf_counter()
+    child = subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--crash-child",
+         str(WAL_DIR), "--scale", str(args.scale), "--seed", str(args.seed)],
+        capture_output=True, text=True, timeout=900)
+    t_child = time.perf_counter() - t0
+    lines = [x for x in child.stdout.splitlines() if x.startswith("{")]
+    if child.returncode != 1 or not lines:
+        raise AssertionError(
+            f"phase 7: the writer exited {child.returncode}: "
+            f"{child.stdout[-2000:]} {child.stderr[-4000:]}")
+    wrote = json.loads(lines[-1])
+    tdir = WAL_DIR / "Tedge"
+    wal, snap = tdir / "wal.log", tdir / "snapshot.npz"
+    man = json.loads((tdir / "MANIFEST.json").read_text())
+    frames = list(WriteAheadLog.replay(str(wal), tagged=True))
+    if not frames or not all(p for *_, p in frames):
+        raise AssertionError("phase 7: the WAL holds no pair-tagged frame")
+    log(f"phase 7 ({smi}): the writer crashed after {t_child:.3f} s; WAL "
+        f"{wal.stat().st_size / 1e6:.6f} MB in {len(frames)} frames "
+        f"({man['wal_offset'] / 1e6:.6f} MB covered by the snapshot), "
+        f"snapshot {snap.stat().st_size / 1e6:.6f} MB, key dictionary "
+        f"{(WAL_DIR / 'keydict.json').stat().st_size / 1e6:.6f} MB")
+    log(f"phase 7 ({smi}): put with the WAL {wrote['put_s']:.6f} s "
+        f"(halves {wrote['put_halves_s'][0]:.6f} + "
+        f"{wrote['put_halves_s'][1]:.6f}) against phase 3's put without it "
+        f"{put_s:.6f} s; checkpoint {wrote['checkpoint_s']:.6f} s")
+
+    A, sels = graph["A"], graph["sels"]
+    with kernel_run(stash) as launches, replay_clock() as seen:
+        t0 = clock()
+        DB, E = recover_connector(str(WAL_DIR), ("Tedge", "TedgeT"))
+        t_end = clock()
+        got = {name: E[sel] for name, sel in sels.items()}
+    load_s = seen["stamps"][0] - t0
+    replay_s = seen["stamps"][1] - seen["stamps"][0]
+    store = E.table.store
+    if store.device.type != "cuda" or not store.use_pallas:
+        raise AssertionError(f"phase 7: recovered on {store.device}, "
+                             f"use_pallas={store.use_pallas}")
+    for key, want in reads.items():
+        same_triples(got[key], want, f"phase 7 recovered {key} vs phase 3")
+    nnz = (E.nnz(), store.t_store.nnz())
+    if nnz != (A.nnz(), A.nnz()):
+        raise AssertionError(f"phase 7: recovered nnz {nnz}, want {A.nnz()}")
+    for k in ("merge_path_rank", "rank_batched", "row_merge"):
+        if launches[k] <= 0:
+            raise AssertionError(f"phase 7: kernel {k} never launched in "
+                                 f"the recovery: {launches}")
+    log(f"phase 7 ({smi}): recovery {t_end - t0:.6f} s: manifest, "
+        f"dictionaries and snapshot load {load_s:.6f} s, suffix replay "
+        f"{replay_s:.6f} s ({seen['frames']} frames, {seen['entries']} "
+        f"entries, {seen['entries'] / replay_s:.1f} entries/s), the rest "
+        f"{t_end - t0 - load_s - replay_s:.6f} s; reads equal phase 3's, "
+        f"nnz {nnz[0]}; launches " + json.dumps(
+            {k: v for k, v in launches.items() if v}))
+    delete(E)
+
+    # a copy cut inside its last frame: every batch but the last survives
+    cut_dir = WAL_DIR.parent / "phase7_cut"
+    shutil.rmtree(cut_dir, ignore_errors=True)
+    shutil.copytree(WAL_DIR, cut_dir)
+    cut_wal = cut_dir / "Tedge" / "wal.log"
+    os.truncate(cut_wal, cut_wal.stat().st_size - 5)
+    r, c, v = A.triples()
+    h = wrote["first_half"]
+    last = list(batching.batch_triples(r[h:], c[h:], v[h:],
+                                       batching.DEFAULT_CHAR_BUDGET))[-1]
+    keep = len(r) - len(last[0])
+    verts = graph["verts"]
+    want = (np.searchsorted(verts, r[:keep]).astype(np.int32),
+            np.searchsorted(verts, c[:keep]).astype(np.int32),
+            np.asarray(v[:keep], np.float32))
+
+    def same_ids(got, want, what):
+        og, ow = np.lexsort(got[:2][::-1]), np.lexsort(want[:2][::-1])
+        for x, y, name in zip(got, want, ("rows", "cols", "vals")):
+            if not np.array_equal(np.asarray(x)[og], np.asarray(y)[ow]):
+                raise AssertionError(f"phase 7 {what}: {name} differ")
+
+    DB, E = recover_connector(str(cut_dir), ("Tedge", "TedgeT"))
+    same_ids(E.table.store.scan(), want, "torn tail")
+    same_ids(E.table.store.t_store.scan(), (want[1], want[0], want[2]),
+             "torn tail, sibling")
+    E.put_triple(np.asarray(["after_the_cut"], object),
+                 np.asarray([verts[0]], object), np.asarray([7.0]))
+    delete(E)  # closes the WAL: the second crash
+    DB, E = recover_connector(str(cut_dir), ("Tedge", "TedgeT"))
+    r2, c2, v2 = E["after_the_cut,", :].triples()
+    if (list(r2), list(c2), list(v2)) != (["after_the_cut"], [verts[0]],
+                                          [7.0]):
+        raise AssertionError(f"phase 7: the write after the first recovery "
+                             f"did not survive the second: {r2} {c2} {v2}")
+    if E.nnz() != keep + 1:
+        raise AssertionError(f"phase 7: second recovery nnz {E.nnz()}, "
+                             f"want {keep + 1}")
+    log(f"phase 7: WAL cut inside its last frame ({len(last[0])} entries "
+        f"lost): the recovery equals a store fed every batch but the last "
+        f"({keep} entries, both sides); a write after it survived a second "
+        f"recovery")
+    delete(E)
+    shutil.rmtree(cut_dir, ignore_errors=True)
+    shutil.rmtree(WAL_DIR, ignore_errors=True)
+    return launches
 
 
 # ------------------------------------------------------------------ phase 4b
@@ -807,7 +1047,7 @@ def input_groups(inputs):
 
 def kernel_checks(stash, launches):
     """Each kernel against its plain version at every input each path gave
-    it (``stash[path][kernel]``, recorded in phases 3, 4b, 4c, 4d and 6:
+    it (``stash[path][kernel]``, recorded in phases 3, 4b, 4c, 4d, 7 and 6:
     one per geometry for #1-#3 and #7, every call for #4-#6 and the
     tablet gather; a decode step's position is part of #7's geometry;
     ``stash[path]["tablet_read"]`` the 4c reads). ``launches[path]`` are
@@ -1371,6 +1611,9 @@ def main(argv=None):
                     help="after the timed runs, run each path once more "
                          "with its put and reads traced by torch.profiler, "
                          "and write the per-op tables into DIR")
+    ap.add_argument("--crash-child", metavar="DIR", type=Path,
+                    help="run only phase 7's writer into DIR, which then "
+                         "dies without closing anything (phase 7 starts it)")
     args = ap.parse_args(argv)
 
     import torch
@@ -1385,6 +1628,8 @@ def main(argv=None):
         print(f"chip_smoke: the port's sources are missing ({e})",
               file=sys.stderr)
         return 2
+    if args.crash_child is not None:
+        crash_child(args.crash_child, args.scale, args.seed)
     t_start = time.perf_counter()
 
     # 1. device
@@ -1410,7 +1655,7 @@ def main(argv=None):
         log(f"cold run (use_pallas={use_pallas}): {json.dumps(cold)}")
     # each path's recorded kernel inputs and launch counts, for phase 5
     stash = {p: {} for p in ("listing1", "fig4", "graphulo", "single",
-                             "serve_a", "serve_b")}
+                             "recover", "serve_a", "serve_b")}
     launches = {}
     reads, stats, times, launches["listing1"] = listing1(
         graph, True, cap, stash["listing1"])
@@ -1453,6 +1698,12 @@ def main(argv=None):
                 same_triples(traced[0][key], reads[key],
                              f"traced use_pallas={use_pallas} {key}")
 
+    # 4e. the per-run read path, interleaved with the fused read
+    ab, perrun = perrun_reads(graph, cap, reads)
+    log(f"phase 4e ({smi}): per-run read counters " + json.dumps(perrun))
+    log(f"phase 4e ({smi}) timing, fused, per-run, per-run, fused: "
+        + json.dumps(ab))
+
     # 4b-4d. the D4M 2.0 schema and the Fig. 4 reads, Graphulo's SpMV on
     # the schema's Tedge, and the legacy single-run engine, each on both
     # paths; each path's kernel launches are counted from 0 around it
@@ -1489,6 +1740,10 @@ def main(argv=None):
             g.delete()
             single_engine(graph, cap, use_pallas, reads,
                           profile_dir=args.profile)
+
+    # 7. a real crash of the pair and its recovery on the card
+    launches["recover"] = crash_recovery(graph, cap, reads, times["put_s"],
+                                         args, smi, stash["recover"])
 
     # 6. LM serving at full width
     serve_stats, serve_launches = serving(args.seed, stash, args.profile)

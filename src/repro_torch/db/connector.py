@@ -18,14 +18,21 @@ full-scan-and-filter. Selectors compile to ``ReadPlan`` values
 (``resolve_selector_plan``) that record axis, kind and routing for both the
 row and the column dimension.
 
-The stores live on ``device`` (default ``"cuda"``): ``dbsetup`` and
-``DBserver`` take it as a keyword, apart from the config, so a config dict
-means the same here and in the JAX package.
+The stores live on ``device`` (default ``"cuda"``): ``dbsetup``,
+``DBserver`` and ``recover_connector`` take it as a keyword, apart from the
+config, so a config dict means the same here and in the JAX package.
+
+With ``wal_root`` set, each table logs to ``<wal_root>/<table>/`` and the
+string dictionaries are journaled beside it, in the JAX package's formats:
+``checkpoint`` marks a durability point and ``recover_connector`` rebuilds
+string-keyed tables after a crash.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
+import os
+import warnings
 from typing import Optional, Tuple, Union
 
 import numpy as np
@@ -97,6 +104,72 @@ class ReadPlan:
                 else np.arange(self.lo, self.hi, dtype=np.int32))
 
 
+# ---------------------------------------------------------------------------
+# String-dictionary durability: the WAL journals encoded int triples, so
+# recovering *string-keyed* queries needs the dictionaries too. Each dict
+# persists as a checkpoint snapshot (<stem>.json, the whole id->string list)
+# plus an append-only journal (<stem>.log, one JSON line per newly interned
+# string, flushed before the triple batch that uses those ids reaches the
+# triple WAL). Recovery loads the snapshot and replays the journal suffix; a
+# torn last line is discarded — its ids can never appear in the triple WAL,
+# which is always written after the dict journal.
+# ---------------------------------------------------------------------------
+def _dict_paths(dirpath: str, stem: str) -> Tuple[str, str]:
+    return (os.path.join(dirpath, stem + ".json"),
+            os.path.join(dirpath, stem + ".log"))
+
+
+def _load_dict(dirpath: str, stem: str) -> StringDict:
+    """Rebuild a StringDict from its checkpoint + journal suffix."""
+    jpath, lpath = _dict_paths(dirpath, stem)
+    strs = []
+    if os.path.exists(jpath):
+        with open(jpath) as f:
+            strs = json.load(f)
+    seen = set(strs)
+    if os.path.exists(lpath):
+        with open(lpath, encoding="utf-8") as f:
+            for line in f:
+                line = line.strip()
+                if not line:
+                    continue
+                try:
+                    s = json.loads(line)
+                except json.JSONDecodeError:
+                    break  # torn tail from a crash mid-append
+                # a crash BETWEEN checkpoint's snapshot write and its
+                # journal reset leaves journal lines the snapshot already
+                # holds; appends are strictly-new strings in id order, so
+                # membership dedup restores the exact id positions
+                if s not in seen:
+                    strs.append(s)
+                    seen.add(s)
+    return StringDict.from_strings(strs)
+
+
+class _DictJournal:
+    """Open append handle for one dictionary's .log file."""
+
+    def __init__(self, dirpath: str, stem: str):
+        self.jpath, self.lpath = _dict_paths(dirpath, stem)
+        self._f = open(self.lpath, "a", encoding="utf-8")
+
+    def append(self, strings) -> None:
+        for s in strings:
+            self._f.write(json.dumps(s) + "\n")
+        self._f.flush()
+
+    def checkpoint(self, d: StringDict) -> None:
+        """Snapshot the whole dict and reset the journal (compaction)."""
+        d.save(self.jpath)
+        self._f.close()
+        self._f = open(self.lpath, "w", encoding="utf-8")
+        self._f.flush()
+
+    def close(self) -> None:
+        self._f.close()
+
+
 def dbinit() -> None:
     """JVM-init analogue: bring up the CUDA runtime once per process (where
     there is a card)."""
@@ -112,23 +185,21 @@ def dbsetup(instance: str, conf: Optional[dict] = None,
     """Create a server binding (conf dict stands in for db.conf).
 
     The engine/topology keys of ``conf`` build ONE ``StoreConfig`` here;
-    every table the server binds shares that record by reference.
-    ``device`` holds every table's state."""
+    every table the server binds shares that record by reference, and
+    checkpoints round-trip it through the snapshot manifest. ``wal_root``
+    turns on durability; ``device`` holds every table's state."""
     dbinit()
     cfg = dict(conf or {})
     cfg.update(kw)
     char_budget = cfg.pop("char_budget", batching.DEFAULT_CHAR_BUDGET)
-    if cfg.pop("wal_root", None) is not None:
-        raise NotImplementedError(
-            "wal_root is not ported yet: see ROADMAP.md, Queue 1 item 5 "
-            "(durability)")
+    wal_root = cfg.pop("wal_root", None)
     config = cfg.pop("config", None)
     if config is None:
         config = StoreConfig(**cfg)
     elif cfg:
         config = config.replace(**cfg)
     return DBserver(instance, config=config, char_budget=char_budget,
-                    device=device)
+                    wal_root=wal_root, device=device)
 
 
 class DBserver:
@@ -137,12 +208,15 @@ class DBserver:
     ``config`` (a ``kvstore.StoreConfig``) is the single source of truth
     for engine/topology settings; the per-field attributes (``num_shards``,
     ``engine``, ...) are read-only views of it. Extra keyword arguments
-    override config fields. ``device`` (default ``"cuda"``) holds every
-    bound table; without a card, construction raises unless
+    override config fields. ``wal_root`` is the durability root: each
+    table logs to ``<wal_root>/<table>/``, the shared key dictionary to
+    ``<wal_root>/keydict.{json,log}``. ``device`` (default ``"cuda"``)
+    holds every bound table; without a card, construction raises unless
     ``device="cpu"`` is given."""
 
     def __init__(self, instance: str, config: StoreConfig = None,
                  char_budget: int = batching.DEFAULT_CHAR_BUDGET,
+                 wal_root: str = None,
                  device: Union[str, torch.device] = "cuda", **kw):
         cfg = config if config is not None else StoreConfig()
         if kw:
@@ -156,6 +230,10 @@ class DBserver:
         self.keydict = StringDict()          # shared row/col key universe
         self._sorted_keys: Optional[np.ndarray] = None
         self.tables: dict = {}
+        self.wal_root: Optional[str] = None
+        self._keydict_journal: Optional[_DictJournal] = None
+        if wal_root is not None:
+            self.attach_wal_root(wal_root)
 
     # read-only views of the shared StoreConfig
     num_shards = property(lambda self: self.config.num_shards)
@@ -168,6 +246,15 @@ class DBserver:
     fused_q_limit = property(lambda self: self.config.fused_q_limit)
     l0_slots = property(lambda self: self.config.l0_slots)
     fanout = property(lambda self: self.config.fanout)
+
+    def attach_wal_root(self, wal_root: str) -> None:
+        """Enable durability under ``wal_root``. Call AFTER loading any
+        pre-existing dictionary state (recover_connector does)."""
+        os.makedirs(wal_root, exist_ok=True)
+        if self._keydict_journal is not None:
+            self._keydict_journal.close()
+        self.wal_root = wal_root
+        self._keydict_journal = _DictJournal(wal_root, "keydict")
 
     # ------------------------------------------------------------- binding
     def __getitem__(self, names: Union[str, Tuple[str, str]]):
@@ -210,11 +297,22 @@ class DBserver:
 
     # ----------------------------------------------------- key resolution
     def encode_keys(self, strs: np.ndarray) -> np.ndarray:
+        before = len(self.keydict)
         ids = self.keydict.encode(strs)
         if ids.size and ids.max() >= self.id_capacity:
             raise OverflowError("key universe exceeded id_capacity")
+        if self._keydict_journal is not None and len(self.keydict) > before:
+            # journal newly interned strings (in id order) BEFORE any
+            # triple using those ids can reach a table WAL
+            self._keydict_journal.append(self.keydict._to_str[before:])
         self._sorted_keys = None  # invalidate range-query snapshot
         return ids
+
+    def checkpoint_keydict(self) -> None:
+        """Snapshot the shared key dictionary + reset its journal."""
+        if self._keydict_journal is None:
+            raise ValueError("checkpoint_keydict() needs a wal_root")
+        self._keydict_journal.checkpoint(self.keydict)
 
     def _snapshot(self):
         if self._sorted_keys is None or len(self._sorted_keys) != len(self.keydict):
@@ -247,6 +345,15 @@ class DBserver:
         if not out:
             return np.zeros(0, dtype=np.int32)
         return np.unique(np.concatenate(out))
+
+    def resolve_selector(self, sel) -> Optional[np.ndarray]:
+        """Deprecated: D4M selector -> id list (None means 'all'). A thin
+        shim over ``resolve_selector_plan``; new code should consume the
+        ``ReadPlan`` directly."""
+        warnings.warn(
+            "resolve_selector() is deprecated; use resolve_selector_plan()"
+            " and consume the ReadPlan", DeprecationWarning, stacklevel=2)
+        return self.resolve_selector_plan(sel).filter_ids()
 
     # a dict-range id set denser than this scans the covering id range in
     # one fused dispatch and filters the stragglers on the host; sparser
@@ -294,10 +401,9 @@ class DBserver:
 
     def metrics(self) -> dict:
         """Aggregated observability snapshot of every live bound table:
-        per-shard and per-table counters, per-op latency percentiles,
-        derived health gauges, plus a cross-table aggregate. JSON-ready.
-        The ``wal`` sections keep the JAX package's schema and read zero
-        (the port has no WAL yet)."""
+        per-shard and per-table counters, per-op latency percentiles, WAL
+        append/fsync totals, derived health gauges, plus a cross-table
+        aggregate. JSON-ready."""
         for name, t in self.tables.items():
             store = getattr(t, "store", None)
             if store is not None and not store._closed:
@@ -451,13 +557,44 @@ class Table:
                  transpose: bool = False):
         self.server = server
         self.name = name
+        wal_dir = (os.path.join(server.wal_root, name)
+                   if server.wal_root else None)
         cfg = server.config
         if transpose:
             cfg = cfg.replace(transpose=True)
-        self.store = ShardedTable(name, combiner=combiner, config=cfg,
-                                  device=server.device)
+        self.store = ShardedTable(name, combiner=combiner, wal_dir=wal_dir,
+                                  config=cfg, device=server.device)
         self.valdict: Optional[StringDict] = None  # set on first string put
+        self._valdict_journal: Optional[_DictJournal] = None
         self._deleted = False
+
+    @classmethod
+    def _from_store(cls, server: DBserver, name: str, store: ShardedTable,
+                    valdict: Optional[StringDict] = None) -> "Table":
+        """Bind a recovered store (recover_connector) without creating a
+        fresh one; registers the table on the server."""
+        t = object.__new__(cls)
+        t.server = server
+        t.name = name
+        t.store = store
+        t.valdict = valdict
+        t._valdict_journal = None
+        t._deleted = False
+        if valdict is not None and store._wal_dir is not None:
+            t._valdict_journal = _DictJournal(store._wal_dir, "valdict")
+        server.tables[name] = t
+        return t
+
+    def checkpoint(self) -> str:
+        """Durability point: snapshot the store's runs AND the string
+        dictionaries, so ``recover_connector`` restores string-keyed
+        queries. Returns the manifest path."""
+        self._check_live()
+        path = self.store.checkpoint()
+        self.server.checkpoint_keydict()
+        if self._valdict_journal is not None and self.valdict is not None:
+            self._valdict_journal.checkpoint(self.valdict)
+        return path
 
     def _check_live(self) -> None:
         if self._deleted:
@@ -485,8 +622,8 @@ class Table:
         rows = np.asarray(rows, dtype=object)
         cols = np.asarray(cols, dtype=object)
         vals = np.asarray(vals)
-        # connector-level root span: every batch (dict encode, memtable
-        # insert, any flush/compaction) shares ONE trace id
+        # connector-level root span: every batch (dict encode, WAL append,
+        # memtable insert, any flush/compaction) shares ONE trace id
         with obs_span("connector.put", table=self.name, n=len(rows)):
             self._put_triple_batches(rows, cols, vals)
 
@@ -498,7 +635,15 @@ class Table:
             if bv.dtype.kind in "OUS":
                 if self.valdict is None:
                     self.valdict = StringDict()
+                    if self.store._wal_dir is not None:
+                        self._valdict_journal = _DictJournal(
+                            self.store._wal_dir, "valdict")
+                before = len(self.valdict)
                 val = self.valdict.encode(bv.astype(object)).astype(np.float32) + 1.0
+                if (self._valdict_journal is not None
+                        and len(self.valdict) > before):
+                    self._valdict_journal.append(
+                        self.valdict._to_str[before:])
             else:
                 val = bv.astype(np.float32)
             self.store.insert(rid, cid, val)
@@ -630,6 +775,11 @@ class TablePair:
 
     putTriple = put_triple
 
+    def checkpoint(self) -> str:
+        """One durability point covers BOTH sides (the sibling's runs ride
+        in the same snapshot npz; one atomic replace)."""
+        return self.table.checkpoint()
+
     def metrics(self) -> dict:
         """This pair's slice of ``server.metrics()`` (primary table entry,
         which carries the sibling under ``"transpose"``)."""
@@ -646,6 +796,58 @@ def put(table, a: Assoc) -> None:
 
 def putTriple(table, rows, cols, vals) -> None:
     table.put_triple(rows, cols, vals)
+
+
+def recover_connector(wal_root: str, name, instance: str = "recovered",
+                      device: Union[str, torch.device] = "cuda"):
+    """Rebuild a connector-level (string-keyed) table on ``device`` after a
+    crash.
+
+    Loads the shared key dictionary (checkpoint snapshot + journal suffix)
+    and the table's value dictionary from ``wal_root``, recovers the
+    encoded store via ``db.lsm.recover`` (with the manifest's config,
+    ``use_pallas`` included), and binds a live ``Table`` on a fresh
+    ``DBserver`` — so ``T["a,", :]`` works again. Returns ``(server,
+    table)``; both keep journaling to the same ``wal_root``.
+
+    Pass a 2-tuple ``(name, name_t)`` to recover a transpose PAIR: the
+    manifest's StoreConfig carries ``transpose=True``, so the recovered
+    store rebuilds both sibling shard sets and the result is ``(server,
+    TablePair)`` with ``name_t`` bound as the transposed view.
+    """
+    from .lsm.manifest import MANIFEST
+    from .lsm.manifest import recover as recover_store
+
+    pair_name = None
+    if isinstance(name, tuple):
+        name, pair_name = name
+    table_dir = os.path.join(wal_root, name)
+    with open(os.path.join(table_dir, MANIFEST)) as f:
+        man = json.load(f)
+    server = DBserver(
+        instance,
+        config=StoreConfig.from_manifest(man["config"]).replace(
+            engine="lsm", transpose=False),
+        device=device)
+    # dictionary state must load BEFORE the journal re-opens for append
+    server.keydict = _load_dict(wal_root, "keydict")
+    server.attach_wal_root(wal_root)
+    store = recover_store(table_dir, device=server.device)
+    valdict = None
+    if any(os.path.exists(p) for p in _dict_paths(table_dir, "valdict")):
+        valdict = _load_dict(table_dir, "valdict")
+        if len(valdict) == 0:
+            valdict = None
+    table = Table._from_store(server, name, store, valdict)
+    if pair_name is not None:
+        if store.t_store is None:
+            raise ValueError(
+                f"table {name!r} was not checkpointed as a transpose pair; "
+                "recover it by its single name")
+        view = TransposedView(table, pair_name)
+        server.tables[pair_name] = view
+        return server, TablePair(table, view)
+    return server, table
 
 
 def delete(table) -> None:

@@ -15,11 +15,15 @@ range-partitioned by row id (pre-split tablets). Two storage engines:
 
 Duplicate keys combine with Accumulo iterator semantics (last-wins
 versioning, sum/min/max combiners — ``db.iterators``). ``ShardedTable``
-keeps S shards' state stacked [S, ...] on one device.
+keeps S shards' state stacked [S, ...] on one device. With ``wal_dir`` set
+(LSM engine), every batch is journaled to a write-ahead log before it
+reaches the memtable, ``checkpoint()`` snapshots the runs, and
+``db.lsm.recover`` rebuilds the store after a crash.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 from time import perf_counter
 from typing import Union
 
@@ -64,6 +68,16 @@ class StoreConfig:
 
     def replace(self, **kw) -> "StoreConfig":
         return dataclasses.replace(self, **kw)
+
+    @classmethod
+    def from_manifest(cls, cfg: dict) -> "StoreConfig":
+        """Build from a manifest config dict. Tolerates the legacy
+        ``mem_cap`` key and ignores per-table fields stored alongside."""
+        known = {f.name for f in dataclasses.fields(cls)}
+        kw = {k: v for k, v in cfg.items() if k in known}
+        if "memtable_cap" not in kw and "mem_cap" in cfg:
+            kw["memtable_cap"] = cfg["mem_cap"]
+        return cls(**kw)
 
 
 def _dedup_combine(mr, mc, mv, combiner: str):
@@ -205,9 +219,9 @@ def _memtable_append_flat(mem_r, mem_c, mem_v, counts, dest, slot, r, c, v):
 
 # what each deferred option waits for (ROADMAP, Queue 1)
 _LATER = {
-    "wal_dir": "Queue 1 item 5 (durability)",
     "dynamic_tablets": "Queue 1 item 7 (dynamic tablets)",
-    "fused_reads=False": "Queue 1 item 3 (per-run read path)",
+    "manifest format 3": "Queue 1 item 7 (dynamic tablets)",
+    "tablet_filter": "Queue 1 item 7 (dynamic tablets)",
 }
 
 
@@ -268,12 +282,8 @@ class ShardedTable:
             raise ValueError("transpose pairs require engine='lsm'")
         if cfg.dynamic_tablets and cfg.engine != "lsm":
             raise ValueError("dynamic_tablets requires engine='lsm'")
-        if wal_dir is not None:
-            raise _not_yet("wal_dir")
         if cfg.dynamic_tablets:
             raise _not_yet("dynamic_tablets")
-        if cfg.engine == "lsm" and not cfg.fused_reads:
-            raise _not_yet("fused_reads=False")
         self.device = resolve_device(device)
         self.config = cfg
         self.name = name
@@ -284,8 +294,11 @@ class ShardedTable:
         self.id_capacity = cfg.id_capacity
         self.combiner = combiner
         self.use_pallas = cfg.use_pallas
-        # fused_q_limit is the QUERY TILE: batches beyond the tiny point
-        # bucket pad up to it, and larger ones split into tiles of it
+        # fused_reads: LSM point reads and range scans go through the fused
+        # path; False keeps the per-run baseline (read at each call, so it
+        # may be switched on a live store). fused_q_limit is the QUERY
+        # TILE: batches beyond the tiny point bucket pad up to it, and
+        # larger ones split into tiles of it
         self.fused_reads = cfg.fused_reads
         self.fused_q_limit = cfg.fused_q_limit
         self.mem_cap = cfg.memtable_cap or max(
@@ -390,11 +403,50 @@ class ShardedTable:
         # (row, col)-sorted + combiner-deduped mirror per shard, computed
         # lazily for the fused reads and reused until the next insert
         self._mem_sorted: dict = {}
+        # durability: the transpose sibling has no WAL of its own, the
+        # primary logs each batch once, pair-tagged (see insert())
+        self._wal = None
+        self._wal_dir = None
+        self._wal_ckpt_offset = 0
+        if wal_dir is not None:
+            self.attach_wal(wal_dir)
+
+    # ------------------------------------------------------- durability
+    def attach_wal(self, wal_dir: str) -> None:
+        """Open (or re-open) the write-ahead log under ``wal_dir``."""
+        if self.engine != "lsm":
+            raise ValueError("WAL durability requires engine='lsm'")
+        from .lsm.manifest import wal_path
+        from .lsm.wal import WriteAheadLog
+        os.makedirs(wal_dir, exist_ok=True)
+        if self._wal is not None:
+            self._wal.close()
+        self._wal_dir = wal_dir
+        self._wal = WriteAheadLog(wal_path(wal_dir))
+        # WAL backlog baseline: everything currently in the log predates
+        # this process's appends, so a fresh attach owes a full replay
+        self._wal_ckpt_offset = 0
+
+    def checkpoint(self) -> str:
+        """Flush the memtable, snapshot the runs, mark the WAL offset.
+        Returns the manifest path; ``db.lsm.recover`` consumes it."""
+        self._check_open()
+        if self.engine != "lsm" or self._wal_dir is None:
+            raise ValueError("checkpoint() needs engine='lsm' and a wal_dir")
+        from .lsm.manifest import write_snapshot
+        self.flush()
+        path = write_snapshot(self, self._wal_dir)
+        self._wal_ckpt_offset = self._wal.tell() if self._wal else 0
+        return path
 
     def close(self) -> None:
-        """Release buffers and refuse further use (connector delete())."""
+        """Release buffers, close the WAL and refuse further use
+        (connector delete())."""
         if self._closed:
             return
+        if self._wal is not None:
+            self._wal.close()
+            self._wal = None
         if self.t_store is not None:
             self.t_store.close()
         self._runs = None
@@ -432,7 +484,7 @@ class ShardedTable:
         has no batch-size-independent read shape: it runs a point read."""
         self._check_open()
         self.query_rows(np.zeros(1, np.int32))  # point bucket
-        if self.engine == "lsm":
+        if self.engine == "lsm" and self.fused_reads:
             probe = np.linspace(0, self.id_capacity - 1,
                                 2 * self.S * 8 + 2).astype(np.int32)
             self.query_rows(np.unique(probe))   # > 8 ids/shard: the tile
@@ -457,13 +509,15 @@ class ShardedTable:
 
     def refresh_health_gauges(self, bloom_probes: int = 0) -> None:
         """Recompute the derived health gauges for this table (and its
-        transpose sibling): memtable occupancy per shard, resident runs,
-        compaction debt, read/write amplification, and
+        transpose sibling): memtable occupancy per shard, WAL backlog,
+        resident runs, compaction debt, read/write amplification, and
         (``bloom_probes > 0``) the observed-vs-theoretical bloom fp rate."""
         self._check_open()
         for s in range(self.S):
             self._reg.gauge("db_memtable_occupancy", table=self.name,
                             shard=s).set(int(self._mem_n[s]) / self.mem_cap)
+        if self._wal is not None:
+            self._wal.refresh_backlog_gauge(self._wal_ckpt_offset)
         if self.engine == "lsm":
             self._runs.refresh_health_gauges(bloom_probes=bloom_probes)
         else:
@@ -490,11 +544,16 @@ class ShardedTable:
         return int(self.tablets.n.sum())
 
     # ------------------------------------------------------------- ingest
-    def insert(self, rows: np.ndarray, cols: np.ndarray, vals: np.ndarray):
+    def insert(self, rows: np.ndarray, cols: np.ndarray, vals: np.ndarray,
+               _log: bool = True):
         """Host-side BatchWriter: bucket by owner + flat memtable append.
+        With a WAL attached, the batch is journaled first (write-ahead);
+        ``_log=False`` is for WAL replay during recovery.
+
         Transpose-enabled stores dual-ingest: the batch lands in the
         primary (routed by row) AND the sibling (routed by col, rows and
-        cols swapped)."""
+        cols swapped) behind ONE pair-tagged WAL record, so replay
+        rebuilds both or neither."""
         self._check_open()
         rows = np.asarray(rows, np.int32)
         cols = np.asarray(cols, np.int32)
@@ -506,6 +565,9 @@ class ShardedTable:
             raise OverflowError(f"batch {n} exceeds memtable {self.mem_cap}")
         t0 = perf_counter()
         with self._trace.span("ingest", table=self.name, n=n):
+            if _log and self._wal is not None:
+                self._wal.append(rows, cols, vals,
+                                 pair=self.t_store is not None)
             self._insert_batch(rows, cols, vals)
             if self.t_store is not None:
                 self.t_store._insert_batch(cols, rows, vals)
@@ -517,6 +579,9 @@ class ShardedTable:
             raise OverflowError(f"batch {n} exceeds memtable {self.mem_cap}")
         dest = shard_of(rows, self.S, self.id_capacity)
         order = np.argsort(dest, kind="stable")
+        # the reorder copies: nothing below touches the caller's arrays (a
+        # replayed batch is a read-only view of the log's bytes, and on the
+        # CPU torch.as_tensor would alias them)
         dest, rows, cols, vals = dest[order], rows[order], cols[order], vals[order]
         counts_b = np.bincount(dest, minlength=self.S)
         if self._reg.enabled:
@@ -628,21 +693,22 @@ class ShardedTable:
                    col_filter: np.ndarray = None):
         """Point queries; returns (row_id, col_id, val) numpy triples.
 
-        LSM engine: served from memtable + runs by the fused read (no
-        flush). Legacy engine: flushes only when a QUERIED shard's memtable
-        is non-empty, then rank-searches each owner shard's run.
-        Duplicate query ids return duplicate results.
+        LSM engine: served from memtable + runs (no flush) by the fused
+        read, or with ``fused_reads`` off by the per-run baseline
+        (``LSMRuns.query_shard``). Legacy engine: flushes only when a
+        QUERIED shard's memtable is non-empty, then rank-searches each
+        owner shard's run. Duplicate query ids return duplicate results.
 
-        ``col_filter`` restricts results to a column id set; on the LSM
-        engine the membership test runs on the device inside the
-        dispatch, on the legacy engine on the host.
+        ``col_filter`` restricts results to a column id set; on the fused
+        path the membership test runs on the device inside the dispatch,
+        on the other paths on the host.
         """
         self._check_open()
         t_call = perf_counter()
         host_filter = None
         if col_filter is not None:
             col_filter = np.asarray(col_filter, np.int32)
-            if self.engine != "lsm":
+            if not (self.engine == "lsm" and self.fused_reads):
                 host_filter, col_filter = col_filter, None
         row_ids = np.asarray(row_ids, np.int32)
         owner = shard_of(row_ids, self.S, self.id_capacity)
@@ -664,15 +730,19 @@ class ShardedTable:
             # duplicate query ids return duplicate results: query unique
             # ids, then re-expand
             uq, ucnt = np.unique(q, return_counts=True)
-            fmem = self._mem_host_sorted(s)
-            if fmem is None and not self._runs.resident_runs(s):
-                # empty shard: nothing to dispatch — still observed
-                self._h_shard_query[s].observe(perf_counter() - t_sh)
-                continue
-            r, c, v = self._runs.query_shard_fused(
-                s, uq, mem_host=fmem, max_return=max_return,
-                mem_sorted=True, q_tile=self.fused_q_limit,
-                col_filter=col_filter)
+            if not self.fused_reads:  # the per-run baseline
+                r, c, v = self._runs.query_shard(
+                    s, uq, max_return, mem_host=self._mem_host(s))
+            else:
+                fmem = self._mem_host_sorted(s)
+                if fmem is None and not self._runs.resident_runs(s):
+                    # empty shard: nothing to dispatch — still observed
+                    self._h_shard_query[s].observe(perf_counter() - t_sh)
+                    continue
+                r, c, v = self._runs.query_shard_fused(
+                    s, uq, mem_host=fmem, max_return=max_return,
+                    mem_sorted=True, q_tile=self.fused_q_limit,
+                    col_filter=col_filter)
             if len(r) and (ucnt > 1).any():
                 rep = ucnt[np.searchsorted(uq, r)]
                 r, c, v = np.repeat(r, rep), np.repeat(c, rep), np.repeat(v, rep)
@@ -715,17 +785,18 @@ class ShardedTable:
         """Row-range scan: all (row, col, val) with ``lo <= row < hi``,
         sorted lex by (row, col) — each overlapping shard is answered by
         ONE fused fence-to-fence pass (``scan_shard_fused``) on the LSM
-        engine; the legacy engine flushes the overlapping shards and slices
-        each run between the endpoint ranks. ``col_filter`` restricts
-        results to a column id set (on the device on the LSM engine, on
-        the host on the legacy one)."""
+        engine; with ``fused_reads`` off, by the shard's full scan filtered
+        on the host (the per-run baseline); the legacy engine flushes the
+        overlapping shards and slices each run between the endpoint ranks.
+        ``col_filter`` restricts results to a column id set (on the device
+        on the fused path, on the host on the others)."""
         self._check_open()
         t_call = perf_counter()
         lo, hi = int(lo), int(hi)
         host_filter = None
         if col_filter is not None:
             col_filter = np.asarray(col_filter, np.int32)
-            if self.engine != "lsm":
+            if not (self.engine == "lsm" and self.fused_reads):
                 host_filter, col_filter = col_filter, None
         out = []
         if hi > lo:
@@ -740,10 +811,14 @@ class ShardedTable:
             for s in shards:
                 self._c_shard_scan[s].inc()
                 t_sh = perf_counter()
-                if self.engine == "lsm":
+                if self.engine == "lsm" and self.fused_reads:
                     r, c, v = self._runs.scan_shard_fused(
                         s, lo, hi, mem_host=self._mem_host_sorted(s),
                         width=width, mem_sorted=True, col_filter=col_filter)
+                elif self.engine == "lsm":  # full shard scan + range filter
+                    r, c, v = self.scan_shard(s)
+                    keep = (r >= lo) & (r < hi)
+                    r, c, v = r[keep], c[keep], v[keep]
                 else:  # legacy single run: slice between endpoint ranks
                     t = self._shard_tablet(s)
                     ends = torch.tensor([lo, hi], dtype=torch.int32,

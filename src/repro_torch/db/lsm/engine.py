@@ -25,6 +25,9 @@ kernel, bloom-masked, and combined on the device by the row-rank merge,
 with ONE host sync per tile. Range scans are one fused pass per shard.
 Under ``use_pallas`` the three hand kernels run (on the card; their plain
 versions for CPU tensors); without it the same path runs on PyTorch ops.
+The per-run baseline (``query_shard``) stays one dispatch per run on
+PyTorch ops (``torch.searchsorted``, no hand kernel), as the JAX
+package's runs outside any Pallas kernel.
 """
 from __future__ import annotations
 
@@ -169,13 +172,20 @@ def _probe_stack(rows, cols, vals, fences, q, max_return: int, block: int,
 
     Under ``use_pallas`` the fence rank search is the batched rank kernel
     (one launch for both sides and all K fence rows)."""
-    n_k, cap = rows.shape
+    n_k = rows.shape[0]
     if use_pallas:
         fl, fr = sorted_search_batched(fences, q, "both")
     else:
         qq = q.reshape(1, -1).expand(n_k, -1).contiguous()
         fl = torch.searchsorted(fences, qq, side="left")
         fr = torch.searchsorted(fences, qq, side="right")
+    return _windows(rows, cols, vals, fl, fr, q, max_return, block)
+
+
+def _windows(rows, cols, vals, fl, fr, q, max_return: int, block: int):
+    """The candidate windows of ``q`` in K runs ``[K, cap]`` from the
+    fence ranks of both sides ``fl``, ``fr`` ``[K, Q]``."""
+    n_k, cap = rows.shape
     start = _bracket(rows, fl, q, block, right=False)
     end = _bracket(rows, fr, q, block, right=True)
     idx = start[..., None] + torch.arange(max_return, device=rows.device)
@@ -183,6 +193,39 @@ def _probe_stack(rows, cols, vals, fences, q, max_return: int, block: int,
     c_o = cols.gather(1, idxc).reshape(idx.shape)
     v_o = vals.gather(1, idxc).reshape(idx.shape)
     return c_o, v_o, idx < end[..., None], end - start
+
+
+# ------------------------------------------------------ per-run read path
+def run_query_rows(rows, cols, vals, fence, q, max_return: int, block: int):
+    """Fence-bracketed point row query against one sorted run.
+
+    The fence array (block-start row ids) locates the block holding each
+    query's start/end rank; the exact rank search then touches only that
+    block (+1 entry of spill). ``torch.searchsorted`` on both sides, the
+    same window and clip as the JAX package's. Returns (cols[Q, R],
+    vals[Q, R], ok[Q, R], counts[Q] int32) for R = ``max_return``."""
+    fl = torch.searchsorted(fence, q, side="left")
+    fr = torch.searchsorted(fence, q, side="right")
+    c_o, v_o, ok, cnt = _windows(rows[None], cols[None], vals[None],
+                                 fl[None], fr[None], q, max_return, block)
+    return c_o[0], v_o[0], ok[0], cnt[0].to(torch.int32)
+
+
+def run_query_gated(rows, cols, vals, fence, bloom, q, max_return: int,
+                    block: int, n_hashes: int = NUM_HASHES):
+    """The bloom probe of ``q`` and the fence-bracketed search of one run.
+    Returns (any_hit, cols, vals, ok, counts), ``any_hit`` a 0-d bool
+    tensor on the device.
+
+    Where the JAX package skips the search under ``lax.cond`` when no
+    queried row may be present, this launches the search always: a
+    data-dependent skip would cost a host sync per run. The caller
+    (``LSMRuns.query_shard``) brings every run's ``any_hit`` to the host in
+    one copy and drops the results of runs whose flag is false, so its
+    answers and counters are the JAX package's."""
+    any_hit = bloom_maybe_contains(bloom, q, n_hashes).any()
+    return (any_hit,) + run_query_rows(rows, cols, vals, fence, q,
+                                       max_return, block)
 
 
 def _mem_window(mem_r, mem_c, mem_v, q, max_return: int):
@@ -839,17 +882,23 @@ class LSMRuns:
         return tot_fp / tot_probes, theo_w / tot_probes
 
     def _iter_runs_oldest_first(self, s: int):
-        """Yield (rows, cols, vals, n) per resident run of shard ``s``,
-        oldest (deepest level) to newest (latest L0 slot)."""
+        """Yield (rows, cols, vals, fence, bloom, n, block, minr, maxr,
+        hashes) per resident run of shard ``s``, oldest (deepest level) to
+        newest (latest L0 slot)."""
         for i in range(len(self.levels) - 1, -1, -1):
             lv = self.levels[i]
             if lv["n"][s]:
-                yield lv["rows"][s], lv["cols"][s], lv["vals"][s], \
-                    int(lv["n"][s])
+                yield (lv["rows"][s], lv["cols"][s], lv["vals"][s],
+                       lv["fence"][s], lv["bloom"][s], int(lv["n"][s]),
+                       lv["block"], int(lv["minr"][s]), int(lv["maxr"][s]),
+                       lv["hashes"])
         for k in range(int(self.l0_used[s])):
             if self.l0_n[s, k]:
                 yield (self.l0_rows[s, k], self.l0_cols[s, k],
-                       self.l0_vals[s, k], int(self.l0_n[s, k]))
+                       self.l0_vals[s, k], self.l0_fence[s, k],
+                       self.l0_bloom[s, k], int(self.l0_n[s, k]), self._b0,
+                       int(self.l0_min[s, k]), int(self.l0_max[s, k]),
+                       self._h0)
 
     def _fused_views(self, s: int):
         """Per-shard views for the fused reads: the RESIDENT leveled runs
@@ -1024,13 +1073,80 @@ class LSMRuns:
         return (rows_s[ki].astype(np.int32), cols_s[ki].astype(np.int32),
                 vals_s[ki].astype(np.float32))
 
+    def query_shard(self, s: int, q: np.ndarray, max_return: int = 256,
+                    mem_host: Optional[Tuple] = None):
+        """Per-run baseline read path: probe the runs oldest → newest, then
+        the memtable tail (``mem_host``, host numpy arrays in append
+        order), and combine across sources on the host. ``q`` is sorted
+        unique int32. NO flush happens.
+
+        A run whose row range misses ``q`` is skipped on the host. Every
+        other run gets one ``run_query_gated`` dispatch (bloom probe and
+        search, both launched); then all the runs' ``any_hit`` flags come
+        to the host in ONE copy, and the results of runs whose flag is
+        false are dropped. The answers and the ``perrun_dispatches``,
+        ``runs_probed`` and ``runs_skipped`` counters are the JAX
+        package's, whose search is skipped on the device instead. A run
+        with a row longer than ``max_return`` is searched again at that
+        width (batch-scanner widen). This path stays one dispatch per run:
+        it is the baseline the fused read is held against."""
+        q_dev = torch.as_tensor(np.asarray(q, np.int32), device=self.device)
+        q_lo, q_hi = int(q[0]), int(q[-1])
+        launched = []
+        age = 0
+        for (rows, cols, vals, fence, bloom, n, block, minr, maxr,
+             hashes) in self._iter_runs_oldest_first(s):
+            age += 1
+            if q_hi < minr or q_lo > maxr:
+                self._ctr["runs_skipped"].inc()
+                continue
+            self._ctr["perrun_dispatches"].inc()
+            out = run_query_gated(rows, cols, vals, fence, bloom, q_dev,
+                                  max_return, block, hashes)
+            launched.append((age, (rows, cols, vals, fence, block), out))
+        hits = (torch.stack([out[0] for _, _, out in launched]).cpu().numpy()
+                if launched else [])
+        cand_r, cand_c, cand_v, cand_a = [], [], [], []
+        for (age_i, run, out), hit in zip(launched, hits):
+            if not hit:  # bloom says absent: the results are dropped
+                self._ctr["runs_skipped"].inc()
+                continue
+            self._ctr["runs_probed"].inc()
+            cols_o, vals_o, ok, cnt = _to_host(out[1:])
+            top = int(cnt.max(initial=0))
+            if top > max_return:  # widen + retry (scanner)
+                rows, cols, vals, fence, block = run
+                self._ctr["perrun_dispatches"].inc()
+                cols_o, vals_o, ok, cnt = _to_host(run_query_rows(
+                    rows, cols, vals, fence, q_dev, top, block))
+            qi, ki = np.nonzero(ok)
+            cand_r.append(q[qi])
+            cand_c.append(cols_o[qi, ki])
+            cand_v.append(vals_o[qi, ki])
+            cand_a.append(np.full(len(qi), age_i, np.int32))
+        if mem_host is not None and len(mem_host[0]):
+            mr, mc, mv = mem_host
+            mask = np.isin(mr, q)
+            if mask.any():
+                cand_r.append(mr[mask])
+                cand_c.append(mc[mask])
+                cand_v.append(mv[mask])
+                cand_a.append(np.full(int(mask.sum()), age + 1, np.int32))
+        if not cand_r:
+            z = np.zeros(0, np.int32)
+            return z, z.copy(), np.zeros(0, np.float32)
+        return combine_triples(np.concatenate(cand_r).astype(np.int32),
+                               np.concatenate(cand_c).astype(np.int32),
+                               np.concatenate(cand_v).astype(np.float32),
+                               np.concatenate(cand_a), self.combiner)
+
     def scan_shard(self, s: int, mem_host: Optional[Tuple] = None):
         """All (row, col, val) of one shard, combined across runs + the
         memtable tail (host numpy arrays), sorted lex by (row, col). NO
         flush happens."""
         cand = []
         age = 0
-        for rows, cols, vals, n in self._iter_runs_oldest_first(s):
+        for rows, cols, vals, _, _, n, *_ in self._iter_runs_oldest_first(s):
             age += 1
             cand.append((rows[:n].cpu().numpy(), cols[:n].cpu().numpy(),
                          vals[:n].cpu().numpy(), np.full(n, age, np.int32)))

@@ -9,15 +9,18 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..kernels.common import resolve_device
 from .config import ModelConfig
 from .spec import PSpec
 from . import transformer
 
 
 def tensor_from_numpy(arr: np.ndarray, dtype: torch.dtype,
-                      device="cpu") -> torch.Tensor:
+                      device="cuda") -> torch.Tensor:
     """One leaf: a numpy array (a 2-byte float array is taken as bf16 words
-    when ``dtype`` is bf16) -> a tensor of ``dtype``, same bits."""
+    when ``dtype`` is bf16) -> a tensor of ``dtype`` on ``device``, same
+    bits. Without a card this raises unless ``device="cpu"`` is given."""
+    device = resolve_device(device)
     arr = np.ascontiguousarray(arr)
     if dtype == torch.bfloat16:
         if arr.dtype.itemsize != 2:
@@ -30,11 +33,13 @@ def tensor_from_numpy(arr: np.ndarray, dtype: torch.dtype,
     return t.to(device)
 
 
-def params_from_jax(cfg: ModelConfig, tree, device="cpu") -> dict:
+def params_from_jax(cfg: ModelConfig, tree, device="cuda") -> dict:
     """The JAX parameter pytree of ``transformer.param_specs(cfg)`` (numpy
-    leaves, stacked ``[L, ...]`` blocks) -> the port's parameter tree; every
-    leaf's shape must match its spec."""
+    leaves, stacked ``[L, ...]`` blocks) -> the port's parameter tree on
+    ``device``; every leaf's shape must match its spec. Without a card this
+    raises unless ``device="cpu"`` is given."""
     specs = transformer.param_specs(cfg)
+    device = resolve_device(device)
 
     def pick(path_tree, spec_tree):
         if isinstance(spec_tree, dict):

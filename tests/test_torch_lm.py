@@ -57,7 +57,7 @@ def _close(got, want, tol, what):
 def test_params_from_jax_bit_equal(arch):
     jcfg, cfg = _cfgs(arch, "bfloat16")
     jp = _jax_params(jcfg)
-    tp = params_from_jax(cfg, jp)
+    tp = params_from_jax(cfg, jp, device="cpu")
     flat = jax.tree_util.tree_flatten_with_path(jp)[0]
     assert flat
     for path, arr in flat:
@@ -75,7 +75,7 @@ def test_params_from_jax_bit_equal(arch):
     with pytest.raises(ValueError, match="shape"):
         bad = jax.tree.map(lambda x: x, jp)
         bad["final_norm"]["scale"] = np.ones(3, np.float32)
-        params_from_jax(cfg, bad)
+        params_from_jax(cfg, bad, device="cpu")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -83,7 +83,7 @@ def test_params_from_jax_bit_equal(arch):
 def test_prefill_and_decode_match_jax(arch, dtype):
     jcfg, cfg = _cfgs(arch, dtype)
     jp = _jax_params(jcfg)
-    tp = params_from_jax(cfg, jp)
+    tp = params_from_jax(cfg, jp, device="cpu")
     tol = TOL[dtype]
     max_len = S + STEPS
     toks = np.random.default_rng(3).integers(1, cfg.vocab, (B, S)).astype(
@@ -123,8 +123,8 @@ def test_engine_greedy_tokens_match_jax(arch):
     treqs = [Request(prompt=p, max_new=6) for p in prompts]
     jstats = JaxEngine(jax_build(jcfg), jax.tree.map(jnp.asarray, jp),
                        batch_slots=3, max_len=24).run(jreqs)
-    tstats = Engine(build(cfg), params_from_jax(cfg, jp), batch_slots=3,
-                    max_len=24, device="cpu").run(treqs)
+    tstats = Engine(build(cfg), params_from_jax(cfg, jp, device="cpu"),
+                    batch_slots=3, max_len=24, device="cpu").run(treqs)
     assert tstats["tokens_out"] == jstats["tokens_out"] == 30
     assert tstats["batches"] == 2
     for jr, tr in zip(jreqs, treqs):
@@ -137,7 +137,7 @@ def test_prefill_then_decode_matches_full_prefill(arch):
     check of tests/test_arch_smoke.py, on the port, in float32)."""
     _, cfg = _cfgs(arch, "float32")
     tp = params_from_jax(cfg, _jax_params(dataclasses.replace(
-        jax_reduced(arch), param_dtype="float32"), seed=1))
+        jax_reduced(arch), param_dtype="float32"), seed=1), device="cpu")
     toks = torch.from_numpy(np.random.default_rng(1).integers(
         1, cfg.vocab, (B, 32)).astype(np.int32))
     full, _ = transformer.prefill(cfg, tp, toks)
@@ -195,7 +195,7 @@ def test_build_serves_dense_only_and_refuses_training():
 def test_tensor_from_numpy_keeps_bf16_bits():
     words = np.array([0x3F80, 0xC000, 0x7F7F, 0x0001], np.uint16)
     arr = jnp.asarray(words.view(np.int16)).view(jnp.bfloat16)
-    t = tensor_from_numpy(np.asarray(arr), torch.bfloat16)
+    t = tensor_from_numpy(np.asarray(arr), torch.bfloat16, device="cpu")
     assert t.dtype == torch.bfloat16
     np.testing.assert_array_equal(t.view(torch.int16).numpy(),
                                   words.view(np.int16))

@@ -1,7 +1,8 @@
 """The port's LSM engine and sharded store against the JAX package's on
 identical random ingest/flush/compact/query/scan sequences, for all four
-combiners, and against a numpy oracle. Keys must be exactly equal; values
-exactly for last/min/max and to rtol 1e-6 for sum (summation order).
+combiners, on the fused reads and on the per-run baseline, and against a
+numpy oracle. Keys must be exactly equal; values exactly for last/min/max
+and to rtol 1e-6 for sum (summation order); the read counters exactly.
 
 Sizes are tiny (memtables of 16-32 entries) so that the JAX side, which
 compiles each new run geometry, stays cheap."""
@@ -14,6 +15,10 @@ from repro_torch.db.lsm import engine as teng
 from repro_torch.kernels.common import I32_MAX
 
 RTOL = {"sum": 1e-6, "last": 0, "min": 0, "max": 0}
+# the read counters: both packages count the same dispatches and runs
+READ_KEYS = ("runs_probed", "runs_skipped", "fused_dispatches",
+             "fused_widen_retries", "fused_tiles", "perrun_dispatches",
+             "scan_dispatches", "scan_widen_retries")
 
 
 class Oracle:
@@ -55,11 +60,21 @@ def _pair(name, combiner, **kw):
             TorchTable("torch_" + name, combiner=combiner, device="cpu", **kw))
 
 
+def _reads(t, fn):
+    """``fn()`` and the change of ``t``'s read counters over it."""
+    before = t.engine_stats()
+    out = fn()
+    after = t.engine_stats()
+    return out, {k: after[k] - before[k] for k in READ_KEYS}
+
+
 def _drive(jt, tt, oracle, rng, steps, idc, jax_every=3, max_batch=16,
            q_max=24):
     """Random ingest/flush/compact steps; the port's reads are held against
     the oracle at every step and against the JAX store every
-    ``jax_every`` steps (each new run geometry compiles on the JAX side)."""
+    ``jax_every`` steps (each new run geometry compiles on the JAX side),
+    read counters included. On the per-run path (``fused_reads`` off) the
+    port's fused read of the same store is held equal there too."""
     rtol = RTOL[oracle.combiner]
     for step in range(steps):
         n = int(rng.integers(1, max_batch))
@@ -78,20 +93,27 @@ def _drive(jt, tt, oracle, rng, steps, idc, jax_every=3, max_batch=16,
             tt.major_compact()
         with_jax = (step + 1) % jax_every == 0
         q = np.unique(rng.integers(0, idc, q_max)).astype(np.int32)
-        got = tt.query_rows(q)
+        got, d_t = _reads(tt, lambda: tt.query_rows(q))
         qs = set(q.tolist())
         _same(got, oracle.select(lambda a, b: a in qs), rtol,
               f"step {step} query vs oracle")
         if with_jax:
-            _same(got, jt.query_rows(q), rtol, f"step {step} query vs jax")
+            want, d_j = _reads(jt, lambda: jt.query_rows(q))
+            _same(got, want, rtol, f"step {step} query vs jax")
+            assert d_t == d_j, (step, d_t, d_j)
+            if not tt.fused_reads:
+                tt.fused_reads = True
+                _same(tt.query_rows(q), got, rtol, f"step {step} fused")
+                tt.fused_reads = False
         lo = int(rng.integers(0, idc))
         hi = lo + int(rng.integers(1, max(2, idc // 3)))
-        got = tt.scan_range(lo, hi)
+        got, d_t = _reads(tt, lambda: tt.scan_range(lo, hi))
         _same(got, oracle.select(lambda a, b: lo <= a < hi), rtol,
               f"step {step} scan vs oracle")
         if with_jax:
-            _same(got, jt.scan_range(lo, hi), rtol,
-                  f"step {step} scan vs jax")
+            want, d_j = _reads(jt, lambda: jt.scan_range(lo, hi))
+            _same(got, want, rtol, f"step {step} scan vs jax")
+            assert d_t == d_j, (step, d_t, d_j)
 
 
 def _same_state(jt, tt, rtol):
@@ -106,16 +128,23 @@ def _same_state(jt, tt, rtol):
                                           err_msg=k)
 
 
-@pytest.mark.parametrize("combiner,use_pallas", [
-    ("last", True), ("sum", True), ("min", False), ("max", False),
-])
-def test_random_sequences_match_jax(combiner, use_pallas):
+# the per-run cases take the other use_pallas value of each combiner, so
+# that every combiner runs with both across the two read paths
+@pytest.mark.parametrize("combiner,use_pallas,fused_reads", [
+    ("last", True, True), ("sum", True, True), ("min", False, True),
+    ("max", False, True), ("last", False, False), ("sum", False, False),
+    ("min", True, False), ("max", True, False),
+], ids=["last-True", "sum-True", "min-False", "max-False",
+        "last-False-perrun", "sum-False-perrun", "min-True-perrun",
+        "max-True-perrun"])
+def test_random_sequences_match_jax(combiner, use_pallas, fused_reads):
     rng = np.random.default_rng(
         ["last", "sum", "min", "max"].index(combiner) + 10 * use_pallas)
     idc = 128
-    jt, tt = _pair(f"seq_{combiner}_{use_pallas}", combiner, num_shards=2,
-                   capacity_per_shard=256, batch_cap=32, id_capacity=idc,
-                   memtable_cap=16, use_pallas=use_pallas)
+    jt, tt = _pair(f"seq_{combiner}_{use_pallas}_{fused_reads}", combiner,
+                   num_shards=2, capacity_per_shard=256, batch_cap=32,
+                   id_capacity=idc, memtable_cap=16, use_pallas=use_pallas,
+                   fused_reads=fused_reads)
     _drive(jt, tt, Oracle(combiner), rng, steps=9, idc=idc)
     jt.flush()
     tt.flush()
@@ -238,12 +267,153 @@ def test_col_filter_and_duplicate_query_ids():
     _same(tt.scan(), jt.scan(), 0, "scan after clear_shard")
 
 
-def test_deferred_options_raise():
-    for kw, what in [({"wal_dir": "/nonexistent"}, "Queue 1 item 5"),
-                     ({"dynamic_tablets": True}, "Queue 1 item 7"),
-                     ({"fused_reads": False}, "Queue 1 item 3")]:
-        with pytest.raises(NotImplementedError, match=what):
-            TorchTable("deferred", device="cpu", **kw)
+def test_perrun_widen_retry_matches_jax():
+    """The per-run path with ``max_return`` below the longest row: every run
+    holding row 7 is searched again at the row's width."""
+    rng = np.random.default_rng(6)
+    idc = 1024
+    jt, tt = _pair("perrun_wide", "sum", num_shards=1,
+                   capacity_per_shard=4096, batch_cap=128, id_capacity=idc,
+                   memtable_cap=128, fused_reads=False)
+    oracle = Oracle("sum")
+    for _ in range(3):  # three L0 runs, each holding row 7 x 60 cols
+        c = rng.permutation(idc)[:60].astype(np.int32)
+        r = np.full(60, 7, np.int32)
+        v = rng.integers(1, 5, 60).astype(np.float32)
+        for t_ in (jt, tt):
+            t_.insert(r, c, v)
+            t_.flush()
+        oracle.insert(r, c, v)
+    q = np.asarray([3, 7, 9], np.int32)
+    got, d_t = _reads(tt, lambda: tt.query_rows(q, max_return=16))
+    want, d_j = _reads(jt, lambda: jt.query_rows(q, max_return=16))
+    _same(got, want, 1e-6, "per-run widen vs jax")
+    _same(got, oracle.select(lambda a, b: a in (3, 7, 9)), 1e-6,
+          "per-run widen vs oracle")
+    assert d_t == d_j
+    assert d_t["perrun_dispatches"] == 6 and d_t["fused_dispatches"] == 0
+
+
+def test_perrun_scan_col_filter_and_duplicates_match_jax():
+    """``scan_range`` and ``col_filter`` on the per-run path (both filter on
+    the host), and duplicate query ids, against the JAX store and the
+    fused read of the same port store."""
+    rng = np.random.default_rng(12)
+    jt, tt = _pair("perrun_filt", "max", num_shards=2,
+                   capacity_per_shard=256, batch_cap=32, id_capacity=64,
+                   memtable_cap=16, fused_reads=False)
+    for _ in range(5):
+        r = rng.integers(0, 64, 16).astype(np.int32)
+        c = rng.integers(0, 64, 16).astype(np.int32)
+        v = rng.normal(size=16).astype(np.float32)
+        jt.insert(r, c, v)
+        tt.insert(r, c, v)
+    filt = np.asarray([1, 5, 9, 33, 60], np.int32)
+    q = np.asarray([3, 3, 17, 40, 40, 40], np.int32)
+    reads = {
+        "filtered query": lambda t: t.query_rows(q, col_filter=filt),
+        "filtered scan": lambda t: t.scan_range(0, 64, col_filter=filt),
+        "scan": lambda t: t.scan_range(10, 50),
+        "empty filter": lambda t: t.query_rows(
+            q, col_filter=np.zeros(0, np.int32)),
+    }
+    for what, read in reads.items():
+        got, d_t = _reads(tt, lambda: read(tt))
+        want, d_j = _reads(jt, lambda: read(jt))
+        _same(got, want, 0, what)
+        assert d_t == d_j, what
+        assert d_t["fused_dispatches"] == d_t["scan_dispatches"] == 0
+        tt.fused_reads = True
+        _same(read(tt), got, 0, what + " fused")
+        tt.fused_reads = False
+    assert len(reads["empty filter"](tt)[0]) == 0
+    # the point bucket only: no query tile to warm on the per-run path
+    assert _reads(tt, tt.warm_reads)[1] == _reads(jt, jt.warm_reads)[1]
+
+
+def test_run_queries_match_jax():
+    """``run_query_rows`` and ``run_query_gated`` on one run equal the JAX
+    functions' outputs, mask and clipped gathers included, where the bloom
+    may hold a queried row; where it holds none, the port's search still
+    ran (the gate does not skip it) and ``any_hit`` is false in both."""
+    import jax.numpy as jnp
+    import torch
+    from repro.db.lsm import engine as jeng
+    from repro.db.lsm.bloom import bloom_build as jax_bloom
+    from repro_torch.db.lsm.bloom import bloom_build
+    rng = np.random.default_rng(3)
+    cap, block, words = 64, 4, 8
+    rows = np.full(cap, I32_MAX, np.int32)
+    rows[:40] = np.sort(rng.integers(0, 30, 40))
+    cols = np.arange(cap, dtype=np.int32)
+    vals = rng.normal(size=cap).astype(np.float32)
+    fence = rows[::block].copy()
+    q = np.asarray([0, 5, 11, 29, 31], np.int32)
+    t = {k: torch.as_tensor(x) for k, x in
+         dict(rows=rows, cols=cols, vals=vals, fence=fence, q=q).items()}
+    bloom = bloom_build(t["rows"], words, 3)
+    np.testing.assert_array_equal(  # the port keeps the words as int32
+        bloom.numpy().view(np.uint32),
+        np.asarray(jax_bloom(jnp.asarray(rows), words, 3)))
+    for max_return in (2, 8):
+        got = teng.run_query_rows(t["rows"], t["cols"], t["vals"],
+                                  t["fence"], t["q"], max_return, block)
+        want = jeng.run_query_rows(jnp.asarray(rows), jnp.asarray(cols),
+                                   jnp.asarray(vals), jnp.asarray(fence),
+                                   jnp.asarray(q), max_return, block)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+        hit, *gated = teng.run_query_gated(
+            t["rows"], t["cols"], t["vals"], t["fence"], bloom, t["q"],
+            max_return, block, 3)
+        assert bool(hit)
+        for g, w in zip(gated, want):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    absent = torch.as_tensor(np.asarray([1 << 20, (1 << 20) + 7], np.int32))
+    miss = bloom_build(torch.full((cap,), I32_MAX, dtype=torch.int32),
+                       words, 3).numpy()  # an empty run's filter
+    hit, c_o, _, ok, cnt = teng.run_query_gated(
+        t["rows"], t["cols"], t["vals"], t["fence"], torch.as_tensor(miss),
+        absent, 4, block, 3)
+    j_hit = jeng.run_query_gated(jnp.asarray(rows), jnp.asarray(cols),
+                                 jnp.asarray(vals), jnp.asarray(fence),
+                                 jnp.asarray(miss.view(np.uint32)),
+                                 jnp.asarray(absent.numpy()),
+                                 4, block, 3)[0]
+    assert not bool(hit) and not bool(j_hit)
+    assert c_o.shape == (2, 4) and int(cnt.sum()) == 0 and not ok.any()
+
+
+def test_deferred_options_raise(tmp_path):
+    from repro.db.kvstore import ShardedTable as JaxStore
+    from repro_torch.db import dbsetup
+    from repro_torch.db.lsm import recover
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+        TorchTable("deferred", device="cpu", dynamic_tablets=True)
+    # a format-3 manifest (a dynamic tablet map) from the JAX package
+    d = str(tmp_path / "fmt3")
+    js = JaxStore("fmt3", num_shards=2, capacity_per_shard=256, batch_cap=32,
+                  id_capacity=64, memtable_cap=16, wal_dir=d,
+                  dynamic_tablets=True)
+    js.insert(np.arange(8, dtype=np.int32), np.zeros(8, np.int32),
+              np.ones(8, np.float32))
+    js.checkpoint()
+    js.close()
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+        recover(d, device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+        recover(d, tablet_filter=[0], device="cpu")
+    # the options that waited for items 3 and 5 now work
+    db = dbsetup("deferred_db", dict(num_shards=2, capacity_per_shard=256,
+                                     batch_cap=32, id_capacity=64),
+                 wal_root=str(tmp_path / "root"), device="cpu")
+    t = db["deferred_t"]
+    t.put_triple(np.asarray(["a"], object), np.asarray(["b"], object),
+                 np.asarray([1.0]))
+    assert db.wal_root == str(tmp_path / "root")
+    assert t.store._wal is not None and t.store.fused_reads
+    assert TorchTable("deferred_pr", device="cpu",
+                      fused_reads=False).fused_reads is False
 
 
 def test_engine_schema_and_health_gauges():
