@@ -6,7 +6,9 @@ calls — ``dbsetup`` → bind the ``Tedge``/``TedgeT`` pair → ``put`` →
 row, column and range reads → ``delete`` — on a Graph500 graph, then the
 D4M 2.0 schema with its degree table and the Fig. 4 reads, the legacy
 single-run engine, Graphulo's SpMV, the per-run read path, a crash and
-recovery of the pair from its write-ahead log, and the LM serving path
+recovery of the pair from its write-ahead log, dynamic tablets under a
+Zipf stream (with a crash and a per-tablet recovery) and the store-backed
+token pipeline, and the LM serving path
 (``launch/serve.py`` → ``Engine`` → prefill / decode); builds the hand-written CUDA
 kernels from ``src/repro_torch/csrc``, shows that each path launched its
 kernels, and holds each kernel against its plain PyTorch version at the
@@ -61,6 +63,29 @@ Phases (each raises on failure):
      batches before it, and a write after that recovery survives a second
      one. The WAL and snapshot sizes, the put with the WAL, the
      checkpoint and the recovery (load, then suffix replay) are timed;
+  8. dynamic tablets and the token store on the card. 8a: a transpose pair
+     on 4 shards with dynamic tablets (combiner ``last``, ids 2^16,
+     memtable 2^16, capacity 2^20 a shard) takes 1,048,576 triples (rows
+     Zipf(1.1) mod 2^16, columns uniform over 4,096) in 16 batches of
+     65,536 with a rebalance round after every second batch, and a
+     never-split twin on the plain path (no hand kernel, fed and read
+     before the pair, so the pair's launches are its own) the same
+     stream: the map split and moved tablets,
+     the full scans, a point read of 1,024 ids >= 1,024, the hot row range
+     [0, 1,024) and the whole id space (in order) and a column read
+     through the sibling equal the twin's, the sibling is the exact
+     transpose, and on a fresh window of 65,536 Zipf ids the balance from
+     the map is <= 2.0 and below the static one. A writer process (this
+     script with ``--tablet-child``) reruns the stream with a WAL: half,
+     a checkpoint, the rest with rebalance rounds, a merge, then
+     ``os._exit(1)``; the card recovers it to the writer's map and the
+     twin's reads, and with ``tablet_filter`` for the suffix's hottest
+     tablet and one minted after the checkpoint to a host replay of the
+     snapshot plus that tablet's frames. 8b: ``TokenStore`` ingests 4,096
+     documents of 512 tokens (vocabulary 49,152) and 16 seeded
+     ``sample_batch(8, 512)`` draws equal the same draws over the host
+     corpus. Splits, moves, migrations, balances and tokens per second
+     are logged;
   6. LM serving: smollm-135m at full width (30 layers, d_model 576, 9
      heads over 3 KV heads, hd 64, vocabulary 49,152, tied embeddings) in
      bf16 from the port's seeded init, on the card: run a is
@@ -72,7 +97,7 @@ Phases (each raises on failure):
      prefill equals the same weights' prefill on the CPU within 2e-2, and
      prefill-then-decode equals the full prefill within 5e-2 (bf16);
   5. each kernel against its plain version on the card at every input
-     each path gave it (recorded in phases 3, 4b, 4c, 4d, 7 and 6: per
+     each path gave it (recorded in phases 3, 4b, 4c, 4d, 7, 8 and 6: per
      geometry for the LSM kernels and flash attention, per call for the
      1-D rank, the tablet gather, segment sum and SpMVs), ranks, merged
      rows, read entries and degree sums exactly equal (the merge-path
@@ -220,14 +245,24 @@ def bound_ms(n_bytes, n_ops, peak_ops=PEAK_OPS_PER_S):
 
 def same_triples(a, b, what):
     """Two Assocs hold the same (row, col, value) triples."""
+    same_arrays(a.triples(), b.triples(), what)
+
+
+def same_arrays(got, want, what, ordered=False):
+    """(rows, cols, vals) exactly equal: as sets of triples, or in order."""
     import numpy as np
-    ta, tb = a.triples(), b.triples()
-    if len(ta[0]) != len(tb[0]):
-        raise AssertionError(f"{what}: {len(ta[0])} vs {len(tb[0])} entries")
-    oa = np.lexsort((ta[1], ta[0]))
-    ob = np.lexsort((tb[1], tb[0]))
-    for x, y, name in zip(ta, tb, ("rows", "cols", "vals")):
-        if not np.array_equal(np.asarray(x)[oa], np.asarray(y)[ob]):
+    got = [np.asarray(x) for x in got]
+    want = [np.asarray(x) for x in want]
+    if len(got[0]) != len(want[0]):
+        raise AssertionError(f"{what}: {len(got[0])} vs {len(want[0])} "
+                             f"entries")
+    if not ordered:
+        og = np.lexsort((got[1], got[0]))
+        ow = np.lexsort((want[1], want[0]))
+        got = [x[og] for x in got]
+        want = [x[ow] for x in want]
+    for x, y, name in zip(got, want, ("rows", "cols", "vals")):
+        if not np.array_equal(x, y):
             raise AssertionError(f"{what}: {name} differ")
 
 
@@ -653,16 +688,10 @@ def crash_recovery(graph, cap, reads, put_s, args, smi, stash):
             np.searchsorted(verts, c[:keep]).astype(np.int32),
             np.asarray(v[:keep], np.float32))
 
-    def same_ids(got, want, what):
-        og, ow = np.lexsort(got[:2][::-1]), np.lexsort(want[:2][::-1])
-        for x, y, name in zip(got, want, ("rows", "cols", "vals")):
-            if not np.array_equal(np.asarray(x)[og], np.asarray(y)[ow]):
-                raise AssertionError(f"phase 7 {what}: {name} differ")
-
     DB, E = recover_connector(str(cut_dir), ("Tedge", "TedgeT"))
-    same_ids(E.table.store.scan(), want, "torn tail")
-    same_ids(E.table.store.t_store.scan(), (want[1], want[0], want[2]),
-             "torn tail, sibling")
+    same_arrays(E.table.store.scan(), want, "phase 7 torn tail")
+    same_arrays(E.table.store.t_store.scan(), (want[1], want[0], want[2]),
+                "phase 7 torn tail, sibling")
     E.put_triple(np.asarray(["after_the_cut"], object),
                  np.asarray([verts[0]], object), np.asarray([7.0]))
     delete(E)  # closes the WAL: the second crash
@@ -1021,6 +1050,406 @@ def serving(seed, stash, profile_dir=None):
     return stats, launches
 
 
+# ------------------------------------------------------------------ phase 8
+# 8a's stream: Graph500 scale 16's edge count (16 batches of 65,536) of
+# Zipf(1.1) rows over 2^16 ids, columns uniform over 4,096 (a hot row holds
+# at most 4,096 entries), values normal; a rebalance round after every
+# second batch. 8b's corpus: 4,096 documents of 512 tokens over smollm-135m's
+# 49,152-token vocabulary
+P8 = dict(ids=1 << 16, cols=4096, batch=1 << 16, batches=16, zipf=1.1,
+          capacity=1 << 20, memtable=1 << 16, rebalance_every=2,
+          point_ids=1024, hot_ids=1024, col_ids=64, fresh=1 << 16,
+          docs=4096, doc_len=512, vocab=49152, draws=16, draw_batch=8)
+TABLETS_DIR = ROOT / "build" / "phase8"
+
+
+def tablet_stream(seed):
+    """8a's (rows, cols, vals), from ``seed``."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    n = P8["batch"] * P8["batches"]
+    rows = (rng.zipf(P8["zipf"], n) % P8["ids"]).astype(np.int32)
+    cols = rng.integers(0, P8["cols"], n).astype(np.int32)
+    vals = rng.normal(size=n).astype(np.float32)
+    return rows, cols, vals
+
+
+def tablet_store(name, dynamic, device="cuda", use_pallas=True, **kw):
+    """A transpose pair on 4 shards, combiner ``last``, with the hand
+    kernels (or their plain versions); ``dynamic`` runs the row table on
+    dynamic tablets."""
+    from repro_torch.db import ShardedTable
+    return ShardedTable(
+        name, num_shards=4, capacity_per_shard=P8["capacity"],
+        batch_cap=P8["batch"], id_capacity=P8["ids"],
+        memtable_cap=P8["memtable"], combiner="last", engine="lsm",
+        use_pallas=use_pallas, transpose=True, dynamic_tablets=dynamic,
+        device=device, **kw)
+
+
+def last_wins(r, c, v):
+    """Host last-wins combine of a triple stream, sorted by (row, col)."""
+    import numpy as np
+    key = (r.astype(np.int64) << 32) | c.astype(np.int64)
+    _, first = np.unique(key[::-1], return_index=True)
+    keep = len(key) - 1 - first
+    return r[keep], c[keep], v[keep]
+
+
+class MigrationClock:
+    """Times each migration of a store (flush, host scan of the source
+    shard, clear, re-insert, flush) on the synchronised host clock."""
+
+    def __init__(self, store):
+        self.fn = store._migrate_shard
+        self.log = []  # [source shard, seconds]
+        store._migrate_shard = self
+
+    def __call__(self, src):
+        t0 = clock()
+        self.fn(src)
+        self.log.append([int(src), clock() - t0])
+
+
+def tablet_queries(seed):
+    """8a's reads, drawn from ``seed``: the full scan of both tables, a
+    point read of ids >= 1,024 (rows of fewer than 256 entries), the hot
+    row range and the whole id space, and a column read through the
+    sibling. Returns {read: fn(store) -> (rows, cols, vals)}."""
+    import numpy as np
+    rng = np.random.default_rng(seed + 8)
+    q = np.sort(rng.choice(np.arange(P8["hot_ids"], P8["ids"]),
+                           P8["point_ids"], replace=False)).astype(np.int32)
+    cq = np.sort(rng.choice(P8["cols"], P8["col_ids"],
+                            replace=False)).astype(np.int32)
+    return {
+        "scan": lambda s: s.scan(),
+        "sibling_scan": lambda s: s.t_store.scan(),
+        "point_read": lambda s: s.query_rows(q, max_return=256),
+        "hot_range": lambda s: s.scan_range(0, P8["hot_ids"]),
+        "full_range": lambda s: s.scan_range(0, P8["ids"]),
+        "col_read": lambda s: s.query_cols(cq, max_return=256),
+    }
+
+
+def tablet_reads(store, want, seed, what):
+    """``tablet_queries(seed)`` of ``store``, each equal to ``want`` (the
+    never-split twin's; the ranges in order) and the sibling the exact
+    transpose. Returns {read: (seconds, launches)}."""
+    import numpy as np
+    from repro_torch.kernels import LAUNCHES
+    out = {}
+    for name, read in tablet_queries(seed).items():
+        before = dict(LAUNCHES)
+        got, t = timed_call(lambda: read(store))
+        out[name] = (t, {k: v - before[k] for k, v in LAUNCHES.items()
+                         if v - before[k]})
+        same_arrays(got, want[name], f"{what} {name} vs the twin",
+                    ordered=name.endswith("range"))
+        if name == "scan":
+            r, c, v = got
+            same_arrays(store.t_store.scan(), (c, r, v),
+                        f"{what}: the sibling is not the transpose")
+        if name == "point_read":
+            top = int(np.bincount(got[0]).max()) if len(got[0]) else 0
+            if top >= 256:
+                raise AssertionError(f"{what}: a point-read row holds {top}")
+    return out
+
+
+def dynamic_tablets(seed, smi, stash, device="cuda"):
+    """Phase 8a: the Zipf stream into a dynamic-tablet pair with rebalance
+    rounds; every read equals its never-split twin's and the card's
+    balance on a fresh window is <= 2.0 and below the static one. The
+    twin runs the plain versions of the kernels and is fed and read before
+    the pair, outside the counted block. Returns (launches, the twin's
+    reads)."""
+    import numpy as np
+    from repro_torch.db.kvstore import shard_of
+
+    rows, cols, vals = tablet_stream(seed)
+    twin = tablet_store("p8_twin", False, device, use_pallas=False)
+    dyn = tablet_store("p8_dyn", True, device)
+    for st in (twin, dyn):
+        st.warmup()
+        if st.device.type != device:
+            raise AssertionError(f"phase 8a: a store on {st.device}")
+    B = P8["batch"]
+    put = {"dynamic_s": 0.0, "rebalance_s": 0.0, "twin_s": 0.0}
+    for i in range(P8["batches"]):
+        sl = slice(i * B, (i + 1) * B)
+        put["twin_s"] += timed_call(
+            lambda: twin.insert(rows[sl], cols[sl], vals[sl]))[1]
+    want = {name: read(twin) for name, read in tablet_queries(seed).items()}
+    twin.close()
+    mig = MigrationClock(dyn)
+    rounds = []
+    with kernel_run(stash) as launches:
+        for i in range(P8["batches"]):
+            sl = slice(i * B, (i + 1) * B)
+            put["dynamic_s"] += timed_call(
+                lambda: dyn.insert(rows[sl], cols[sl], vals[sl]))[1]
+            if (i + 1) % P8["rebalance_every"] == 0:
+                n0 = len(mig.log)
+                got, t = timed_call(dyn.maybe_rebalance)
+                put["rebalance_s"] += t
+                rounds.append(dict(got, after_batch=i + 1, seconds=t,
+                                   tablets=dyn.tablet_map.n,
+                                   migrations=mig.log[n0:]))
+        reads = tablet_reads(dyn, want, seed, "phase 8a")
+    tm = dyn.tablet_map
+    splits, moves, merges = (int(c.value) for c in (
+        dyn._c_tablet_splits, dyn._c_tablet_moves, dyn._c_tablet_merges))
+    if tm.n <= 4 or splits <= 0 or moves <= 0:
+        raise AssertionError(f"phase 8a: tablets {tm.n}, splits {splits}, "
+                             f"moves {moves}")
+    if not ((tm.splits > 0) & (tm.splits < P8["hot_ids"])).any():
+        raise AssertionError(f"phase 8a: no split inside the hot range: "
+                             f"{tm.splits.tolist()}")
+    fresh = (np.random.default_rng(seed + 9).zipf(P8["zipf"], P8["fresh"])
+             % P8["ids"]).astype(np.int64)
+    per = np.bincount(tm.owner_of(fresh), minlength=4)
+    static = np.bincount(shard_of(fresh, 4, P8["ids"]), minlength=4)
+    balance = float(per.max() / per.mean())
+    static_balance = float(static.max() / static.mean())
+    if not (balance <= 2.0 and balance < static_balance):
+        raise AssertionError(f"phase 8a: balance {balance} (static "
+                             f"{static_balance}): {tm.to_manifest()}")
+    for k in ("merge_path_rank", "rank_batched", "row_merge"):
+        if launches[k] <= 0:
+            raise AssertionError(f"phase 8a: kernel {k} never launched")
+    log(f"phase 8a ({smi}): {len(rows)} triples in {P8['batches']} batches "
+        f"of {B}, {len(rounds)} rebalance rounds: {splits} splits, {moves} "
+        f"moves, {merges} merges, {tm.n} tablets; put {put['dynamic_s']:.6f}"
+        f" s + rebalancing {put['rebalance_s']:.6f} s (the twin's put on "
+        f"the plain path {put['twin_s']:.6f} s); migrations {len(mig.log)}, "
+        f"{sum(t for _, t in mig.log):.6f} s")
+    log(f"phase 8a ({smi}): balance on a fresh window of {P8['fresh']} Zipf "
+        f"ids {balance:.6f} (per shard {per.tolist()}), static "
+        f"{static_balance:.6f} (per shard {static.tolist()}); recorded-load "
+        f"balance {tm.shard_balance():.6f}")
+    log("phase 8a rounds: " + json.dumps(rounds))
+    log(f"phase 8a ({smi}) reads, equal to the twin's (seconds, launches): "
+        + json.dumps(reads))
+    log("phase 8a map: " + json.dumps(tm.to_manifest()))
+    dyn.close()
+    return launches, want
+
+
+def tablet_child(wal_dir, seed):
+    """Phase 8a's writer, a process of its own: the dynamic-tablet pair
+    with a WAL puts the first half of the stream, checkpoints, puts the
+    rest with a rebalance round after every second batch, merges one
+    adjacent same-owner pair if one exists, prints its map and timings as
+    one JSON line and dies with ``os._exit(1)``."""
+    import os
+    rows, cols, vals = tablet_stream(seed)
+    st = tablet_store("p8_wal", True, wal_dir=str(wal_dir))
+    st.warmup()
+    B, half = P8["batch"], P8["batches"] // 2
+    t = {"put_s": 0.0, "rebalance_s": 0.0}
+    for i in range(P8["batches"]):
+        if i == half:
+            t["checkpoint_s"] = timed_call(st.checkpoint)[1]
+        sl = slice(i * B, (i + 1) * B)
+        t["put_s"] += timed_call(
+            lambda: st.insert(rows[sl], cols[sl], vals[sl]))[1]
+        if i >= half and (i + 1) % P8["rebalance_every"] == 0:
+            t["rebalance_s"] += timed_call(st.maybe_rebalance)[1]
+    tm = st.tablet_map
+    merged = None
+    for i in range(tm.n - 1):
+        if tm.owners[i] == tm.owners[i + 1]:
+            merged = int(tm.tablet_ids[i])
+            st.merge_tablet(merged)
+            break
+    print(json.dumps(dict(t, map=tm.to_manifest(), merged=merged,
+                          first_half=half * B)), flush=True)
+    os._exit(1)
+
+
+def frame_oracle(wal, man, base, tablets=None):
+    """Host replay of a format-3 directory: the snapshot's map and
+    triples (``base``, last-wins), then the log's frames from the
+    manifest's offset — meta frames onto the map, data frames (of
+    ``tablets`` only, when given) onto the triples. No engine."""
+    import numpy as np
+    from repro_torch.db.lsm import WriteAheadLog
+    from repro_torch.db.tablets import TabletMap
+    tm = TabletMap.from_manifest(man["tablets"])
+    parts = [base]
+    for item in WriteAheadLog.replay_full(wal, start=man["wal_offset"]):
+        if item[0] == "meta":
+            op = item[1]
+            if op["op"] == "split":
+                tm.split(op["tablet"], op["key"], new_id=op["new"])
+            elif op["op"] == "move":
+                tm.move(op["tablet"], op["to"])
+            else:
+                tm.merge(op["tablet"])
+            continue
+        _, tid, r, c, v, pair = item
+        if not pair or tid is None:
+            raise AssertionError("phase 8a: an untagged or unpaired frame")
+        if tablets is None or tid in tablets:
+            parts.append((r, c, v))
+    return tm, last_wins(*(np.concatenate([p[i] for p in parts])
+                           for i in range(3)))
+
+
+def tablet_recovery(seed, smi, stash, want, device="cuda"):
+    """Phase 8a's recovery: the writer runs in a child process and
+    crashes; the parent recovers on the card (the map equals the writer's,
+    the reads ``want``, the never-split twin's), then recovers copies with
+    ``tablet_filter`` for the hottest tablet of the log's suffix and one
+    minted after the checkpoint, each held against ``frame_oracle``. Returns the launches
+    of the recoveries and their reads."""
+    import shutil
+    from repro_torch.db.lsm import WriteAheadLog, recover
+
+    shutil.rmtree(TABLETS_DIR, ignore_errors=True)
+    TABLETS_DIR.mkdir(parents=True)
+    wal_dir = TABLETS_DIR / "p8_wal"
+    t0 = time.perf_counter()
+    child = subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--tablet-child",
+         str(wal_dir), "--seed", str(seed)],
+        capture_output=True, text=True, timeout=900)
+    t_child = time.perf_counter() - t0
+    lines = [x for x in child.stdout.splitlines() if x.startswith("{")]
+    if child.returncode != 1 or not lines:
+        raise AssertionError(
+            f"phase 8a: the writer exited {child.returncode}: "
+            f"{child.stdout[-2000:]} {child.stderr[-4000:]}")
+    wrote = json.loads(lines[-1])
+    man = json.loads((wal_dir / "MANIFEST.json").read_text())
+    wal = str(wal_dir / "wal.log")
+    per_tablet, metas = {}, []
+    for item in WriteAheadLog.replay_full(wal, start=man["wal_offset"]):
+        if item[0] == "meta":
+            metas.append(item[1]["op"])
+        else:
+            per_tablet[item[1]] = per_tablet.get(item[1], 0) + len(item[2])
+    if man["format"] != 3 or "split" not in metas or "move" not in metas:
+        raise AssertionError(f"phase 8a: manifest format {man['format']}, "
+                             f"meta frames {metas}")
+    hot = max(per_tablet, key=per_tablet.get)
+    minted = [t for t in per_tablet if t >= 4 and t != hot]
+    if not minted:
+        raise AssertionError(f"phase 8a: no tablet minted after the "
+                             f"checkpoint wrote data: {per_tablet}")
+    minted = max(minted, key=per_tablet.get)
+    copies = {}
+    for tid in (hot, minted):
+        copies[tid] = TABLETS_DIR / f"filter_{tid}"
+        shutil.copytree(wal_dir, copies[tid])
+    log(f"phase 8a ({smi}): the writer crashed after {t_child:.3f} s (put "
+        f"{wrote['put_s']:.6f} s, rebalancing {wrote['rebalance_s']:.6f} s, "
+        f"checkpoint {wrote['checkpoint_s']:.6f} s, merged tablet "
+        f"{wrote['merged']}); WAL {(wal_dir / 'wal.log').stat().st_size / 1e6:.6f}"
+        f" MB, snapshot {(wal_dir / 'snapshot.npz').stat().st_size / 1e6:.6f} "
+        f"MB; meta frames after the checkpoint {metas}")
+
+    rows, cols, vals = tablet_stream(seed)
+    h = wrote["first_half"]
+    base = last_wins(rows[:h], cols[:h], vals[:h])
+    out = {}
+    with kernel_run(stash) as launches:
+        store, t = timed_call(lambda: recover(str(wal_dir), device=device))
+        if store.device.type != device or not store.use_pallas:
+            raise AssertionError(f"phase 8a: recovered on {store.device}, "
+                                 f"use_pallas={store.use_pallas}")
+        if store.tablet_map.to_manifest() != wrote["map"]:
+            raise AssertionError("phase 8a: the recovered map differs from "
+                                 "the writer's")
+        out["recover_s"] = t
+        out["reads"] = tablet_reads(store, want, seed, "phase 8a recovered")
+        store.close()
+        for tid, d in copies.items():
+            st, t = timed_call(lambda: recover(str(d), tablet_filter=[tid],
+                                               device=device))
+            tm, kept = frame_oracle(wal, man, base, {tid})
+            if st.tablet_map.to_manifest() != tm.to_manifest() or \
+                    tm.to_manifest() != wrote["map"]:
+                raise AssertionError(f"phase 8a: tablet {tid}'s recovered "
+                                     f"map differs")
+            r, c, v = st.scan()
+            same_arrays((r, c, v), kept, f"phase 8a tablet_filter=[{tid}]")
+            same_arrays(st.t_store.scan(), (kept[1], kept[0], kept[2]),
+                        f"phase 8a tablet_filter=[{tid}] sibling")
+            out[f"filter_{tid}"] = {"recover_s": t,
+                                    "suffix_entries": per_tablet[tid],
+                                    "nnz": len(r)}
+            st.close()
+    _, oracle = frame_oracle(wal, man, base)
+    same_arrays(want["scan"], oracle,
+                "phase 8a: the twin vs the host oracle")
+    for k in ("merge_path_rank", "rank_batched", "row_merge"):
+        if launches[k] <= 0:
+            raise AssertionError(f"phase 8a: kernel {k} never launched in "
+                                 f"the recoveries")
+    log(f"phase 8a ({smi}) recovery: " + json.dumps(out))
+    shutil.rmtree(TABLETS_DIR, ignore_errors=True)
+    return launches
+
+
+def host_batch(docs, batch, seq_len, rng):
+    """``TokenStore.sample_batch``'s draw over the host corpus."""
+    import numpy as np
+    out = np.zeros((batch, seq_len), np.int32)
+    for i, d in enumerate(rng.integers(0, len(docs), batch)):
+        toks = docs[int(d)]
+        if len(toks) >= seq_len:
+            s = rng.integers(0, len(toks) - seq_len + 1)
+            out[i] = toks[s:s + seq_len]
+        else:
+            out[i] = np.tile(toks, -(-seq_len // len(toks)))[:seq_len]
+    return out
+
+
+def token_pipeline(seed, smi, stash, device="cuda"):
+    """Phase 8b: ``TokenStore`` on the card ingests the synthetic corpus;
+    seeded ``sample_batch`` draws equal the same draws over the host
+    corpus, exactly. Returns the launches."""
+    import numpy as np
+    from repro_torch.data import TokenStore, synthetic_corpus
+
+    docs, t_corpus = timed_call(lambda: synthetic_corpus(
+        P8["docs"], P8["doc_len"], P8["vocab"], seed=seed))
+    ts = TokenStore(num_shards=4, capacity_per_shard=P8["capacity"],
+                    max_docs=P8["docs"], use_pallas=True, device=device)
+    if ts.store.device.type != device:
+        raise AssertionError(f"phase 8b: the store is on {ts.store.device}")
+    ts.store.warmup()
+    n_tok = P8["docs"] * P8["doc_len"]
+    with kernel_run(stash) as launches:
+        _, t_ingest = timed_call(lambda: ts.ingest(docs))
+        t_draw = 0.0
+        for k in range(P8["draws"]):
+            got, t = timed_call(lambda: ts.sample_batch(
+                P8["draw_batch"], P8["doc_len"],
+                np.random.default_rng(seed + 100 + k)))
+            t_draw += t
+            want = host_batch(docs, P8["draw_batch"], P8["doc_len"],
+                              np.random.default_rng(seed + 100 + k))
+            if not np.array_equal(got, want):
+                raise AssertionError(f"phase 8b: batch {k} differs from "
+                                     f"the host corpus")
+    for k in ("rank_batched", "row_merge"):  # the fused document reads
+        if launches[k] <= 0:
+            raise AssertionError(f"phase 8b: kernel {k} never launched")
+    drawn = P8["draws"] * P8["draw_batch"] * P8["doc_len"]
+    log(f"phase 8b ({smi}): corpus of {P8['docs']} x {P8['doc_len']} tokens "
+        f"(vocabulary {P8['vocab']}) built in {t_corpus:.3f} s on the host; "
+        f"ingest {t_ingest:.6f} s ({n_tok / t_ingest:.1f} tokens/s), "
+        f"{P8['draws']} batches of {P8['draw_batch']} x {P8['doc_len']} "
+        f"{t_draw:.6f} s ({drawn / t_draw:.1f} tokens/s), every batch equal "
+        f"to the host corpus'; launches " + json.dumps(
+            {k: v for k, v in launches.items() if v}))
+    ts.store.close()
+    return launches
+
+
 # ------------------------------------------------------------------ phase 5
 def input_groups(inputs):
     """Group recorded inputs as 'path shapes kw=...': the decode steps'
@@ -1047,7 +1476,7 @@ def input_groups(inputs):
 
 def kernel_checks(stash, launches):
     """Each kernel against its plain version at every input each path gave
-    it (``stash[path][kernel]``, recorded in phases 3, 4b, 4c, 4d, 7 and 6:
+    it (``stash[path][kernel]``, recorded in phases 3, 4b, 4c, 4d, 7, 8 and 6:
     one per geometry for #1-#3 and #7, every call for #4-#6 and the
     tablet gather; a decode step's position is part of #7's geometry;
     ``stash[path]["tablet_read"]`` the 4c reads). ``launches[path]`` are
@@ -1614,6 +2043,9 @@ def main(argv=None):
     ap.add_argument("--crash-child", metavar="DIR", type=Path,
                     help="run only phase 7's writer into DIR, which then "
                          "dies without closing anything (phase 7 starts it)")
+    ap.add_argument("--tablet-child", metavar="DIR", type=Path,
+                    help="run only phase 8a's writer into DIR, which then "
+                         "dies without closing anything (phase 8a starts it)")
     args = ap.parse_args(argv)
 
     import torch
@@ -1630,6 +2062,8 @@ def main(argv=None):
         return 2
     if args.crash_child is not None:
         crash_child(args.crash_child, args.scale, args.seed)
+    if args.tablet_child is not None:
+        tablet_child(args.tablet_child, args.seed)
     t_start = time.perf_counter()
 
     # 1. device
@@ -1655,7 +2089,8 @@ def main(argv=None):
         log(f"cold run (use_pallas={use_pallas}): {json.dumps(cold)}")
     # each path's recorded kernel inputs and launch counts, for phase 5
     stash = {p: {} for p in ("listing1", "fig4", "graphulo", "single",
-                             "recover", "serve_a", "serve_b")}
+                             "recover", "tablets", "tablets_recover",
+                             "tokens", "serve_a", "serve_b")}
     launches = {}
     reads, stats, times, launches["listing1"] = listing1(
         graph, True, cap, stash["listing1"])
@@ -1744,6 +2179,16 @@ def main(argv=None):
     # 7. a real crash of the pair and its recovery on the card
     launches["recover"] = crash_recovery(graph, cap, reads, times["put_s"],
                                          args, smi, stash["recover"])
+
+    # 8. dynamic tablets (a Zipf stream, its crash and recovery) and the
+    # token store, on the card
+    t8 = time.perf_counter()
+    launches["tablets"], twin_reads = dynamic_tablets(args.seed, smi,
+                                                      stash["tablets"])
+    launches["tablets_recover"] = tablet_recovery(
+        args.seed, smi, stash["tablets_recover"], twin_reads)
+    launches["tokens"] = token_pipeline(args.seed, smi, stash["tokens"])
+    log(f"phase 8: {time.perf_counter() - t8:.3f} s")
 
     # 6. LM serving at full width
     serve_stats, serve_launches = serving(args.seed, stash, args.profile)

@@ -402,8 +402,10 @@ class DBserver:
     def metrics(self) -> dict:
         """Aggregated observability snapshot of every live bound table:
         per-shard and per-table counters, per-op latency percentiles, WAL
-        append/fsync totals, derived health gauges, plus a cross-table
-        aggregate. JSON-ready."""
+        append/fsync totals, derived health gauges, a ``"tablets"``
+        section for each table with dynamic tablets (count, balance,
+        splits, moves, owners, boundaries), plus a cross-table aggregate.
+        JSON-ready."""
         for name, t in self.tables.items():
             store = getattr(t, "store", None)
             if store is not None and not store._closed:
@@ -489,6 +491,16 @@ class DBserver:
                 tbl["transpose"] = {
                     "sibling": store.t_store.name,
                     "counters": store.t_store.engine_stats(),
+                }
+            tm = store.tablet_map
+            if tm is not None:
+                tbl["tablets"] = {
+                    "count": tm.n,
+                    "balance": gauge_val("lsm_tablet_balance", table=name),
+                    "splits": ctr_sum("lsm_tablet_splits", [name]),
+                    "moves": ctr_sum("lsm_tablet_moves", [name]),
+                    "owners": [int(o) for o in tm.owners],
+                    "boundaries": [int(b) for b in tm.splits],
                 }
             out["tables"][name] = tbl
         agg_counters: dict = {}

@@ -18,7 +18,10 @@ versioning, sum/min/max combiners — ``db.iterators``). ``ShardedTable``
 keeps S shards' state stacked [S, ...] on one device. With ``wal_dir`` set
 (LSM engine), every batch is journaled to a write-ahead log before it
 reaches the memtable, ``checkpoint()`` snapshots the runs, and
-``db.lsm.recover`` rebuilds the store after a crash.
+``db.lsm.recover`` rebuilds the store after a crash. With
+``dynamic_tablets=True`` (LSM engine) a ``db.tablets.TabletMap`` replaces
+the static ``shard_of`` routing: hot row ranges split at fence-derived
+median keys and tablets migrate between shards to balance a skewed load.
 """
 from __future__ import annotations
 
@@ -37,6 +40,12 @@ from ..kernels.sorted_search import sorted_search, tablet_read
 from ..obs import default_registry, default_tracer
 
 COMBINERS = ("last", "sum", "min", "max")
+# maybe_rebalance's policy, the JAX package's defaults: split a tablet whose
+# load exceeds SPLIT_THRESHOLD times the mean per-shard load, up to
+# TABLETS_PER_SHARD * S tablets, and act only once MIN_LOAD has been recorded
+SPLIT_THRESHOLD = 1.5
+TABLETS_PER_SHARD = 8
+MIN_LOAD = 1.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,8 +58,12 @@ class StoreConfig:
     store maintain its transpose ``A^T`` as an engine-level sibling shard
     set (``ShardedTable.t_store``): every ingest batch lands in both, and
     column selectors become fence-rangeable scans on the sibling.
-    ``use_pallas`` selects the hand kernels. The device is not a field:
-    it is a keyword of the constructors.
+    ``dynamic_tablets=True`` routes rows through a mutable ``TabletMap``
+    (``split_tablet`` / ``move_tablet`` / ``merge_tablet`` /
+    ``maybe_rebalance``); the map rides in the snapshot manifest (format
+    3) and its mutations journal as WAL meta frames. ``use_pallas``
+    selects the hand kernels. The device is not a field: it is a keyword
+    of the constructors.
     """
     num_shards: int = 4
     capacity_per_shard: int = 1 << 18
@@ -217,19 +230,6 @@ def _memtable_append_flat(mem_r, mem_c, mem_v, counts, dest, slot, r, c, v):
     return counts + np.bincount(dsafe[valid], minlength=s).astype(counts.dtype)
 
 
-# what each deferred option waits for (ROADMAP, Queue 1)
-_LATER = {
-    "dynamic_tablets": "Queue 1 item 7 (dynamic tablets)",
-    "manifest format 3": "Queue 1 item 7 (dynamic tablets)",
-    "tablet_filter": "Queue 1 item 7 (dynamic tablets)",
-}
-
-
-def _not_yet(option: str):
-    return NotImplementedError(
-        f"{option} is not ported yet: see ROADMAP.md, {_LATER[option]}")
-
-
 class ShardedTable:
     """Stacked-tablet driver: S tablet servers' state on one device.
 
@@ -245,6 +245,12 @@ class ShardedTable:
       * ``engine="single"`` — the legacy single-sorted-run tablet: every
         flush merges the memtable into one O(capacity) run; reads flush
         the queried shards first.
+
+    With ``dynamic_tablets=True`` rows route through ``tablet_map``
+    (``db.tablets.TabletMap``), which starts as the exact ``shard_of``
+    partition; ``split_tablet``, ``move_tablet``, ``merge_tablet`` and
+    ``maybe_rebalance`` change it, and a move migrates the source shard's
+    entries on the device.
 
     ``device`` (default ``"cuda"``) holds the memtables and runs; without a
     card, construction raises unless ``device="cpu"`` is given.
@@ -282,8 +288,6 @@ class ShardedTable:
             raise ValueError("transpose pairs require engine='lsm'")
         if cfg.dynamic_tablets and cfg.engine != "lsm":
             raise ValueError("dynamic_tablets requires engine='lsm'")
-        if cfg.dynamic_tablets:
-            raise _not_yet("dynamic_tablets")
         self.device = resolve_device(device)
         self.config = cfg
         self.name = name
@@ -305,7 +309,10 @@ class ShardedTable:
             cfg.batch_cap * 4, min(cfg.capacity_per_shard, 1 << 18))
         self._closed = False
         # engine-maintained transpose sibling: rows and cols share one id
-        # space (one keydict), so A^T routes through the same shard_of
+        # space (one keydict), so A^T routes through the same shard_of. It
+        # keeps STATIC routing when the primary runs dynamic tablets: the
+        # tablet map partitions the ROW id space, the sibling's keys are
+        # our cols
         self.t_store = None
         if cfg.transpose:
             self.t_store = ShardedTable(
@@ -313,8 +320,18 @@ class ShardedTable:
                 bloom_bits_per_key=bloom_bits_per_key,
                 bloom_hashes=bloom_hashes,
                 config=dataclasses.replace(cfg, transpose=False,
+                                           dynamic_tablets=False,
                                            memtable_cap=self.mem_cap),
                 device=self.device)
+        # dynamic tablets: the mutable row-range → tablet → owner map; it
+        # starts as the exact shard_of partition until the first split.
+        # _migrating marks a move's re-inserts (neither load nor ingest)
+        self.tablet_map = None
+        self._migrating = False
+        if cfg.dynamic_tablets:
+            from .tablets import TabletMap
+            self.tablet_map = TabletMap.uniform(cfg.num_shards,
+                                                cfg.id_capacity)
         # per-batch latency histograms + per-shard op counters/histograms
         # (series reset here so a fresh table reads zeros)
         S = self.S
@@ -345,8 +362,15 @@ class ShardedTable:
             self._reg.histogram("db_shard_op_latency_s", table=name,
                                 shard=s, op="scan")
             for s in range(S)]
+        self._c_tablet_splits = self._reg.counter("lsm_tablet_splits",
+                                                  table=name)
+        self._c_tablet_moves = self._reg.counter("lsm_tablet_moves",
+                                                 table=name)
+        self._c_tablet_merges = self._reg.counter("lsm_tablet_merges",
+                                                  table=name)
         for inst in ([self._h_ingest, self._h_query, self._h_scan,
-                      self._c_full_scans]
+                      self._c_full_scans, self._c_tablet_splits,
+                      self._c_tablet_moves, self._c_tablet_merges]
                      + self._c_shard_ingest + self._c_shard_query
                      + self._c_shard_scan + self._h_shard_query
                      + self._h_shard_scan):
@@ -485,8 +509,18 @@ class ShardedTable:
         self._check_open()
         self.query_rows(np.zeros(1, np.int32))  # point bucket
         if self.engine == "lsm" and self.fused_reads:
-            probe = np.linspace(0, self.id_capacity - 1,
-                                2 * self.S * 8 + 2).astype(np.int32)
+            if self.tablet_map is not None:
+                # a split or moved map can hand a shard a narrow slice of
+                # the id space: probe each shard's OWNED ranges (these
+                # reads record load like any other, as in the JAX package)
+                parts = [self.tablet_map.sample_shard_ids(s)
+                         for s in range(self.S)]
+                parts = [p for p in parts if len(p)]
+                probe = (np.concatenate(parts) if parts
+                         else np.zeros(1, np.int32))
+            else:
+                probe = np.linspace(0, self.id_capacity - 1,
+                                    2 * self.S * 8 + 2).astype(np.int32)
             self.query_rows(np.unique(probe))   # > 8 ids/shard: the tile
         if self.t_store is not None:  # column selectors serve from A^T
             self.t_store.warm_reads()
@@ -533,6 +567,11 @@ class ShardedTable:
                             table=self.name).set(0.0)
             self._reg.gauge("lsm_write_amplification",
                             table=self.name).set(0.0)
+        if self.tablet_map is not None:
+            self._reg.gauge("lsm_tablets", table=self.name).set(
+                self.tablet_map.n)
+            self._reg.gauge("lsm_tablet_balance", table=self.name).set(
+                self.tablet_map.shard_balance())
         if self.t_store is not None:
             self.t_store.refresh_health_gauges(bloom_probes=bloom_probes)
 
@@ -553,7 +592,9 @@ class ShardedTable:
         Transpose-enabled stores dual-ingest: the batch lands in the
         primary (routed by row) AND the sibling (routed by col, rows and
         cols swapped) behind ONE pair-tagged WAL record, so replay
-        rebuilds both or neither."""
+        rebuilds both or neither. Under dynamic tablets the batch is
+        logged as one tablet-tagged frame per tablet it touches, in tablet
+        order (a recovering process may replay only its own tablets)."""
         self._check_open()
         rows = np.asarray(rows, np.int32)
         cols = np.asarray(cols, np.int32)
@@ -566,8 +607,18 @@ class ShardedTable:
         t0 = perf_counter()
         with self._trace.span("ingest", table=self.name, n=n):
             if _log and self._wal is not None:
-                self._wal.append(rows, cols, vals,
-                                 pair=self.t_store is not None)
+                pair = self.t_store is not None
+                if self.tablet_map is None:
+                    self._wal.append(rows, cols, vals, pair=pair)
+                else:
+                    # duplicates of one (row, col) share a tablet, so
+                    # per-tablet frames keep within-key order
+                    tidx = self.tablet_map.tablet_of(rows)
+                    tids = self.tablet_map.tablet_ids
+                    for t in np.unique(tidx):
+                        sel = np.flatnonzero(tidx == t)
+                        self._wal.append(rows[sel], cols[sel], vals[sel],
+                                         pair=pair, tablet=int(tids[t]))
             self._insert_batch(rows, cols, vals)
             if self.t_store is not None:
                 self.t_store._insert_batch(cols, rows, vals)
@@ -577,14 +628,20 @@ class ShardedTable:
         n = len(rows)
         if n > self.mem_cap:
             raise OverflowError(f"batch {n} exceeds memtable {self.mem_cap}")
-        dest = shard_of(rows, self.S, self.id_capacity)
+        if self.tablet_map is not None:
+            tidx = self.tablet_map.tablet_of(rows)
+            dest = self.tablet_map.owners[tidx].astype(np.int32)
+            if not self._migrating:  # a move's re-inserts are not load
+                self.tablet_map.record_load(tidx)
+        else:
+            dest = shard_of(rows, self.S, self.id_capacity)
         order = np.argsort(dest, kind="stable")
         # the reorder copies: nothing below touches the caller's arrays (a
         # replayed batch is a read-only view of the log's bytes, and on the
         # CPU torch.as_tensor would alias them)
         dest, rows, cols, vals = dest[order], rows[order], cols[order], vals[order]
         counts_b = np.bincount(dest, minlength=self.S)
-        if self._reg.enabled:
+        if self._reg.enabled and not self._migrating:
             for s in np.nonzero(counts_b)[0]:
                 self._c_shard_ingest[s].inc(int(counts_b[s]))
         if (self._mem_n + counts_b > self.mem_cap).any():
@@ -688,6 +745,181 @@ class ShardedTable:
         if self.t_store is not None:
             self.t_store.major_compact()
 
+    # ------------------------------------------------------------ tablets
+    def _require_tablets(self):
+        if self.tablet_map is None:
+            raise ValueError(
+                f"table {self.name!r} was not built with "
+                "dynamic_tablets=True")
+        return self.tablet_map
+
+    def split_tablet(self, tablet_id: int = None, key: int = None):
+        """Split one tablet's row range in two (metadata only — both
+        halves stay on the owning shard until a move rebalances them).
+
+        Defaults pick the hottest tablet by recorded load and split at the
+        owner shard's fence-derived median key inside the range (after a
+        flush: fences only see flushed data). The op is journaled as a WAL
+        meta frame BEFORE the map changes, with the new tablet id pinned,
+        so replay reproduces the identical map. Returns the new right-half
+        tablet id, or None when the tablet cannot split."""
+        self._check_open()
+        tm = self._require_tablets()
+        if tablet_id is None:
+            tablet_id = int(tm.tablet_ids[int(np.argmax(tm.loads))])
+        lo, hi = tm.range_of(tablet_id)
+        if hi - lo <= 1:
+            return None
+        if key is None:
+            self.flush()
+            s = int(tm.owners[tm.index_of(tablet_id)])
+            key = self._runs.fence_median(s, lo, hi)
+        key = int(key)
+        if not lo < key < hi:
+            return None
+        new_id = tm.next_id
+        if self._wal is not None:
+            self._wal.append_meta({"op": "split", "tablet": int(tablet_id),
+                                   "key": key, "new": new_id})
+        tm.split(tablet_id, key, new_id=new_id)
+        self._c_tablet_splits.inc()
+        return new_id
+
+    def move_tablet(self, tablet_id: int, dst: int) -> bool:
+        """Migrate one tablet to shard ``dst``: journal a WAL meta frame,
+        update the map, then re-route the SOURCE shard on the device
+        (``_migrate_shard``). Re-inserting combined values once each is a
+        no-op under all four combiners, so reads are unchanged modulo
+        placement. Returns False when ``dst`` already owns the tablet."""
+        self._check_open()
+        tm = self._require_tablets()
+        dst = int(dst)
+        if not 0 <= dst < self.S:
+            raise ValueError(f"destination shard {dst} out of range")
+        src = int(tm.owners[tm.index_of(tablet_id)])
+        if src == dst:
+            return False
+        if self._wal is not None:
+            self._wal.append_meta({"op": "move", "tablet": int(tablet_id),
+                                   "to": dst})
+        tm.move(tablet_id, dst)
+        self._migrate_shard(src)
+        self._c_tablet_moves.inc()
+        return True
+
+    def merge_tablet(self, tablet_id: int) -> bool:
+        """Merge a tablet with its right neighbor (the inverse of
+        ``split_tablet``). If the neighbor lives on another shard it is
+        first moved to this tablet's owner (journaled like any move); the
+        merge itself is metadata only. Returns False when there is no
+        right neighbor."""
+        self._check_open()
+        tm = self._require_tablets()
+        i = tm.index_of(tablet_id)
+        if i + 1 >= tm.n:
+            return False
+        if tm.owners[i] != tm.owners[i + 1]:
+            self.move_tablet(int(tm.tablet_ids[i + 1]), int(tm.owners[i]))
+        if self._wal is not None:
+            self._wal.append_meta({"op": "merge", "tablet": int(tablet_id)})
+        tm.merge(tablet_id)
+        self._c_tablet_merges.inc()
+        return True
+
+    def _migrate_shard(self, src: int) -> None:
+        """Re-route everything resident on shard ``src`` through the
+        CURRENT tablet map: flush (the memtable, its mirror and the sorted
+        mirror empty), scan the shard's combined triples, clear its runs,
+        and re-insert in memtable-sized chunks, then flush. Entries whose
+        tablet still lives on ``src`` land back; moved tablets' entries
+        land on their new owner. Not WAL-logged (the data is durable
+        before the move's meta frame) and not counted as ingest or load
+        (``_migrating``)."""
+        self.flush()
+        r, c, v = self.scan_shard(src)
+        self._runs.clear_shard(src)
+        if len(r) == 0:
+            return
+        self._migrating = True
+        try:
+            step = self.mem_cap
+            for i in range(0, len(r), step):
+                self._insert_batch(r[i:i + step], c[i:i + step],
+                                   v[i:i + step])
+        finally:
+            self._migrating = False
+        self.flush()
+
+    def maybe_rebalance(self):
+        """One round of the tablet balance policy (the Accumulo master
+        analogue, driven by the recorded per-tablet loads):
+
+        1. SPLIT any tablet whose load exceeds ``SPLIT_THRESHOLD`` times
+           the mean per-shard load (bounded by ``TABLETS_PER_SHARD * S``
+           tablets and by S splits per round);
+        2. LPT-assign tablets to shards (heaviest tablet to the least
+           loaded shard, the current owner kept on ties so a balanced map
+           never thrashes) and migrate the changed assignments;
+        3. decay the load signal by half.
+
+        Returns ``{"splits", "moves", "balance"}``, balance being the
+        post-rebalance max/mean per-shard load (1.0 = perfect)."""
+        self._check_open()
+        tm = self._require_tablets()
+        out = {"splits": 0, "moves": 0}
+        total = float(tm.loads.sum())
+        if total >= MIN_LOAD:
+            mean_shard = total / self.S
+            for _ in range(self.S):  # bounded split rounds per call
+                i = int(np.argmax(tm.loads))
+                if (tm.loads[i] <= SPLIT_THRESHOLD * mean_shard
+                        or tm.n >= TABLETS_PER_SHARD * self.S):
+                    break
+                if self.split_tablet(int(tm.tablet_ids[i])) is None:
+                    break
+                out["splits"] += 1
+            order = np.argsort(tm.loads, kind="stable")[::-1]
+            shard_load = np.zeros(self.S)
+            assign = np.empty(tm.n, np.int32)
+            for i in order:
+                d = int(np.argmin(shard_load))
+                cur = int(tm.owners[i])
+                if shard_load[cur] <= shard_load[d] + 1e-9:
+                    d = cur  # tie: keep the tablet where it lives
+                assign[i] = d
+                shard_load[d] += tm.loads[i]
+            for i in np.flatnonzero(assign != tm.owners):
+                if self.move_tablet(int(tm.tablet_ids[i]), int(assign[i])):
+                    out["moves"] += 1
+        tm.decay()
+        out["balance"] = tm.shard_balance()
+        self._reg.gauge("lsm_tablet_balance", table=self.name).set(
+            out["balance"])
+        self._reg.gauge("lsm_tablets", table=self.name).set(tm.n)
+        return out
+
+    def _apply_replayed_meta(self, op: dict) -> None:
+        """Apply one WAL meta frame during recovery: the map mutates at
+        the SAME log point it did live — a move migrates the source shard
+        on the device — so data frames replayed after it route to the
+        identical shards (``lsm.manifest.recover``). A table without a
+        tablet map ignores meta frames, as the JAX package's does."""
+        if self.tablet_map is None:
+            return
+        tm = self.tablet_map
+        kind = op.get("op")
+        if kind == "split":
+            tm.split(int(op["tablet"]), int(op["key"]),
+                     new_id=int(op["new"]))
+        elif kind == "move":
+            src = int(tm.owners[tm.index_of(int(op["tablet"]))])
+            dst = int(op["to"])
+            if src != dst:
+                tm.move(int(op["tablet"]), dst)
+                self._migrate_shard(src)
+        elif kind == "merge":
+            tm.merge(int(op["tablet"]))
+
     # -------------------------------------------------------------- query
     def query_rows(self, row_ids: np.ndarray, max_return: int = 256,
                    col_filter: np.ndarray = None):
@@ -711,7 +943,12 @@ class ShardedTable:
             if not (self.engine == "lsm" and self.fused_reads):
                 host_filter, col_filter = col_filter, None
         row_ids = np.asarray(row_ids, np.int32)
-        owner = shard_of(row_ids, self.S, self.id_capacity)
+        if self.tablet_map is not None:
+            tidx = self.tablet_map.tablet_of(row_ids)
+            self.tablet_map.record_load(tidx)  # reads drive splits too
+            owner = self.tablet_map.owners[tidx].astype(np.int32)
+        else:
+            owner = shard_of(row_ids, self.S, self.id_capacity)
         if self.engine == "lsm":
             out = self._query_rows_lsm(row_ids, owner, max_return, col_filter)
         else:
@@ -800,28 +1037,36 @@ class ShardedTable:
                 host_filter, col_filter = col_filter, None
         out = []
         if hi > lo:
-            s_lo = int(shard_of(np.asarray([lo]), self.S,
-                                self.id_capacity)[0])
-            s_hi = int(shard_of(np.asarray([max(hi - 1, lo)]), self.S,
-                                self.id_capacity)[0])
-            shards = range(s_lo, s_hi + 1)  # each shard clips the range
-            if (self.engine != "lsm"
-                    and self._mem_n[list(shards)].max(initial=0) > 0):
+            if self.tablet_map is not None:
+                # per-owner sub-ranges in KEY order (adjacent same-owner
+                # tablets coalesced): the concatenated outputs stay
+                # globally (row, col)-sorted under a skewed map
+                segs = self.tablet_map.segments(lo, hi)
+                self.tablet_map.touch_range(lo, hi)
+            else:
+                s_lo = int(shard_of(np.asarray([lo]), self.S,
+                                    self.id_capacity)[0])
+                s_hi = int(shard_of(np.asarray([max(hi - 1, lo)]), self.S,
+                                    self.id_capacity)[0])
+                # each shard clips the full range itself
+                segs = [(s, lo, hi) for s in range(s_lo, s_hi + 1)]
+            if (self.engine != "lsm" and self._mem_n[
+                    [s for s, _, _ in segs]].max(initial=0) > 0):
                 self.flush()
-            for s in shards:
+            for s, seg_lo, seg_hi in segs:
                 self._c_shard_scan[s].inc()
                 t_sh = perf_counter()
                 if self.engine == "lsm" and self.fused_reads:
                     r, c, v = self._runs.scan_shard_fused(
-                        s, lo, hi, mem_host=self._mem_host_sorted(s),
+                        s, seg_lo, seg_hi, mem_host=self._mem_host_sorted(s),
                         width=width, mem_sorted=True, col_filter=col_filter)
                 elif self.engine == "lsm":  # full shard scan + range filter
                     r, c, v = self.scan_shard(s)
-                    keep = (r >= lo) & (r < hi)
+                    keep = (r >= seg_lo) & (r < seg_hi)
                     r, c, v = r[keep], c[keep], v[keep]
                 else:  # legacy single run: slice between endpoint ranks
                     t = self._shard_tablet(s)
-                    ends = torch.tensor([lo, hi], dtype=torch.int32,
+                    ends = torch.tensor([seg_lo, seg_hi], dtype=torch.int32,
                                         device=self.device)
                     a, b = torch.searchsorted(t.rows, ends).tolist()
                     r, c, v = (x[a:b].cpu().numpy()

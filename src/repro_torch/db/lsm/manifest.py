@@ -15,9 +15,10 @@ Durability contract (Accumulo-shaped):
     rebuilt there), replay only the WAL suffix past the recorded offset. A
     torn WAL tail (simulated crash) is discarded by the WAL's CRC framing.
 
-Formats 1 and 2 read and write (a transpose sibling's arrays ride in the
-same npz under the ``t_`` prefix). Format 3 (a dynamic tablet map) is
-refused until dynamic tablets are ported.
+Formats 1 to 3 read, and 2 and 3 write: a transpose sibling's arrays ride
+in the same npz under the ``t_`` prefix, and format 3 adds the
+``"tablets"`` record of a store with dynamic tablets (static stores keep
+writing format 2).
 
 This module persists the encoded (row_id, col_id, value) store only; the
 string dictionaries live one layer up — ``db.connector`` journals them
@@ -89,13 +90,15 @@ def write_snapshot(table, dirpath: str) -> str:
         "bloom_hashes": list(runs.bloom_hashes),
     })
     man = {
-        "format": 2,
+        "format": 3 if table.tablet_map is not None else 2,
         "name": table.name,
         "config": config,
         "snapshot": SNAPSHOT,
         "wal": WAL_FILE,
         "wal_offset": table._wal.tell() if table._wal else 0,
     }
+    if table.tablet_map is not None:
+        man["tablets"] = table.tablet_map.to_manifest()
     path = os.path.join(dirpath, MANIFEST)
     _write_json(path, man)
     return path
@@ -108,14 +111,18 @@ def recover(dirpath: str, tablet_filter=None,
     With a manifest, the snapshot runs load directly and only the WAL
     suffix replays (through ``insert``, so its flushes and compactions run
     on ``device`` with the manifest's ``use_pallas``); a torn tail is
-    truncated so that later appends stay replayable. ``tablet_filter``
-    (per-tablet replay) and format-3 manifests need dynamic tablets, which
-    are not ported yet.
-    """
-    from ..kvstore import ShardedTable, StoreConfig, _not_yet
+    truncated so that later appends stay replayable.
 
-    if tablet_filter is not None:
-        raise _not_yet("tablet_filter")
+    A format-3 manifest restores the tablet map before the replay; each
+    meta frame (split, move, merge) then applies where it sits in the log,
+    a move migrating the source shard on ``device``. ``tablet_filter``
+    (an iterable of tablet ids, dynamic-tablet stores only) replays only
+    the data frames tagged with those tablets — a lost process replays
+    its own tablets' suffix — while meta frames always apply, so the
+    recovered map is the whole store's.
+    """
+    from ..kvstore import ShardedTable, StoreConfig
+
     man_path = os.path.join(dirpath, MANIFEST)
     if not os.path.exists(man_path):
         raise FileNotFoundError(
@@ -124,8 +131,6 @@ def recover(dirpath: str, tablet_filter=None,
     with open(man_path) as f:
         man = json.load(f)
     cfg = man["config"]
-    if man.get("tablets") or cfg.get("dynamic_tablets"):
-        raise _not_yet("manifest format 3")
     table = ShardedTable(
         man.get("name", "recovered"), engine="lsm",
         combiner=cfg["combiner"],
@@ -144,14 +149,23 @@ def recover(dirpath: str, tablet_filter=None,
                            if k.startswith(_T_PREFIX)}
                 if t_state:
                     table.t_store._runs.load_state(t_state)
+    # the tablet map restores BEFORE the replay, so suffix data frames
+    # route through the topology the live table had at the snapshot point
+    if man.get("tablets") and table.tablet_map is not None:
+        from ..tablets import TabletMap
+        table.tablet_map = TabletMap.from_manifest(man["tablets"])
     # replay the post-snapshot WAL suffix (torn tail drops at CRC check);
-    # tablet-map meta frames only come with dynamic tablets, and a table
-    # without a tablet map ignores them, as the JAX package's does
+    # a table without a tablet map ignores meta frames
     wal_file = os.path.join(dirpath, man["wal"])
+    tf = (None if tablet_filter is None
+          else {int(t) for t in tablet_filter})
     for item in WriteAheadLog.replay_full(wal_file, start=man["wal_offset"]):
         if item[0] == "meta":
+            table._apply_replayed_meta(item[1])
             continue
-        _, _tid, rows, cols, vals, _pair = item
+        _, tid, rows, cols, vals, _pair = item
+        if tf is not None and tid is not None and tid not in tf:
+            continue  # another process's tablet
         table.insert(rows, cols, vals, _log=False)
     # chop any torn tail BEFORE re-appending: otherwise post-recovery
     # records land after the corrupt bytes and are unreachable next time

@@ -2,9 +2,8 @@
 
 A copy of the JAX package's ``repro.db.lsm.wal`` (numpy, ``struct`` and
 ``zlib`` only): the same batches write the same bytes in both packages,
-and either package replays the other's log. Tagged and meta frames are
-part of the format; in the port no table writes them until dynamic
-tablets are ported (ROADMAP.md, Queue 1 item 7).
+and either package replays the other's log, tagged and meta frames
+included (a store with dynamic tablets writes them).
 
 Accumulo logs every mutation to a write-ahead log before it reaches the
 in-memory map, so a crashed tablet server replays the tail on restart. The

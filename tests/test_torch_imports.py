@@ -16,6 +16,7 @@ def test_port_imports_without_jax_or_repro():
     code = ("import sys, repro_torch, repro_torch.db, repro_torch.db.lsm, "
             "repro_torch.kernels.sorted_search, "
             "repro_torch.kernels.merge_rank, repro_torch.data, "
+            "repro_torch.data.tokens, repro_torch.db.tablets, "
             "repro_torch.obs.export, repro_torch.kernels.segment_reduce, "
             "repro_torch.kernels.spmv, repro_torch.db.schema, "
             "repro_torch.db.naive, repro_torch.db.graphulo, "
@@ -53,6 +54,9 @@ def test_entry_points_refuse_a_missing_card():
         ShardedTable("nocard")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         LSMRuns(2, 256, 16, "last")
+    from repro_torch.data import TokenStore
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TokenStore()
     assert dbsetup("cpu_ok", device="cpu").device.type == "cpu"
 
 

@@ -6,6 +6,8 @@ and to rtol 1e-6 for sum (summation order); the read counters exactly.
 
 Sizes are tiny (memtables of 16-32 entries) so that the JAX side, which
 compiles each new run geometry, stays cheap."""
+import shutil
+
 import numpy as np
 import pytest
 
@@ -384,13 +386,16 @@ def test_run_queries_match_jax():
     assert c_o.shape == (2, 4) and int(cnt.sum()) == 0 and not ok.any()
 
 
-def test_deferred_options_raise(tmp_path):
+def test_dynamic_tablets_and_format3_are_served(tmp_path):
+    """The options the port once refused work: ``dynamic_tablets=True``
+    builds a tablet map, the JAX package's format-3 directory recovers
+    (with and without ``tablet_filter``), and ``dbsetup(wal_root=)`` with
+    fused reads on, or a store with them off, behave as configured."""
     from repro.db.kvstore import ShardedTable as JaxStore
     from repro_torch.db import dbsetup
     from repro_torch.db.lsm import recover
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        TorchTable("deferred", device="cpu", dynamic_tablets=True)
-    # a format-3 manifest (a dynamic tablet map) from the JAX package
+    st = TorchTable("served", device="cpu", dynamic_tablets=True)
+    assert st.tablet_map is not None and st.tablet_map.n == st.S
     d = str(tmp_path / "fmt3")
     js = JaxStore("fmt3", num_shards=2, capacity_per_shard=256, batch_cap=32,
                   id_capacity=64, memtable_cap=16, wal_dir=d,
@@ -398,21 +403,26 @@ def test_deferred_options_raise(tmp_path):
     js.insert(np.arange(8, dtype=np.int32), np.zeros(8, np.int32),
               np.ones(8, np.float32))
     js.checkpoint()
+    js.insert(np.arange(40, 48, dtype=np.int32), np.zeros(8, np.int32),
+              np.ones(8, np.float32))
+    want = js.tablet_map.to_manifest()
     js.close()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        recover(d, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        recover(d, tablet_filter=[0], device="cpu")
-    # the options that waited for items 3 and 5 now work
-    db = dbsetup("deferred_db", dict(num_shards=2, capacity_per_shard=256,
-                                     batch_cap=32, id_capacity=64),
+    for filt, n in ((None, 16), ([1], 16), ([0], 8)):
+        dd = str(tmp_path / f"fmt3_{filt}")
+        shutil.copytree(d, dd)
+        rec = recover(dd, tablet_filter=filt, device="cpu")
+        assert rec.tablet_map.to_manifest() == want
+        assert rec.nnz() == n, filt
+        rec.close()
+    db = dbsetup("served_db", dict(num_shards=2, capacity_per_shard=256,
+                                   batch_cap=32, id_capacity=64),
                  wal_root=str(tmp_path / "root"), device="cpu")
-    t = db["deferred_t"]
+    t = db["served_t"]
     t.put_triple(np.asarray(["a"], object), np.asarray(["b"], object),
                  np.asarray([1.0]))
     assert db.wal_root == str(tmp_path / "root")
     assert t.store._wal is not None and t.store.fused_reads
-    assert TorchTable("deferred_pr", device="cpu",
+    assert TorchTable("served_pr", device="cpu",
                       fused_reads=False).fused_reads is False
 
 

@@ -240,9 +240,7 @@ def test_single_zero_counter_schema():
     jnames = {(i.name, tuple(sorted((k, v) for k, v in i.labels.items()
                                     if k != "table")))
               for i in jax_registry().series(table="jax_schema")}
-    # the tablet split/move/merge series come with dynamic tablets, which
-    # the port does not have yet (ROADMAP Queue 1 item 7)
-    assert names == {n for n in jnames if not n[0].startswith("lsm_tablet_")}
+    assert names == jnames
 
 
 @pytest.mark.parametrize("direction", ["jax_to_port", "port_to_jax"])
