@@ -7,8 +7,9 @@ row, column and range reads → ``delete`` — on a Graph500 graph, then the
 D4M 2.0 schema with its degree table and the Fig. 4 reads, the legacy
 single-run engine, Graphulo's SpMV, the per-run read path, a crash and
 recovery of the pair from its write-ahead log, dynamic tablets under a
-Zipf stream (with a crash and a per-tablet recovery) and the store-backed
-token pipeline, and the LM serving path
+Zipf stream (with a crash and a per-tablet recovery), the store-backed
+token pipeline, the SPMD mesh path (4 rank processes and a single NCCL
+rank), and the LM serving path
 (``launch/serve.py`` → ``Engine`` → prefill / decode); builds the hand-written CUDA
 kernels from ``src/repro_torch/csrc``, shows that each path launched its
 kernels, and holds each kernel against its plain PyTorch version at the
@@ -86,6 +87,27 @@ Phases (each raises on failure):
      ``sample_batch(8, 512)`` draws equal the same draws over the host
      corpus. Splits, moves, migrations, balances and tokens per second
      are logged;
+  9. the mesh path (``db.spmd`` on ``torch.distributed``) at phase 3's
+     scale: 4 rank processes (this script with ``--mesh-child``; gloo with
+     every rank on ``cuda:0`` and the exchange staged through pinned host
+     buffers, or NCCL with 4 or more cards) each ingest their contiguous
+     quarter of phase 3's 955,111 id-space entries in 8 batches of 32,768:
+     (a) the pair step into L0 stacks of 4 runs, both compacted at a full
+     stack, the point reads (1,024 row ids, 256 column ids through the
+     sibling, ``q_tile`` 512, ``max_return`` the largest host degree) and
+     scans (the row range, and the column range with
+     ``transpose_output``, widened while ``cnt_max`` exceeds the window)
+     before and after the last compaction, each equal to phase 3's answer,
+     and the level runs equal to what phase 3's store holds shard by shard
+     (the triples routed and sorted on the host); (b) the legacy step into
+     a tablet of phase 3's capacity, equal to the same shards; (c) the
+     tablet step, built once, under a map that splits the hottest tablet
+     and moves its right half after 4 steps: every row a
+     rank receives is its own under the map in force, and none is lost.
+     The ranks' merged registry snapshots count every rank's steps. (d) A
+     single NCCL rank in this process ingests 4 batches, compacts and
+     reads 256 rows against a host filter. Every step, compaction and read
+     is timed on the card's clock;
   6. LM serving: smollm-135m at full width (30 layers, d_model 576, 9
      heads over 3 KV heads, hd 64, vocabulary 49,152, tied embeddings) in
      bf16 from the port's seeded init, on the card: run a is
@@ -97,7 +119,8 @@ Phases (each raises on failure):
      prefill equals the same weights' prefill on the CPU within 2e-2, and
      prefill-then-decode equals the full prefill within 5e-2 (bf16);
   5. each kernel against its plain version on the card at every input
-     each path gave it (recorded in phases 3, 4b, 4c, 4d, 7, 8 and 6: per
+     each path gave it (recorded in phases 3, 4b, 4c, 4d, 7, 8, 9 — by the
+     ranks, per geometry — and 6: per
      geometry for the LSM kernels and flash attention, per call for the
      1-D rank, the tablet gather, segment sum and SpMVs), ranks, merged
      rows, read entries and degree sums exactly equal (the merge-path
@@ -409,7 +432,8 @@ def make_graph(scale, seed):
     # the last-wins Assoc the edge table must equal
     raw_ids = (np.searchsorted(verts, r), np.searchsorted(verts, c))
     return {"A": A, "verts": verts, "sels": sels, "raw": (r, c, v),
-            "raw_ids": raw_ids, "last": Assoc(r, c, v, func="last")}, cap
+            "raw_ids": raw_ids, "ids": (rid, cid, A.triples()[2]),
+            "last": Assoc(r, c, v, func="last")}, cap
 
 
 def server(name, cap, use_pallas, **kw):
@@ -1450,6 +1474,518 @@ def token_pipeline(seed, smi, stash, device="cuda"):
     return launches
 
 
+# ------------------------------------------------------------------ phase 9
+# The mesh path: phase 3's graph in id space (ids 2^16, capacity_per_shard
+# phase 3's), ingested by 4 SPMD ranks (this script with --mesh-child),
+# each its contiguous quarter of the entries in 8 batches of 2^15; L0
+# stacks of 4 runs of 4 x 2^15; point reads in query tiles of 512, scans
+# in windows of 4,096 widened while a run's slice overflows; the tablet
+# step's map splits and moves after 4 steps. Part (d) is a single NCCL rank
+# in this process: 4 batches of rank 0's quarter, a compaction into a level
+# of 2^18 and a point read of up to 256 of their rows
+P9 = dict(ranks=4, id_capacity=1 << 16, bcap=1 << 15, steps=8, slots=4,
+          q_tile=512, width=4096, max_tablets=16, nccl_steps=4,
+          nccl_level=1 << 18, nccl_queries=256)
+MESH_DIR = ROOT / "build" / "phase9"
+
+
+def mesh_inputs(graph, cap):
+    """Phase 9's inputs: A's triples in id space (a vertex's id is its
+    position in the sorted vertex list, as phase 3 interns them), the
+    Listing-1 reads owner-routed per rank (point ids ``[S, Qb]``, pad -1;
+    ranges ``[S, 2]`` cut to each rank's id range), the host answers phase
+    3 holds its reads to (``A[sel]``: A's triples filtered in id space),
+    the level runs phase 3's store holds shard by shard (the triples routed
+    by owner, lexsorted, in both orientations), and the tablet step's
+    split: the tablet the first 4 steps load most, at the median of its
+    rows, its right half moved to the least-loaded other rank. Returns
+    (arrays, config, answers, levels)."""
+    import numpy as np
+    from repro_torch.db.kvstore import shard_of
+    from repro_torch.db.tablets import TabletMap
+    S, B, idcap = P9["ranks"], P9["bcap"], P9["id_capacity"]
+    verts, sels = graph["verts"], graph["sels"]
+
+    def ids(names):
+        return np.searchsorted(verts, np.asarray(names, dtype=verts.dtype)
+                               ).astype(np.int32)
+
+    def routed(q):
+        own = shard_of(q, S, idcap)
+        out = np.full((S, np.bincount(own, minlength=S).max()), -1, np.int32)
+        for s in range(S):
+            out[s, :(own == s).sum()] = q[own == s]
+        return out
+
+    def span(text):  # "a,:,b," -> [a, b + 1)
+        first, _, last = text.split(",")[:3]
+        return int(ids([first])[0]), int(ids([last])[0]) + 1
+
+    def cut(lo, hi):  # [lo, hi) cut to each rank's id range
+        out = np.zeros((S, 2), np.int32)
+        for s in range(S):
+            a, z = max(lo, s * idcap // S), min(hi, (s + 1) * idcap // S)
+            out[s] = (a, z) if a < z else (a, a)
+        return out
+
+    rid, cid = (x.astype(np.int32) for x in graph["ids"][:2])
+    val = np.asarray(graph["ids"][2], np.float32)
+    row_q = ids(sels["row_ids"][0].split(",")[:-1])
+    col_q = ids(sels["col_ids"][1].split(",")[:-1])
+    n = len(rid)
+    starts = [s * n // S for s in range(S + 1)]
+    if starts[1] > P9["steps"] * B:
+        raise ValueError(f"phase 9: a rank's {starts[1]} entries exceed "
+                         f"{P9['steps']} batches of {B}")
+    half = P9["steps"] // 2 * B
+    first = np.concatenate([rid[starts[s]:min(starts[s] + half,
+                                              starts[s + 1])]
+                            for s in range(S)])
+    tm = TabletMap.uniform(S, idcap)
+    hot = int(np.bincount(tm.tablet_of(first), minlength=tm.n).argmax())
+    lo, hi = (int(x[hot]) for x in tm.ranges())
+    key = int(np.clip(np.median(first[(first >= lo) & (first < hi)]),
+                      lo + 1, hi - 1))
+    loads = np.bincount(tm.owner_of(first), minlength=S).astype(float)
+    loads[tm.owners[hot]] = np.inf
+    rlo, rhi = span(sels["row_range"][0])
+    clo, chi = span(sels["col_range"][1])
+    arrays = dict(rid=rid, cid=cid, val=val, row_q=routed(row_q),
+                  col_q=routed(col_q), row_bounds=cut(rlo, rhi),
+                  col_bounds=cut(clo, chi))
+    want = {"row_ids": np.isin(rid, row_q), "col_ids": np.isin(cid, col_q),
+            "row_range": (rid >= rlo) & (rid < rhi),
+            "col_range": (cid >= clo) & (cid < chi)}
+    cfg = dict(P9, capacity=cap, entries=n, starts=starts,
+               row_max_return=int(np.bincount(rid)[row_q].max()),
+               col_max_return=int(np.bincount(cid)[col_q].max()),
+               split=dict(tablet=int(tm.tablet_ids[hot]), key=key,
+                          move_to=int(loads.argmin())))
+    levels = {}
+    for name, r, c in (("Tedge", rid, cid), ("TedgeT", cid, rid)):
+        o = np.lexsort((c, r))
+        r, c, v = r[o], c[o], val[o]
+        own = shard_of(r, S, idcap)
+        levels[name] = [(r[own == s], c[own == s], v[own == s])
+                        for s in range(S)]
+    answers = {k: (rid[m], cid[m], val[m]) for k, m in want.items()}
+    return arrays, cfg, answers, levels
+
+
+def mesh_batch(arrays, lo, hi, width, dev):
+    """Entries [lo, hi) of the id-space triples as one rank's batch of
+    ``width`` (pads I32_MAX / 0) on ``dev``."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.common import I32_MAX
+    out = []
+    for k, fill, dt in (("rid", I32_MAX, np.int32), ("cid", I32_MAX, np.int32),
+                        ("val", 0, np.float32)):
+        x = np.full(width, fill, dt)
+        part = arrays[k][lo:hi]
+        x[:len(part)] = part
+        out.append(torch.as_tensor(x, device=dev))
+    return out
+
+
+def mesh_kept(out, *cols):
+    """The kept entries of a read step's output as host arrays: ``cols``
+    index its outputs (or are tensors of the output's shape)."""
+    keep = out[-1] if len(out) == 3 else out[3]
+    return tuple((out[c] if isinstance(c, int) else c)[keep].cpu().numpy()
+                 for c in cols)
+
+
+def mesh_rank(cfg, arrays, rank, dev):
+    """One rank of phase 9 (parts a-c); returns (result, arrays to keep,
+    rank 0's merge-path inputs)."""
+    import numpy as np
+    from repro_torch.db import spmd
+    from repro_torch.db.tablets import TabletMap
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels.common import I32_MAX
+    from repro_torch.obs import default_registry
+    S, B, steps, slots = cfg["ranks"], cfg["bcap"], cfg["steps"], cfg["slots"]
+    idcap, cap = cfg["id_capacity"], cfg["capacity"]
+    q0, q1 = cfg["starts"][rank], cfg["starts"][rank + 1]
+
+    def batch(i):
+        return mesh_batch(arrays, q0 + min(i * B, q1 - q0),
+                          q0 + min((i + 1) * B, q1 - q0), B, dev)
+
+    mesh = spmd.make_mesh("data")
+    route = spmd.exchange_route(mesh.get_group("data"), dev)
+    times, keep = {}, {}
+
+    def timed(label, fn):
+        out, ms = timed_once(fn)
+        times.setdefault(label, []).append(ms)
+        return out
+
+    def store(key, trip):
+        for name, x in zip("rcv", trip):
+            keep[f"{key}/{name}"] = x
+
+    queries = {side: spmd.make_spmd_lsm_query_step(
+        mesh, "data", "last", max_return=cfg[f"{side}_max_return"],
+        q_tile=cfg["q_tile"]) for side in ("row", "col")}
+
+    def reads(tag, l0, lv, l0t, lvt):
+        q = torch_int(arrays["row_q"][rank], dev)
+        out = timed("query_rows", lambda: queries["row"](l0, lv, q))
+        store(f"{tag}/row_ids", mesh_kept(out, q[:, None].expand_as(out[0]),
+                                          0, 1))
+        # column ids through the sibling, whose rows are A's columns
+        q = torch_int(arrays["col_q"][rank], dev)
+        out = timed("query_cols", lambda: queries["col"](l0t, lvt, q))
+        store(f"{tag}/col_ids", mesh_kept(out, 0, q[:, None].expand_as(
+            out[0]), 1))
+        for name, stacks, swap in (("row_range", (l0, lv), False),
+                                   ("col_range", (l0t, lvt), True)):
+            b = torch_int(arrays[name.split("_")[0] + "_bounds"][rank], dev)
+            width = cfg["width"]
+            while True:  # batch-scanner semantics: widen and scan again
+                scan = spmd.make_spmd_lsm_scan_step(
+                    mesh, "data", "last", width=width, transpose_output=swap)
+                out = timed("scan_" + name.split("_")[0],
+                            lambda: scan(*stacks, b))
+                if int(out[4]) <= width:
+                    break
+                width = 1 << (int(out[4]) - 1).bit_length()
+            times.setdefault("scan_width", []).append(width)
+            store(f"{tag}/{name}", mesh_kept(out, 0, 1, 2))
+
+    stash, launches = {}, {}
+    with kernel_run(stash) as counted:
+        # (a) the pair step, compactions at a full stack, reads around the
+        # last compaction
+        pair = spmd.make_spmd_lsm_pair_ingest_step(mesh, "data", S, idcap,
+                                                   "last")
+        compact = spmd.make_spmd_lsm_compact_step(mesh, "data", "last")
+        l0, l0t = (spmd.l0_stacked_empty(slots, S * B, dev) for _ in "ab")
+        lv, lvt = (spmd.stacked_empty(cap, dev) for _ in "ab")
+        for i in range(steps):
+            l0, l0t = timed("pair_step", lambda: pair(l0, l0t, *batch(i)))
+            if int(l0.k) == slots or int(l0t.k) == slots:
+                if i == steps - 1:
+                    reads("before", l0, lv, l0t, lvt)
+                l0, lv = timed("compact", lambda: compact(l0, lv))
+                l0t, lvt = timed("compact", lambda: compact(l0t, lvt))
+                if max(int(lv.n), int(lvt.n)) > cap:
+                    raise OverflowError(f"phase 9 rank {rank}: level "
+                                        f"{int(lv.n)}, {int(lvt.n)} > {cap}")
+        reads("after", l0, lv, l0t, lvt)
+        for key, level in (("level", lv), ("level_t", lvt)):
+            n = int(level.n)
+            store(key, (level.rows[:n].cpu().numpy(),
+                        level.cols[:n].cpu().numpy(),
+                        level.vals[:n].cpu().numpy()))
+        launches["a"] = LAUNCHES["merge_path_rank"]
+        # (b) the legacy step into a tablet of phase 3's capacity
+        ingest = spmd.make_spmd_ingest_step(mesh, "data", S, idcap, "last")
+        tab = spmd.stacked_empty(cap, dev)
+        for i in range(steps):
+            tab = timed("legacy_step", lambda: ingest(tab, *batch(i)))
+            if int(tab.n) > cap:
+                raise OverflowError(f"phase 9 rank {rank}: tablet "
+                                    f"{int(tab.n)} > {cap}")
+        n = int(tab.n)
+        store("tablet", (tab.rows[:n].cpu().numpy(),
+                         tab.cols[:n].cpu().numpy(),
+                         tab.vals[:n].cpu().numpy()))
+        launches["b"] = LAUNCHES["merge_path_rank"] - launches["a"]
+        # (c) the tablet step, built once; after 4 steps a split and a move
+        tstep = spmd.make_spmd_tablet_ingest_step(mesh, "data", S, "last")
+        tm = TabletMap.uniform(S, idcap)
+        routing = tm.device_routing(cfg["max_tablets"])
+        l0c, received = spmd.l0_stacked_empty(slots, S * B, dev), []
+        for i in range(steps):
+            if i == steps // 2:  # the stack is full and checked: empty it
+                sp = cfg["split"]
+                tm.move(tm.split(sp["tablet"], sp["key"]), sp["move_to"])
+                routing = tm.device_routing(cfg["max_tablets"])
+                l0c = spmd.l0_stacked_empty(slots, S * B, dev)
+            l0c = timed("tablet_step",
+                        lambda: tstep(l0c, *batch(i), *routing))
+            run = l0c.rows[int(l0c.k) - 1]
+            rows = run[run != I32_MAX].cpu().numpy()
+            if (tm.owner_of(rows) != rank).any():
+                raise AssertionError(f"phase 9 rank {rank}: the tablet step "
+                                     f"delivered rows the map does not give "
+                                     f"it (step {i})")
+            received.append(len(rows))
+        launches["c"] = (LAUNCHES["merge_path_rank"] - launches["a"]
+                         - launches["b"])
+    calls = stash["merge_path_rank"].calls
+    geos = sorted(calls)
+    inputs = {}
+    if rank == 0:
+        for j, geo in enumerate(geos):
+            for m, x in enumerate(calls[geo][1][0]):
+                inputs[f"g{j}_{m}"] = x.cpu().numpy()
+    result = dict(route=route, times=times, launches=launches,
+                  counted=counted, received=received,
+                  geometries=[[[list(s) for s in geo[0]], calls[geo][0]]
+                              for geo in geos],
+                  others={k: sum(c for c, _ in r.calls.values())
+                          for k, r in stash.items()
+                          if isinstance(r, Recorder)
+                          and k != "merge_path_rank"},
+                  map=tm.to_manifest(),
+                  snapshot=default_registry().snapshot())
+    return result, keep, inputs
+
+
+def torch_int(x, dev):
+    import torch
+    return torch.as_tensor(x, dtype=torch.int32, device=dev)
+
+
+def mesh_child(out_dir, rank):
+    """Phase 9's rank ``rank``, a process of its own: loads the kernel
+    library phase 2 built (and refuses to build one), joins the mesh (the
+    backend the parent chose: NCCL with a card a rank, else gloo with every
+    rank on ``cuda:0``), runs parts a-c and writes its results into
+    ``out_dir``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import common
+    cfg = json.loads((out_dir / "config.json").read_text())
+    if cfg["device"] == "cuda":
+        if not (common.BUILD_DIR / common.source_hash()
+                / "libreprotorch.so").exists():
+            raise RuntimeError("phase 9: no kernel library from phase 2")
+        common.lib()
+        dev = torch.device("cuda", rank if cfg["backend"] == "nccl" else 0)
+        torch.cuda.set_device(dev)
+    else:
+        dev = torch.device(cfg["device"])
+    dist.init_process_group(cfg["backend"],
+                            init_method=f"file://{out_dir / 'rdv'}",
+                            world_size=cfg["ranks"], rank=rank)
+    try:
+        result, keep, inputs = mesh_rank(
+            cfg, dict(np.load(out_dir / "inputs.npz")), rank, dev)
+    finally:
+        dist.destroy_process_group()
+    np.savez(out_dir / f"rank{rank}.npz", **keep)
+    if inputs:
+        np.savez(out_dir / "merge_inputs.npz", **inputs)
+    (out_dir / f"rank{rank}.json").write_text(json.dumps(result))
+    return 0
+
+
+def mesh_command(rank):
+    """The command line of phase 9's rank ``rank``."""
+    return [sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-child",
+            str(MESH_DIR), "--mesh-rank", str(rank)]
+
+
+def run_ranks(n, timeout=600):
+    """Start phase 9's ``n`` ranks and wait for all; a rank that fails
+    stops the others, and its log goes into the error. Returns seconds."""
+    t0 = time.perf_counter()
+    procs = []
+    for r in range(n):
+        out = open(MESH_DIR / f"rank{r}.log", "w")
+        procs.append((subprocess.Popen(mesh_command(r), stdout=out,
+                                       stderr=subprocess.STDOUT), out))
+    try:
+        while True:
+            codes = [p.poll() for p, _ in procs]
+            bad = [r for r, c in enumerate(codes) if c not in (None, 0)]
+            late = time.perf_counter() - t0 > timeout
+            if bad or late:
+                r = bad[0] if bad else 0
+                raise AssertionError(
+                    f"phase 9: rank {r} "
+                    + (f"exited {codes[r]}" if bad else "timed out") + ": "
+                    + (MESH_DIR / f"rank{r}.log").read_text()[-4000:])
+            if all(c == 0 for c in codes):
+                break
+            time.sleep(0.1)
+    finally:
+        for p, out in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            out.close()
+    return time.perf_counter() - t0
+
+
+class Recorded:
+    """A path's kernel calls recorded in other processes, read as a
+    ``Recorder``'s ``calls`` and a ``Calls``' count ``n``."""
+
+    def __init__(self, calls=None):
+        self.calls, self.n = calls or {}, 0
+
+
+def mesh_path(graph, cap, smi, stash, device="cuda"):
+    """Phase 9: the mesh path, parts a-c in 4 rank processes and d here.
+    Checks every read against phase 3's host answers, the ranks' level runs
+    and legacy tablets against the runs phase 3's store holds shard by
+    shard (computed on the host from the triples), the tablet step's
+    deliveries against the map, and the merged snapshots' step counts.
+    Fills ``stash["mesh"]`` (the ranks' merge-path inputs, per geometry)
+    and ``stash["mesh_nccl"]``; returns the two paths' launches."""
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.db.spmd import merge_process_metrics
+    from repro_torch.obs.export import registry_from_snapshot
+    S, steps = P9["ranks"], P9["steps"]
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    MESH_DIR.mkdir(parents=True)
+    arrays, cfg, want, levels = mesh_inputs(graph, cap)
+    nccl = device == "cuda" and torch.cuda.device_count() >= S
+    cfg.update(backend="nccl" if nccl else "gloo", device=device)
+    np.savez(MESH_DIR / "inputs.npz", **arrays)
+    (MESH_DIR / "config.json").write_text(json.dumps(cfg))
+    t_ranks = run_ranks(S)
+    res = [json.loads((MESH_DIR / f"rank{r}.json").read_text())
+           for r in range(S)]
+    got = [dict(np.load(MESH_DIR / f"rank{r}.npz")) for r in range(S)]
+
+    def union(key):
+        return [np.concatenate([g[f"{key}/{x}"] for g in got]) for x in "rcv"]
+
+    for tag in ("before", "after"):  # level + 4 L0 runs, then level only
+        for name in want:
+            same_arrays(union(f"{tag}/{name}"), want[name],
+                        f"phase 9 {name} ({tag} the last compaction) vs "
+                        f"phase 3's answer")
+    for s in range(S):
+        for key, table in (("level", "Tedge"), ("level_t", "TedgeT"),
+                           ("tablet", "Tedge")):
+            same_arrays([got[s][f"{key}/{x}"] for x in "rcv"],
+                        levels[table][s], f"phase 9 rank {s} {key} vs "
+                        f"phase 3's {table} shard {s}", ordered=True)
+    starts = cfg["starts"]
+    per_step = [sum(min(starts[r] + (i + 1) * P9["bcap"], starts[r + 1])
+                    - min(starts[r] + i * P9["bcap"], starts[r + 1])
+                    for r in range(S)) for i in range(steps)]
+    delivered = [sum(x["received"][i] for x in res) for i in range(steps)]
+    if delivered != per_step:
+        raise AssertionError(f"phase 9 (c): delivered {delivered}, sent "
+                             f"{per_step}")
+    if any(x["map"] != res[0]["map"] for x in res):
+        raise AssertionError("phase 9 (c): the ranks' maps differ")
+    for x in res:
+        if any(x["others"].values()):
+            raise AssertionError(f"phase 9: a kernel other than the merge "
+                                 f"path launched: {x['others']}")
+    # the ranks' registries merged
+    merged = registry_from_snapshot(merge_process_metrics(
+        [x["snapshot"] for x in res]))
+    counts = {op: sum(c.value for c in merged.series("spmd_steps", op=op))
+              for op in ("spmd_lsm_pair_ingest", "spmd_lsm_compact",
+                         "spmd_lsm_query", "spmd_lsm_scan", "spmd_ingest",
+                         "spmd_tablet_ingest")}
+    want_counts = {"spmd_lsm_pair_ingest": S * steps,
+                   "spmd_lsm_compact": S * 4, "spmd_lsm_query": S * 4,
+                   "spmd_ingest": S * steps, "spmd_tablet_ingest": S * steps}
+    if any(counts[k] != v for k, v in want_counts.items()) \
+            or counts["spmd_lsm_scan"] < S * 4:
+        raise AssertionError(f"phase 9: merged step counts {counts}")
+    # phase 5's inputs: rank 0's per geometry, the calls of every rank
+    geos = [tuple(tuple(s) for s in g) for g, _ in res[0]["geometries"]]
+    if any([tuple(tuple(s) for s in g) for g, _ in x["geometries"]] != geos
+           for x in res):
+        raise AssertionError("phase 9: the ranks' merge geometries differ")
+    inputs = dict(np.load(MESH_DIR / "merge_inputs.npz"))
+    recs = {name: Recorded() for name in wrapper_sites()}
+    recs["probe_stack"], recs["combine_rows"] = Recorded(), Recorded()
+    for j, geo in enumerate(geos):
+        args = [torch.as_tensor(inputs[f"g{j}_{m}"], device=device)
+                for m in range(len(geo))]
+        recs["merge_path_rank"].calls[(geo, ())] = [
+            sum(x["geometries"][j][1] for x in res), (args, {})]
+    stash["mesh"] = recs
+    launches = {"mesh": {k: sum(x["counted"][k] for x in res)
+                         for k in res[0]["counted"]}}
+    parts = {p: [x["launches"][p] for x in res] for p in "abc"}
+    if launches["mesh"]["merge_path_rank"] <= 0 or not all(parts["a"]) \
+            or not all(parts["b"]) or any(parts["c"]):
+        raise AssertionError(f"phase 9: merge-path launches by part {parts}")
+    # (d) a single NCCL rank (gloo on the CPU) in this process
+    launches["mesh_nccl"], nccl_times = single_rank(arrays, cfg, stash,
+                                                    device)
+    for x in res:
+        log(f"phase 9 rank: " + json.dumps({
+            "route": x["route"], "launches": x["launches"],
+            "received": x["received"], "ms": x["times"]}))
+    log(f"phase 9 ({smi}): {S} ranks on "
+        + ("one card each over NCCL" if nccl else
+           f"{device} over gloo, the exchange "
+           + ("staged through pinned host buffers" if device == "cuda"
+              else "on host tensors"))
+        + f", {t_ranks:.3f} s from start to exit; every read (before and "
+        f"after the last compaction) equals phase 3's answer, the level runs "
+        f"and legacy tablets equal phase 3's triples routed and sorted on "
+        f"the host shard by shard, the "
+        f"tablet step delivered {delivered} entries each to its owner under "
+        f"the map (split of tablet {cfg['split']['tablet']} at "
+        f"{cfg['split']['key']}, moved to rank {cfg['split']['move_to']}); "
+        f"merge-path launches by part {parts}; merged step counts "
+        + json.dumps(counts) + "; single NCCL rank "
+        + json.dumps(nccl_times))
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    return launches
+
+
+def single_rank(arrays, cfg, stash, device="cuda"):
+    """Phase 9 (d): one rank (S = 1) over NCCL in this process (gloo when
+    ``device`` is the CPU): the first batches of rank 0's quarter through
+    the LSM ingest step, a compaction and a point read of some of their
+    rows, held against a host filter. Fills ``stash["mesh_nccl"]``;
+    returns (launches, ms)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.db import spmd
+    B, n_steps = cfg["bcap"], cfg["nccl_steps"]
+    end = min(cfg["starts"][1], n_steps * B)
+    rng = np.random.default_rng(9)
+    q = np.unique(rng.choice(arrays["rid"][:end], cfg["nccl_queries"]))
+    sel = np.isin(arrays["rid"][:end], q)
+    want = tuple(arrays[k][:end][sel] for k in ("rid", "cid", "val"))
+    dist.init_process_group(
+        "nccl" if device == "cuda" else "gloo",
+        init_method=f"file://{MESH_DIR / 'single_rdv'}", world_size=1,
+        rank=0)
+    times = {}
+    try:
+        mesh = spmd.make_mesh("data")
+        ingest = spmd.make_spmd_lsm_ingest_step(mesh, "data", 1,
+                                                cfg["id_capacity"], "last")
+        compact = spmd.make_spmd_lsm_compact_step(mesh, "data", "last")
+        query = spmd.make_spmd_lsm_query_step(
+            mesh, "data", "last", max_return=int(np.bincount(want[0]).max()))
+        stash["mesh_nccl"] = {}
+        with kernel_run(stash["mesh_nccl"]) as launches:
+            l0 = spmd.l0_stacked_empty(cfg["slots"], B, device)
+            lv = spmd.stacked_empty(cfg["nccl_level"], device)
+            for i in range(n_steps):
+                l0, times[f"step{i}"] = timed_once(lambda: ingest(
+                    l0, *mesh_batch(arrays, min(i * B, end),
+                                    min((i + 1) * B, end), B, device)))
+            (l0, lv), times["compact"] = timed_once(lambda: compact(l0, lv))
+            qt = torch_int(q, device)
+            out, times["query"] = timed_once(lambda: query(l0, lv, qt))
+        same_arrays(mesh_kept(out, qt[:, None].expand_as(out[0]), 0, 1),
+                    want, "phase 9 (d) point read vs the host")
+        route = spmd.exchange_route(mesh.get_group("data"),
+                                    torch.device(device))
+    finally:
+        dist.destroy_process_group()
+    if launches["merge_path_rank"] <= 0 or route["staged"]:
+        raise AssertionError(f"phase 9 (d): launches {launches}, {route}")
+    times["backend"] = route["backend"]
+    return launches, times
+
+
 # ------------------------------------------------------------------ phase 5
 def input_groups(inputs):
     """Group recorded inputs as 'path shapes kw=...': the decode steps'
@@ -1476,8 +2012,8 @@ def input_groups(inputs):
 
 def kernel_checks(stash, launches):
     """Each kernel against its plain version at every input each path gave
-    it (``stash[path][kernel]``, recorded in phases 3, 4b, 4c, 4d, 7, 8 and 6:
-    one per geometry for #1-#3 and #7, every call for #4-#6 and the
+    it (``stash[path][kernel]``, recorded in phases 3, 4b, 4c, 4d, 7, 8, 9
+    and 6: one per geometry for #1-#3 and #7, every call for #4-#6 and the
     tablet gather; a decode step's position is part of #7's geometry;
     ``stash[path]["tablet_read"]`` the 4c reads). ``launches[path]`` are
     the paths' launch counts. Every time is the mean per launch over all
@@ -2046,6 +2582,11 @@ def main(argv=None):
     ap.add_argument("--tablet-child", metavar="DIR", type=Path,
                     help="run only phase 8a's writer into DIR, which then "
                          "dies without closing anything (phase 8a starts it)")
+    ap.add_argument("--mesh-child", metavar="DIR", type=Path,
+                    help="run only one rank of phase 9's mesh, with the "
+                         "inputs in DIR (phase 9 starts the ranks)")
+    ap.add_argument("--mesh-rank", type=int, default=0,
+                    help="the rank of --mesh-child")
     args = ap.parse_args(argv)
 
     import torch
@@ -2064,6 +2605,8 @@ def main(argv=None):
         crash_child(args.crash_child, args.scale, args.seed)
     if args.tablet_child is not None:
         tablet_child(args.tablet_child, args.seed)
+    if args.mesh_child is not None:
+        return mesh_child(args.mesh_child, args.mesh_rank)
     t_start = time.perf_counter()
 
     # 1. device
@@ -2090,7 +2633,8 @@ def main(argv=None):
     # each path's recorded kernel inputs and launch counts, for phase 5
     stash = {p: {} for p in ("listing1", "fig4", "graphulo", "single",
                              "recover", "tablets", "tablets_recover",
-                             "tokens", "serve_a", "serve_b")}
+                             "tokens", "mesh", "mesh_nccl", "serve_a",
+                             "serve_b")}
     launches = {}
     reads, stats, times, launches["listing1"] = listing1(
         graph, True, cap, stash["listing1"])
@@ -2189,6 +2733,11 @@ def main(argv=None):
         args.seed, smi, stash["tablets_recover"], twin_reads)
     launches["tokens"] = token_pipeline(args.seed, smi, stash["tokens"])
     log(f"phase 8: {time.perf_counter() - t8:.3f} s")
+
+    # 9. the mesh path: 4 SPMD ranks (parts a-c) and a single NCCL rank (d)
+    t9 = time.perf_counter()
+    launches.update(mesh_path(graph, cap, smi, stash))
+    log(f"phase 9: {time.perf_counter() - t9:.3f} s")
 
     # 6. LM serving at full width
     serve_stats, serve_launches = serving(args.seed, stash, args.profile)

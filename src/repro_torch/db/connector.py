@@ -43,7 +43,7 @@ from ..core.dictionary import StringDict
 from ..kernels.common import resolve_device
 from ..obs import Histogram, default_registry, default_tracer
 from ..obs import span as obs_span
-from ..obs.export import write_debug_bundle
+from ..obs.export import registry_from_snapshot, write_debug_bundle
 from . import batching
 from .kvstore import ShardedTable, StoreConfig
 
@@ -232,6 +232,7 @@ class DBserver:
         self.tables: dict = {}
         self.wal_root: Optional[str] = None
         self._keydict_journal: Optional[_DictJournal] = None
+        self._peer_snapshots: list = []  # other processes' registry dumps
         if wal_root is not None:
             self.attach_wal_root(wal_root)
 
@@ -399,18 +400,38 @@ class DBserver:
     # per-op latency histograms emitted by ShardedTable / LSMRuns
     _METRIC_OPS = ("ingest", "query", "scan", "flush", "major_compaction")
 
-    def metrics(self) -> dict:
+    def attach_process_snapshot(self, snapshot) -> None:
+        """Register another process's ``Registry.snapshot()`` (the dict,
+        or a path to its JSON dump) for ``metrics(all_processes=True)``.
+        SPMD launchers run one registry per rank; attaching the ranks'
+        snapshots lets one connector answer for the whole mesh."""
+        if isinstance(snapshot, (str, os.PathLike)):
+            with open(snapshot) as f:
+                snapshot = json.load(f)
+        self._peer_snapshots.append(dict(snapshot))
+
+    def metrics(self, all_processes: bool = False) -> dict:
         """Aggregated observability snapshot of every live bound table:
         per-shard and per-table counters, per-op latency percentiles, WAL
         append/fsync totals, derived health gauges, a ``"tablets"``
         section for each table with dynamic tablets (count, balance,
         splits, moves, owners, boundaries), plus a cross-table aggregate.
-        JSON-ready."""
+        JSON-ready.
+
+        ``all_processes=True`` first merges every snapshot registered via
+        ``attach_process_snapshot`` with this process's registry
+        (``spmd.merge_process_metrics``: counters sum, histograms
+        bucket-merge) and aggregates the merge; the live registry does not
+        change."""
         for name, t in self.tables.items():
             store = getattr(t, "store", None)
             if store is not None and not store._closed:
                 store.refresh_health_gauges()
         reg = default_registry()
+        if all_processes and self._peer_snapshots:
+            from .spmd import merge_process_metrics
+            reg = registry_from_snapshot(merge_process_metrics(
+                [reg.snapshot()] + self._peer_snapshots))
 
         def gauge_val(name, **labels):
             insts = reg.series(name, **labels)

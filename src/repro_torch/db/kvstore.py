@@ -209,6 +209,23 @@ def shard_of(ids: np.ndarray, num_shards: int, id_capacity: int) -> np.ndarray:
     ).astype(np.int32)
 
 
+def _memtable_append(mem_r, mem_c, mem_v, counts, incoming, br, bc, bv):
+    """Append routed batches ``[S, bcap]`` (pads I32_MAX) into the
+    per-shard memtables ``[S, m + 1]`` at the host ``counts``, in place;
+    entries past the capacity land in the spare last column. ``incoming``
+    holds each shard's valid count on the host. Returns the new host
+    counts."""
+    cap = mem_r.shape[1] - 1
+    valid = br != I32_MAX
+    pos = torch.cumsum(valid, dim=1) - 1
+    base = torch.as_tensor(counts, dtype=torch.int64, device=br.device)
+    col = torch.where(valid, base[:, None] + pos, cap).clamp(max=cap)
+    mem_r.scatter_(1, col, br)
+    mem_c.scatter_(1, col, bc)
+    mem_v.scatter_(1, col, bv)
+    return counts + incoming
+
+
 def _memtable_append_flat(mem_r, mem_c, mem_v, counts, dest, slot, r, c, v):
     """Flat append, in place: entry i of the (dest-sorted) batch lands at
     memtable[dest_i, counts[dest_i] + slot_i]. The memtables are
@@ -422,8 +439,11 @@ class ShardedTable:
                                   device=self.device)
         self._mem_n = np.zeros((S,), np.int64)
         # host mirror of memtable appends (per shard): LSM reads serve the
-        # unflushed tail without pulling device buffers
+        # unflushed tail without pulling device buffers. insert_routed()
+        # bypasses the host, which leaves the mirror stale until the next
+        # flush (reads then copy the device memtable)
         self._mem_mirror = [[] for _ in range(S)]
+        self._mirror_ok = True
         # (row, col)-sorted + combiner-deduped mirror per shard, computed
         # lazily for the fused reads and reused until the next insert
         self._mem_sorted: dict = {}
@@ -650,14 +670,39 @@ class ShardedTable:
         starts = ends - counts_b
         if self.engine == "lsm":  # only LSM reads the mirror
             for s in np.nonzero(counts_b)[0]:
-                self._mem_mirror[s].append(
-                    (rows[starts[s]:ends[s]], cols[starts[s]:ends[s]],
-                     vals[starts[s]:ends[s]]))
+                if self._mirror_ok:
+                    self._mem_mirror[s].append(
+                        (rows[starts[s]:ends[s]], cols[starts[s]:ends[s]],
+                         vals[starts[s]:ends[s]]))
                 self._mem_sorted.pop(int(s), None)
         slot = np.arange(n, dtype=np.int64) - starts[dest]
         self._mem_n = _memtable_append_flat(
             self._mem_r, self._mem_c, self._mem_v, self._mem_n, dest, slot,
             rows, cols, vals)
+
+    def insert_routed(self, br, bc, bv):
+        """Memtable append of already-routed ``[S, batch_cap]`` buffers
+        (row s for shard s, pads I32_MAX); a minor compaction first when a
+        shard's memtable would overflow. Not journaled: the routed path is
+        the SPMD path, not the durable one. The host mirror goes stale
+        until the next flush."""
+        self._check_open()
+        if self.t_store is not None:
+            raise ValueError(
+                "insert_routed() does not maintain the transpose sibling; "
+                "use insert() on a transpose-enabled store (or "
+                "spmd.make_spmd_lsm_pair_ingest_step on a mesh)")
+        br, bc = (torch.as_tensor(x, device=self.device).to(torch.int32)
+                  for x in (br, bc))
+        bv = torch.as_tensor(bv, device=self.device).to(torch.float32)
+        incoming = (br != I32_MAX).sum(dim=1).cpu().numpy()
+        if (self._mem_n + incoming > self.mem_cap).any():
+            self.flush()
+        self._mirror_ok = False
+        self._mem_mirror = [[] for _ in range(self.S)]
+        self._mem_sorted.clear()
+        self._mem_n = _memtable_append(self._mem_r, self._mem_c, self._mem_v,
+                                       self._mem_n, incoming, br, bc, bv)
 
     def flush(self) -> None:
         """Minor compaction: memtable -> L0 run (LSM, O(memtable)) or merge
@@ -675,6 +720,7 @@ class ShardedTable:
             self._mem_v.zero_()
             self._mem_n = np.zeros((self.S,), np.int64)
             self._mem_mirror = [[] for _ in range(self.S)]
+            self._mirror_ok = True
             self._mem_sorted.clear()
         if self.t_store is not None:
             self.t_store.flush()
@@ -710,7 +756,12 @@ class ShardedTable:
                 for k in ("rows", "cols", "vals", "n")}
 
     def _mem_host(self, s: int):
-        """Host mirror of shard ``s``'s memtable."""
+        """Host mirror of shard ``s``'s memtable; a copy of the device
+        memtable while the mirror is stale."""
+        if not self._mirror_ok:  # copies: on the CPU .numpy() aliases
+            n = min(int(self._mem_n[s]), self.mem_cap)
+            return tuple(x[s, :n].to("cpu", copy=True).numpy()
+                         for x in (self._mem_r, self._mem_c, self._mem_v))
         if not self._mem_mirror[s]:
             return (np.zeros(0, np.int32), np.zeros(0, np.int32),
                     np.zeros(0, np.float32))

@@ -17,6 +17,7 @@ def test_port_imports_without_jax_or_repro():
             "repro_torch.kernels.sorted_search, "
             "repro_torch.kernels.merge_rank, repro_torch.data, "
             "repro_torch.data.tokens, repro_torch.db.tablets, "
+            "repro_torch.db.spmd, "
             "repro_torch.obs.export, repro_torch.kernels.segment_reduce, "
             "repro_torch.kernels.spmv, repro_torch.db.schema, "
             "repro_torch.db.naive, repro_torch.db.graphulo, "
