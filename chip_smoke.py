@@ -9,8 +9,10 @@ single-run engine, Graphulo's SpMV, the per-run read path, a crash and
 recovery of the pair from its write-ahead log, dynamic tablets under a
 Zipf stream (with a crash and a per-tablet recovery), the store-backed
 token pipeline, the SPMD mesh path (4 rank processes and a single NCCL
-rank), and the LM serving path
-(``launch/serve.py`` → ``Engine`` → prefill / decode); builds the hand-written CUDA
+rank), the LM serving path (``launch/serve.py`` → ``Engine`` → prefill /
+decode) and the LM training path (``launch/train.py`` → train step →
+``train_loss`` with per-layer remat → AdamW, checkpoints and a resume);
+builds the hand-written CUDA
 kernels from ``src/repro_torch/csrc``, shows that each path launched its
 kernels, and holds each kernel against its plain PyTorch version at the
 path's shapes.
@@ -118,9 +120,24 @@ Phases (each raises on failure):
      flash-attention kernel (960 and 3,840 launches), the card's first
      prefill equals the same weights' prefill on the CPU within 2e-2, and
      prefill-then-decode equals the full prefill within 5e-2 (bf16);
+  10. LM training: the same model and init, through
+     ``repro_torch.launch.train.main`` (batch 8 x 512 tokens from a
+     ``TokenStore`` on the card, remat ``dots_no_batch``): (a) 20 steps
+     uninterrupted; 20 steps with a checkpoint every 10 that crash right
+     after the first (an exception out of ``checkpoint.save``; its 34
+     leaves byte-equal to the state in memory), resumed to step 20 with
+     losses equal to the uninterrupted run's within ``RESUME_RTOL``; the
+     loss falls; step ms, tokens/s and peak device memory logged, with the
+     plain attention backward's ms beside the kernel forward's and one
+     traced step; (b) one step's gradient of every leaf on the card (bf16)
+     against the same weights' on the CPU (float32), relative error norm
+     <= 5e-2 and a non-zero norm each, a check that a planted F1 (the
+     attention output detached from q, k, v) must fail; (c) during (a)
+     self-attention ran only on #7, 2 launches a layer a step (the remat
+     recompute), 2,400 in all, and no other kernel;
   5. each kernel against its plain version on the card at every input
      each path gave it (recorded in phases 3, 4b, 4c, 4d, 7, 8, 9 — by the
-     ranks, per geometry — and 6: per
+     ranks, per geometry — 6 and 10: per
      geometry for the LSM kernels and flash attention, per call for the
      1-D rank, the tablet gather, segment sum and SpMVs), ranks, merged
      rows, read entries and degree sums exactly equal (the merge-path
@@ -308,8 +325,8 @@ class Recorder:
         if self.every_call:
             geo += (len(self.calls),)
         if geo not in self.calls:
-            self.calls[geo] = [0, ([a.clone() if hasattr(a, "clone") else a
-                                    for a in args], dict(kw))]
+            self.calls[geo] = [0, ([a.detach().clone() if hasattr(a, "clone")
+                                    else a for a in args], dict(kw))]
         self.calls[geo][0] += 1
         return self.fn(*args, **kw)
 
@@ -1072,6 +1089,289 @@ def serving(seed, stash, profile_dir=None):
             if not np.array_equal(r.out, a.out):
                 raise AssertionError("phase 6: traced run b's tokens differ")
     return stats, launches
+
+
+# ------------------------------------------------------------------ phase 10
+# LM training at full width: smollm-135m in bf16 through launch/train.py,
+# batch 8 x 512 tokens; the F1 pin at batch 1 x 128 tokens
+P10 = dict(arch="smollm-135m", reduced=False, steps=20, crash=10, batch=8,
+           seq=512, docs=64, grad_batch=1, grad_seq=128)
+TRAIN_DIR = ROOT / "build" / "phase10"
+# resumed losses against the uninterrupted run's: bit-equal in every run on
+# the H100 so far (the state is restored bit for bit and the step's ops
+# ran deterministically); the limit leaves room for float noise only
+RESUME_RTOL = 1e-6
+
+
+class SimulatedCrash(Exception):
+    pass
+
+
+def train_argv(seed, device, ckpt_dir=None, resume=False):
+    argv = ["--arch", P10["arch"], "--steps", str(P10["steps"]),
+            "--batch", str(P10["batch"]), "--seq", str(P10["seq"]),
+            "--docs", str(P10["docs"]), "--ckpt-every", str(P10["crash"]),
+            "--seed", str(seed), "--device", str(device)]
+    if P10["reduced"]:
+        argv.append("--reduced")
+    if ckpt_dir is not None:
+        argv += ["--ckpt-dir", str(ckpt_dir)]
+    return argv + (["--resume"] if resume else [])
+
+
+def leaf_grad_errors(got, want):
+    """Per leaf (in flatten order): (relative error norm of ``got``
+    against ``want``, ``got``'s norm), both in float32 on the host."""
+    from repro_torch.models.spec import tree_leaves
+    out = []
+    for g, w in zip(tree_leaves(got), tree_leaves(want)):
+        g, w = g.detach().float().cpu(), w.detach().float().cpu()
+        out.append((float((g - w).norm() / w.norm().clamp_min(1e-30)),
+                    float(g.norm())))
+    return out
+
+
+def training(seed, smi, stash, device="cuda"):
+    """Phase 10: LM training at full width on the card. (a) Through
+    ``repro_torch.launch.train.main``: an uninterrupted run of
+    ``P10["steps"]`` steps; a run with a checkpoint every ``P10["crash"]``
+    steps that "crashes" right after its first checkpoint (an exception
+    out of ``checkpoint.save``, once the files are down), whose leaves
+    must be byte-equal to the state in memory at the save; and its resume
+    to the last step, whose losses must equal the uninterrupted run's
+    within ``RESUME_RTOL``; the loss must fall. Every step is timed (host
+    clock, synchronised by the training loop's ``float(loss)``). (b) One step's
+    gradient of every leaf on the card (bf16) against the same weights'
+    on the CPU (float32): relative error norm <= 5e-2 and a non-zero norm
+    for every leaf; the same check must fail a planted F1 (the attention
+    output detached from q, k and v). (c) During (a), self-attention ran
+    only on #7: 2 launches a layer a step (the remat recompute), and no
+    other kernel. Returns (stats, launches of (a))."""
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config, get_reduced
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_ref
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import build, init_params, layers
+    from repro_torch.models.convert import leaf_to_numpy
+    from repro_torch.models.spec import tree_leaves, tree_map
+    from repro_torch.train import checkpoint
+    from repro_torch.train.train_step import loss_and_grads
+
+    cfg = (get_reduced if P10["reduced"] else get_config)(P10["arch"])
+    model = build(cfg)
+    n_steps, crash = P10["steps"], P10["crash"]
+    tokens_step = P10["batch"] * P10["seq"]
+    log(f"phase 10: {cfg.name}: {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads}, hd "
+        f"{cfg.hd}, vocab {cfg.vocab}, {cfg.param_dtype}; {n_steps} steps "
+        f"of {P10['batch']} x {P10['seq']} tokens, remat dots_no_batch")
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    step_s = {}  # run -> seconds of each step
+    make_step = launch_train.make_train_step
+
+    def timed_steps(run):
+        def make(*a, **kw):
+            step = make_step(*a, **kw)
+
+            def timed(*args):
+                t0 = clock()
+                out = step(*args)
+                out[2].item()
+                step_s[run].append(clock() - t0)
+                return out
+            return timed
+        step_s[run] = []
+        launch_train.make_train_step = make
+
+    saved = {}
+    save = checkpoint.save
+
+    def save_then_crash(ckpt_dir, step, tree, **kw):
+        saved["step"] = step
+        saved["leaves"] = [leaf_to_numpy(x) for x in tree_leaves(tree)]
+        save(ckpt_dir, step, tree, **kw)
+        raise SimulatedCrash(step)
+
+    if device == "cuda":  # what earlier phases hold stays out of the peak
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+    t_a = time.perf_counter()
+    try:
+        with kernel_run(stash) as launches:
+            timed_steps("whole")
+            whole, t_whole = timed_call(lambda: launch_train.main(
+                train_argv(seed, device)))
+            timed_steps("crashed")
+            checkpoint.save = save_then_crash
+            try:
+                launch_train.main(train_argv(seed, device, TRAIN_DIR))
+                raise AssertionError("phase 10: the run did not crash")
+            except SimulatedCrash:
+                pass
+            finally:
+                checkpoint.save = save
+            timed_steps("resumed")
+            resumed, t_resumed = timed_call(lambda: launch_train.main(
+                train_argv(seed, device, TRAIN_DIR, resume=True)))
+    finally:
+        launch_train.make_train_step = make_step
+    t_a = time.perf_counter() - t_a
+    if device == "cuda":
+        peak = torch.cuda.max_memory_allocated()
+        peak_gb, own_gb = peak / 1e9, (peak - held) / 1e9
+    else:
+        peak_gb = own_gb = float("nan")
+    if len(whole) != n_steps or not np.all(np.isfinite(whole)):
+        raise AssertionError(f"phase 10: losses {whole}")
+    if not whole[-1] < whole[0]:
+        raise AssertionError(f"phase 10: the loss did not fall: {whole}")
+    if saved.get("step") != crash or len(resumed) != n_steps - crash:
+        raise AssertionError(f"phase 10: crashed at {saved.get('step')}, "
+                             f"resumed {len(resumed)} steps")
+    resume_err = max(abs(a - b) / abs(b) for a, b in zip(resumed,
+                                                         whole[crash:]))
+    if resume_err > RESUME_RTOL:
+        raise AssertionError(f"phase 10: resumed losses {resumed} vs "
+                             f"{whole[crash:]} (rel {resume_err:.3g})")
+    d = TRAIN_DIR / f"step_{crash:08d}"
+    for i, want in enumerate(saved["leaves"]):
+        got = np.load(d / f"leaf_{i:05d}.npy")
+        if got.shape != want.shape or got.tobytes() != want.tobytes():
+            raise AssertionError(f"phase 10: checkpoint leaf {i} differs "
+                                 f"from the state at the save")
+    if checkpoint.latest_step(str(TRAIN_DIR)) != n_steps:
+        raise AssertionError("phase 10: no final checkpoint")
+    # (c) self-attention on the kernel only, twice a layer a step
+    want_launches = 2 * cfg.n_layers * (n_steps + crash + n_steps - crash)
+    if launches["flash_attention"] != want_launches or \
+            sum(launches.values()) != want_launches:
+        raise AssertionError(f"phase 10: launches {launches}, want "
+                             f"{want_launches} of flash_attention only")
+    steady = sorted(step_s["whole"][1:])
+    med = steady[len(steady) // 2]
+    stats = {"losses": whole, "resumed": resumed, "resume_rel_err": resume_err,
+             "first_step_s": step_s["whole"][0], "median_step_s": med,
+             "step_s": {k: v for k, v in step_s.items()},
+             "tok_per_s": tokens_step / med, "wall_whole_s": t_whole,
+             "wall_resumed_s": t_resumed, "wall_a_s": t_a,
+             "peak_mem_gb": own_gb, "peak_mem_total_gb": peak_gb,
+             "checkpoint_leaves": len(saved["leaves"]),
+             "checkpoint_mb": sum(x.nbytes for x in saved["leaves"]) / 1e6}
+    log(f"phase 10 (a) ({smi}): losses {whole[0]:.4f} -> {whole[-1]:.4f}; "
+        f"resumed from step {crash} to {n_steps}, largest relative loss "
+        f"difference {resume_err:.3g}; step {med * 1e3:.3f} ms median "
+        f"(first {step_s['whole'][0] * 1e3:.3f} ms), "
+        f"{tokens_step / med:.1f} tokens/s; training's peak device memory "
+        f"{own_gb:.3f} GB ({peak_gb:.3f} GB with what earlier phases "
+        f"hold); checkpoint of {len(saved['leaves'])} leaves, "
+        f"{stats['checkpoint_mb']:.1f} MB, byte-equal to the state at the "
+        f"save; launches {json.dumps({k: v for k, v in launches.items() if v})}")
+
+    # the plain backward's time beside the kernel forward's, at (a)'s
+    # attention inputs (the recorded geometry)
+    args, kw = next(iter(stash["flash_attention"].calls.values()))[1]
+    q, k, v = args
+    dout = torch.randn_like(q)
+    if device == "cuda":
+        stats["attn_bwd_ms"] = cuda_ms(lambda: flash_attention_bwd_ref(
+            q, k, v, dout, causal=True), 5, warm=1)
+        stats["attn_fwd_ms"] = cuda_ms(lambda: layers.flash_attention(
+            q, k, v, causal=True), 20)
+        log(f"phase 10 ({smi}): attention at {list(q.shape)} "
+            f"{str(q.dtype)[6:]}: kernel forward {stats['attn_fwd_ms']:.6g} "
+            f"ms, plain backward (recompute) {stats['attn_bwd_ms']:.6g} ms "
+            f"a layer, {cfg.n_layers * stats['attn_bwd_ms']:.6g} ms a step")
+
+    # (b) F1's pin: every leaf's gradient on the card against the CPU's
+    gen = torch.Generator().manual_seed(seed + 1)
+    params = init_params(model.param_specs, torch.Generator().manual_seed(seed))
+    if device == "cuda":
+        stats["profile"] = step_profile(model, params, seed)
+        log(f"phase 10 ({smi}) one traced step: " + json.dumps(
+            stats["profile"]))
+    toks = torch.randint(1, cfg.vocab, (P10["grad_batch"], P10["grad_seq"]),
+                         dtype=torch.int32, generator=gen)
+    cpu_params = tree_map(lambda p: p.float(), params)
+    _, want = loss_and_grads(model, cpu_params, {"tokens": toks})
+    card_params = tree_map(lambda p: p.to(device), params)
+    batch = {"tokens": toks.to(device)}
+    _, got = loss_and_grads(model, card_params, batch)
+    errs = leaf_grad_errors(got, want)
+    names = leaf_names(params)
+    bad = [(n, e) for n, e in zip(names, errs) if e[0] > 5e-2 or e[1] <= 0]
+    if bad:
+        raise AssertionError(f"phase 10 (b): leaf gradients off: {bad}")
+    real = layers.flash_attention
+
+    def detached(q, k, v, **kw):  # F1: no edge back to q, k, v
+        return real(q.detach(), k.detach(), v.detach(), **kw)
+
+    layers.flash_attention = detached
+    try:
+        _, planted = loss_and_grads(model, card_params, batch)
+    finally:
+        layers.flash_attention = real
+    perrs = leaf_grad_errors(planted, want)
+    caught = [n for n, e in zip(names, perrs) if e[0] > 5e-2 or e[1] <= 0]
+    if not caught:
+        raise AssertionError("phase 10 (b): the check passes a planted F1")
+    stats["grad_rel_err"] = dict(zip(names, (e[0] for e in errs)))
+    stats["planted_f1_caught"] = caught
+    log(f"phase 10 (b) ({smi}): every leaf's gradient on the card (bf16) "
+        f"against the CPU's (float32) at {P10['grad_batch']} x "
+        f"{P10['grad_seq']} tokens, relative error norm <= "
+        f"{max(e[0] for e in errs):.4g} (limit 5e-2), norms > 0: "
+        + json.dumps(stats["grad_rel_err"])
+        + f"; a planted F1 fails on {caught}")
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    return stats, launches
+
+
+def step_profile(model, params, seed):
+    """One train step of (a)'s shape on fresh weights, after one untimed
+    step, under torch.profiler: wall ms (the profiler's cost included),
+    summed device ms of the kernels and copies, the busy share, and the
+    top 12 device ops by self device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models.spec import tree_map
+    from repro_torch.train import AdamWConfig, adamw_init, make_train_step
+    params = tree_map(lambda p: p.cuda(), params)
+    opt_cfg = AdamWConfig(peak_lr=3e-3, warmup_steps=2, total_steps=20)
+    step = make_train_step(model, opt_cfg)
+    toks = torch.randint(1, model.cfg.vocab, (P10["batch"], P10["seq"]),
+                         dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(seed + 2))
+    batch = {"tokens": toks.cuda()}
+    state = step(params, adamw_init(params, opt_cfg), batch)
+    state[2].item()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = clock()
+        step(state[0], state[1], batch)[2].item()
+        wall = (clock() - t0) * 1e3
+    ka = prof.key_averages()
+    key = ("self_device_time_total"
+           if hasattr(ka[0], "self_device_time_total") else
+           "self_cuda_time_total")
+    dev = sorted(((getattr(e, key) / 1e3, e.key, e.count) for e in ka
+                  if e.device_type != DeviceType.CPU and getattr(e, key) > 0),
+                 reverse=True)
+    total = sum(ms for ms, _, _ in dev)
+    return {"wall_ms": wall, "device_ms": total, "busy": total / wall,
+            "kernels": len(dev), "launches": sum(n for _, _, n in dev),
+            "top": [[name[:60], round(ms, 3), n] for ms, name, n in dev[:12]]}
+
+
+def leaf_names(tree, prefix=""):
+    """Slash-joined key paths of a tree's leaves, in flatten order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in leaf_names(tree[k], f"{prefix}{k}/")]
+    return [prefix[:-1]]
 
 
 # ------------------------------------------------------------------ phase 8
@@ -2012,8 +2312,8 @@ def input_groups(inputs):
 
 def kernel_checks(stash, launches):
     """Each kernel against its plain version at every input each path gave
-    it (``stash[path][kernel]``, recorded in phases 3, 4b, 4c, 4d, 7, 8, 9
-    and 6: one per geometry for #1-#3 and #7, every call for #4-#6 and the
+    it (``stash[path][kernel]``, recorded in phases 3, 4b, 4c, 4d, 7, 8, 9,
+    6 and 10: one per geometry for #1-#3 and #7, every call for #4-#6 and the
     tablet gather; a decode step's position is part of #7's geometry;
     ``stash[path]["tablet_read"]`` the 4c reads). ``launches[path]`` are
     the paths' launch counts. Every time is the mean per launch over all
@@ -2634,7 +2934,7 @@ def main(argv=None):
     stash = {p: {} for p in ("listing1", "fig4", "graphulo", "single",
                              "recover", "tablets", "tablets_recover",
                              "tokens", "mesh", "mesh_nccl", "serve_a",
-                             "serve_b")}
+                             "serve_b", "train")}
     launches = {}
     reads, stats, times, launches["listing1"] = listing1(
         graph, True, cap, stash["listing1"])
@@ -2751,6 +3051,12 @@ def main(argv=None):
              "tokens_out": st["tokens_out"], "batches": st["batches"],
              "launches": serve_launches[run]["flash_attention"]}))
     log(f"phase 6: peak device memory {serve_stats['peak_mem_gb']:.3f} GB")
+
+    # 10. LM training at full width, a crash and a resume; F1's pin
+    t10 = time.perf_counter()
+    train_stats, launches["train"] = training(args.seed, smi, stash["train"])
+    log(f"phase 10 ({smi}): " + json.dumps(train_stats))
+    log(f"phase 10: {time.perf_counter() - t10:.3f} s")
 
     # 5. kernels against their plain versions
     kernels = kernel_checks(stash, launches)

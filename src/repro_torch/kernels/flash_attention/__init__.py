@@ -1,4 +1,4 @@
 from .ops import flash_attention
-from .ref import flash_attention_ref
+from .ref import flash_attention_bwd_ref, flash_attention_ref
 
-__all__ = ["flash_attention", "flash_attention_ref"]
+__all__ = ["flash_attention", "flash_attention_bwd_ref", "flash_attention_ref"]

@@ -1,11 +1,16 @@
-"""Public wrapper of flash attention, the self-attention of the LM's prefill
-and decode steps (``models.layers.attention``). A CUDA tensor goes to the
-hand kernel (``csrc/flash_attention.cu``) or raises; a CPU tensor goes to
-the plain version."""
+"""Public wrapper of flash attention, the self-attention of the LM's
+prefill, decode and training steps (``models.layers.attention``). A CUDA
+tensor goes to the hand kernel (``csrc/flash_attention.cu``) or raises; a
+CPU tensor goes to the plain version.
+
+On the card the kernel is the forward of a ``torch.autograd.Function``
+whose backward recomputes the plain version (``flash_attention_bwd_ref``),
+as the JAX package's training path differentiates its plain attention and
+recomputes the scores of its blocked form; there is no backward kernel."""
 import torch
 
 from ..common import cdiv, check_cuda, launch
-from .ref import flash_attention_ref
+from .ref import flash_attention_bwd_ref, flash_attention_ref
 
 HEAD_DIMS = (64, 128)  # the head dims the kernel is built for
 _MAX_GRID_Y = 65535  # the grid's y extent (float32 prefill: blocks of 8 rows)
@@ -48,6 +53,30 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention: q_offset={q_offset} < 0")
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, q_offset=q_offset)
+    return _Attention.apply(q, k, v, bool(causal), int(q_offset))
+
+
+class _Attention(torch.autograd.Function):
+    """The kernel forward; the backward recomputes the plain version."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, q_offset):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.q_offset = causal, q_offset
+        return _launch(q, k, v, causal, q_offset)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd_ref(q, k, v, dout, causal=ctx.causal,
+                                             q_offset=ctx.q_offset)
+        return dq, dk, dv, None, None
+
+
+def _launch(q, k, v, causal: bool, q_offset: int) -> torch.Tensor:
+    """One launch of the kernel on CUDA tensors (checked here)."""
+    b, sq, h, hd = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
     if q.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"flash_attention: the kernel takes bf16 or float32, "
                         f"got {q.dtype}")

@@ -1,6 +1,6 @@
 """Unified model API: ``build(cfg)`` returns the step functions and input
-specs of one architecture. The port serves the dense family; the other
-families and training raise ``NotImplementedError`` naming the ROADMAP item
+specs of one architecture. The port trains and serves the dense family;
+the other families raise ``NotImplementedError`` naming the ROADMAP item
 that ports them."""
 from __future__ import annotations
 
@@ -22,22 +22,16 @@ _LATER = {"moe": "11c (MoE)", "ssm": "11d (Mamba2)", "hybrid": "11e (hybrid)",
 class Model:
     cfg: ModelConfig
     param_specs: Any
-    train_loss: Callable          # raises: training is ROADMAP item 11b
+    train_loss: Callable          # (params, batch, remat) -> loss
     prefill: Callable             # (params, batch) -> (logits, cache)
     decode: Callable              # (params, batch) -> (logits, cache)
-    train_input_specs: Callable   # raises, as train_loss
+    train_input_specs: Callable   # (gb, seq) -> PSpec dict
     prefill_input_specs: Callable  # (gb, seq) -> PSpec dict
     decode_input_specs: Callable  # (gb, seq) -> PSpec dict (incl cache, pos)
 
 
 def _tok_spec(gb: int, s: int) -> PSpec:
     return PSpec((gb, s), torch.int32, "zeros")
-
-
-def _no_training(*_args, **_kw):
-    raise NotImplementedError(
-        "training is not ported yet: ROADMAP Queue 1 item 11b (train/, "
-        "softmax_xent, train_loss)")
 
 
 def build(cfg: ModelConfig) -> Model:
@@ -48,6 +42,9 @@ def build(cfg: ModelConfig) -> Model:
     if cfg.family != "dense":
         raise ValueError(f"unknown family {cfg.family!r}")
 
+    def train(p, b, remat="dots_no_batch"):
+        return transformer.train_loss(cfg, p, b, remat)
+
     def prefill(p, b):
         return transformer.prefill(cfg, p, b["tokens"], b.get("max_len"))
 
@@ -55,7 +52,7 @@ def build(cfg: ModelConfig) -> Model:
         return transformer.decode_step(cfg, p, b["token"], b["cache"],
                                        b["pos"])
 
-    def prefill_in(gb, s):
+    def tok_in(gb, s):
         return {"tokens": _tok_spec(gb, s)}
 
     def decode_in(gb, s):
@@ -63,5 +60,5 @@ def build(cfg: ModelConfig) -> Model:
                 "pos": PSpec((), torch.int32, "zeros"),
                 "cache": transformer.cache_specs(cfg, gb, s)}
 
-    return Model(cfg, transformer.param_specs(cfg), _no_training, prefill,
-                 decode, _no_training, prefill_in, decode_in)
+    return Model(cfg, transformer.param_specs(cfg), train, prefill, decode,
+                 tok_in, tok_in, decode_in)

@@ -1,5 +1,5 @@
 """Shared transformer layers: norms, RoPE, GQA self-attention (+KV cache),
-MLPs, embedding and unembedding.
+MLPs, embedding, unembedding and the training loss.
 
 Plain functions on tensors over a parameter tree (``spec.py``), with the
 JAX package's layouts: weights ``[in, out]`` (``x @ w``), activations
@@ -8,7 +8,8 @@ float32 norms, RoPE angles and attention. Self-attention is
 ``kernels.flash_attention`` on every path: the JAX ``_sdpa`` and
 ``_blocked_sdpa`` (Sq >= 4096) compute the same function, except that
 they round scores and weights to the activation dtype where the kernel
-keeps float32.
+keeps float32. On the card its gradient is the plain version's, by
+recompute (``kernels.flash_attention``).
 """
 from __future__ import annotations
 
@@ -159,3 +160,21 @@ def unembed(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
     if cfg.tie_embeddings:
         return (x @ p["embedding"].T).float()
     return (x @ p["lm_head"]).float()
+
+
+def softmax_xent(cfg: ModelConfig, logits: torch.Tensor, labels: torch.Tensor,
+                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean next-token cross-entropy in float32 (the JAX function): the
+    pad-vocab columns set to -1e30, then logsumexp minus the gold logit,
+    averaged over ``mask`` with a denominator of at least 1."""
+    logits = logits.float()
+    v = logits.shape[-1]
+    keep = torch.arange(v, device=logits.device)[None, None, :] < cfg.vocab
+    logits = torch.where(keep, logits, torch.full((), -1e30,
+                                                  device=logits.device))
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = lse - gold
+    if mask is None:
+        return nll.mean()
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)

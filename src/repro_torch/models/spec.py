@@ -29,6 +29,34 @@ def tree_map(fn: Callable, tree):
     return fn(tree)
 
 
+def tree_leaves(tree) -> list:
+    """The leaves of a nested dict / tuple / list in ``tree_map``'s order
+    (the JAX flatten order: dict keys sorted)."""
+    out = []
+    tree_map(out.append, tree)
+    return out
+
+
+def tree_unflatten(like, leaves):
+    """A tree of ``like``'s structure holding ``leaves`` in flatten order."""
+    it = iter(leaves)
+    tree = tree_map(lambda _: next(it), like)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the tree holds")
+    return tree
+
+
+def flatten_up_to(like, tree) -> list:
+    """The subtrees of ``tree`` that sit at the leaves of ``like``'s
+    structure, in flatten order (``jax.tree`` ``flatten_up_to``)."""
+    if isinstance(like, dict):
+        return [x for k in sorted(like) for x in flatten_up_to(like[k],
+                                                               tree[k])]
+    if isinstance(like, (tuple, list)):
+        return [x for a, b in zip(like, tree) for x in flatten_up_to(a, b)]
+    return [tree]
+
+
 def init_params(specs, generator: torch.Generator, scale: float = 0.02,
                 device=None):
     """Materialise a parameter tree from a spec tree: "zeros" and "ones"

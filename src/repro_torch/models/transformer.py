@@ -1,16 +1,20 @@
-"""Decoder-only transformer LM, dense GQA family: the serving steps.
+"""Decoder-only transformer LM, dense GQA family: the train loss and the
+serving steps.
 
 The parameter tree keeps the JAX package's stacked ``[L, ...]`` block
 leaves; the JAX ``lax.scan`` over layers is a Python loop over per-layer
-views. Two step kinds: prefill (builds the KV cache) and single-token
-decode. Training (``train_loss``, ``apply_stack``, remat) and the MoE
-block come with later slices (ROADMAP Queue 1 items 11b and 11c).
+views. Three step kinds: the train loss (with per-layer remat), prefill
+(builds the KV cache) and single-token decode. The MoE block comes with
+a later slice (ROADMAP Queue 1 item 11c).
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from . import layers
 from .config import ModelConfig
@@ -18,11 +22,24 @@ from .spec import PSpec, tree_map
 
 Cache = Tuple[torch.Tensor, torch.Tensor]  # (k, v), each [L, B, Smax, KV, hd]
 
+_aten = torch.ops.aten
+# The JAX checkpoint policies by name: None runs a layer without a
+# checkpoint; otherwise each layer is one checkpoint that keeps the outputs
+# of these ops and recomputes the rest in the backward ("dots_no_batch":
+# ``x @ w`` reaches the dispatcher as ``mm``; "dots" also keeps batched
+# products; "nothing" keeps none).
+REMAT_POLICIES = {
+    "none": None,
+    "dots": (_aten.mm.default, _aten.addmm.default, _aten.bmm.default),
+    "dots_no_batch": (_aten.mm.default, _aten.addmm.default),
+    "nothing": (),
+}
+
 
 def _dense_only(cfg: ModelConfig) -> None:
     if cfg.family != "dense":
         raise NotImplementedError(
-            f"family {cfg.family!r}: the port serves the dense family only "
+            f"family {cfg.family!r}: the port runs the dense family only "
             "(MoE blocks: ROADMAP Queue 1 item 11c)")
 
 
@@ -53,6 +70,49 @@ def apply_block(cfg: ModelConfig, p, x: torch.Tensor, positions, *,
     x = x + h
     x = x + layers.apply_mlp(cfg, p["mlp"], layers.apply_norm(cfg, p["ln2"], x))
     return x, new_kv
+
+
+def apply_stack(cfg: ModelConfig, blocks, x: torch.Tensor, positions,
+                remat: str = "dots_no_batch"):
+    """The train path's layers in order, each under the remat policy
+    ``remat`` (a ``REMAT_POLICIES`` name; another raises ``KeyError``);
+    returns (x, aux_sum), the dense family's aux being 0."""
+    _dense_only(cfg)
+    saved = REMAT_POLICIES[remat]
+    kw = {"use_reentrant": False}
+    if saved:
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, list(saved))
+
+    def body(blk, y):
+        return apply_block(cfg, blk, y, positions)[0]
+
+    for i in range(cfg.n_layers):  # layer i's parameters: views of the stack
+        blk = tree_map(lambda w: w[i], blocks)
+        x = body(blk, x) if saved is None else checkpoint(body, blk, x, **kw)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def train_loss(cfg: ModelConfig, params, batch: Dict,
+               remat: str = "dots_no_batch") -> torch.Tensor:
+    """Mean next-token cross-entropy of ``batch["tokens"]`` [B, S] (the
+    last position masked) plus 0.01 x the blocks' aux loss: a 0-d float32
+    tensor."""
+    _dense_only(cfg)
+    tokens = batch["tokens"]
+    x = layers.embed_tokens(params["embed"], tokens)
+    positions = torch.arange(tokens.shape[1], dtype=torch.int32,
+                             device=tokens.device)
+    x, aux = apply_stack(cfg, params["blocks"], x, positions, remat)
+    x = layers.apply_norm(cfg, params["final_norm"], x)
+    logits = layers.unembed(cfg, params["embed"], x)
+    labels = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])],
+                       dim=1)
+    b, s = tokens.shape
+    mask = torch.cat([torch.ones(b, s - 1, device=tokens.device),
+                      torch.zeros(b, 1, device=tokens.device)], dim=1)
+    loss = layers.softmax_xent(cfg, logits, labels, mask)
+    return loss + 0.01 * aux
 
 
 def _run_layers(cfg: ModelConfig, params, x, positions, cache: Cache,

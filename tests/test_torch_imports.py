@@ -22,7 +22,11 @@ def test_port_imports_without_jax_or_repro():
             "repro_torch.kernels.spmv, repro_torch.db.schema, "
             "repro_torch.db.naive, repro_torch.db.graphulo, "
             "repro_torch.models, repro_torch.configs, repro_torch.serve, "
-            "repro_torch.launch.serve, repro_torch.kernels.flash_attention\n"
+            "repro_torch.launch.serve, repro_torch.kernels.flash_attention, "
+            "repro_torch.train, repro_torch.train.optimizer, "
+            "repro_torch.train.train_step, repro_torch.train.checkpoint, "
+            "repro_torch.train.compress, repro_torch.train.elastic, "
+            "repro_torch.launch.train\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
             "m.startswith('repro.') or m == 'ml_dtypes')\n"

@@ -168,10 +168,14 @@ def test_layernorm_and_gelu_match_jax():
 
 
 def test_build_serves_dense_only_and_refuses_training():
+    """``build`` takes the dense family only (the other families name
+    their ROADMAP item); a dense model trains: ``train_loss`` of a small
+    batch is a finite 0-d float32 tensor. (Training was refused before it
+    was ported; the name is kept for the record.)"""
     from repro.configs import get_config as jax_config
     from repro.models import param_count as jax_param_count
     from repro_torch.configs import ARCH_IDS, get_config
-    from repro_torch.models import param_count
+    from repro_torch.models import init_params, param_count
     for arch in ARCH_IDS:
         cfg = get_reduced(arch)
         if cfg.family == "dense":
@@ -180,8 +184,14 @@ def test_build_serves_dense_only_and_refuses_training():
                               (get_config(arch), jax_config(arch))):
                 assert param_count(build(port).param_specs) == \
                     jax_param_count(jax_build(ref).param_specs)
-            with pytest.raises(NotImplementedError, match="item 11b"):
-                model.train_loss()
+            params = init_params(model.param_specs,
+                                 torch.Generator().manual_seed(0))
+            toks = torch.randint(1, cfg.vocab, (2, 8), dtype=torch.int32,
+                                 generator=torch.Generator().manual_seed(1))
+            loss = model.train_loss(params, {"tokens": toks})
+            assert loss.dtype == torch.float32 and loss.dim() == 0
+            assert bool(torch.isfinite(loss))
+            assert set(model.train_input_specs(2, 16)) == {"tokens"}
             assert set(model.decode_input_specs(2, 16)) == {"token", "pos",
                                                             "cache"}
         else:
