@@ -10,8 +10,9 @@ recovery of the pair from its write-ahead log, dynamic tablets under a
 Zipf stream (with a crash and a per-tablet recovery), the store-backed
 token pipeline, the SPMD mesh path (4 rank processes and a single NCCL
 rank), the LM serving path (``launch/serve.py`` → ``Engine`` → prefill /
-decode) and the LM training path (``launch/train.py`` → train step →
-``train_loss`` with per-layer remat → AdamW, checkpoints and a resume);
+decode), the LM training path (``launch/train.py`` → train step →
+``train_loss`` with per-layer remat → AdamW, checkpoints and a resume)
+and the MoE, Mamba2 and hybrid families (serving and a train step);
 builds the hand-written CUDA
 kernels from ``src/repro_torch/csrc``, shows that each path launched its
 kernels, and holds each kernel against its plain PyTorch version at the
@@ -135,9 +136,28 @@ Phases (each raises on failure):
      attention output detached from q, k, v) must fail; (c) during (a)
      self-attention ran only on #7, 2 launches a layer a step (the remat
      recompute), 2,400 in all, and no other kernel;
+  11. the MoE, Mamba2 and hybrid families at full width (sizes in
+     ``P11``): (a) olmoe-1b-7b (16 layers, 64 experts, top 8, hd 128)
+     through ``launch.serve``'s defaults (512 attention launches) and one
+     batch of 4 x 1,920 tokens, 32 new (512 launches), its first prefill at
+     2 layers in float32 against the CPU's float32 (relative error norm
+     <= 1e-3; the bf16 prefills of the card and the CPU logged against it
+     with their routing differences); (b) kimi-k2 (d_model 7,168, 384
+     experts, hd 112) cut to 1 layer, weights drawn on the card, 4
+     requests of 512 tokens and 16 new through ``Engine``; (c)
+     mamba2-2.7b (64 layers) and (d) zamba2-2.7b (54 layers, 9
+     shared-attention applications at hd 80), each a prefill of 4 x 2,048
+     tokens then 64 decode steps in bf16 and again on the weights cast to
+     float32, each step's logits against one forward over the same tokens
+     (float32 <= 1e-3; bf16 logged), #7 never launched in (c) and 9 times
+     a forward in (d); (e) one ``make_train_step`` step per family at
+     reduced depth (olmoe 2 layers in float32, mamba2 2, zamba2 one group
+     of 6) on 2 x 256 tokens, every leaf's gradient finite, non-zero and
+     against the CPU's (olmoe float32 on both within 1e-3; the others
+     bf16 against float32 within 5e-2);
   5. each kernel against its plain version on the card at every input
      each path gave it (recorded in phases 3, 4b, 4c, 4d, 7, 8, 9 — by the
-     ranks, per geometry — 6 and 10: per
+     ranks, per geometry — 6, 10 and 11: per
      geometry for the LSM kernels and flash attention, per call for the
      1-D rank, the tablet gather, segment sum and SpMVs), ranks, merged
      rows, read entries and degree sums exactly equal (the merge-path
@@ -321,7 +341,8 @@ class Recorder:
 
     def __call__(self, *args, **kw):
         geo = (tuple(tuple(a.shape) if hasattr(a, "shape") else a
-                     for a in args), tuple(sorted(kw.items())))
+                     for a in args), tuple(sorted(kw.items())),
+               tuple(str(a.dtype)[6:] for a in args if hasattr(a, "dtype")))
         if self.every_call:
             geo += (len(self.calls),)
         if geo not in self.calls:
@@ -1374,6 +1395,469 @@ def leaf_names(tree, prefix=""):
     return [prefix[:-1]]
 
 
+# ------------------------------------------------------------------ phase 11
+# The MoE, Mamba2 and hybrid families on the card: (a) olmoe-1b-7b served
+# at full width and depth, (b) kimi-k2 at full width and 1 layer, (c)
+# mamba2-2.7b and (d) zamba2-2.7b at full width and depth, prefill then
+# decode, (e) one training step per family at full width and reduced depth
+P11 = dict(reduced=False, moe="olmoe-1b-7b", kimi="kimi-k2-1t-a32b",
+           kimi_layers=1, ssm="mamba2-2.7b", hybrid="zamba2-2.7b",
+           long_requests=4, long_prompt=1920, long_new=32, long_max_len=2048,
+           cpu_layers=2, kimi_requests=4, kimi_prompt=512, kimi_new=16,
+           ssm_batch=4, ssm_prompt=2048, ssm_decode=64, train_batch=2,
+           train_seq=256, train_steps=2, trace_new=8, trace_decode=4,
+           train_layers={"olmoe-1b-7b": 2, "mamba2-2.7b": 2,
+                         "zamba2-2.7b": 6})
+# where phase 11's traced runs write their per-op tables: olmoe's run b
+# with trace_new new tokens, mamba2's and zamba2's bf16 prefill and
+# trace_decode steps (the profiler's bookkeeping costs ~0.5 ms an event)
+TRACE_DIR = ROOT / "build" / "phase11"
+
+
+def p11_config(arch, **kw):
+    import dataclasses
+    from repro_torch.configs import get_config, get_reduced
+    cfg = (get_reduced if P11["reduced"] else get_config)(arch)
+    return dataclasses.replace(cfg, **kw) if kw else cfg
+
+
+def describe(cfg):
+    extra = ""
+    if cfg.family == "moe":
+        extra = (f", {cfg.n_experts} experts, top {cfg.experts_per_token}, "
+                 f"{cfg.n_shared_experts} shared")
+    if cfg.family in ("ssm", "hybrid"):
+        extra = (f", d_inner {cfg.d_inner}, {cfg.ssm_heads} SSM heads of "
+                 f"{cfg.ssm_headdim}, state {cfg.ssm_state}, chunk "
+                 f"{cfg.ssm_chunk}")
+    if cfg.family == "hybrid":
+        extra += f", shared attention every {cfg.shared_attn_every}"
+    attn = ("" if cfg.family == "ssm" else
+            f", {cfg.n_heads} heads over {cfg.n_kv_heads}, hd {cfg.hd}")
+    return (f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}"
+            f"{attn}{extra}, vocab {cfg.vocab}, {cfg.param_dtype}")
+
+
+def free_card():
+    import gc
+    import torch
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+
+def finite_logits(engine):
+    """Wrap ``engine._greedy`` so that every logits tensor it sees is
+    checked finite; returns the list of the checks' results."""
+    import torch
+    seen, greedy = [], engine._greedy
+
+    def checked(logits):
+        seen.append(bool(torch.isfinite(logits).all()))
+        return greedy(logits)
+    engine._greedy = checked
+    return seen
+
+
+def moe_serving(seed, smi, stash, device="cuda"):
+    """11a: olmoe-1b-7b at full width and depth through
+    ``launch.serve.main``'s defaults, then one long batch through
+    ``Engine``; the first prefill of the defaults at full width and
+    ``cpu_layers`` layers against the CPU's float32 prefill. Returns
+    launches by path."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import moe, transformer
+    from repro_torch.models.spec import tree_map
+    from repro_torch.serve import Engine, Request
+
+    arch = P11["moe"]
+    cfg = p11_config(arch)
+    log(f"phase 11a: {describe(cfg)}")
+    launches, t0 = {}, time.perf_counter()
+    argv = ["--arch", arch, "--seed", str(seed), "--device", str(device)]
+    if P11["reduced"]:
+        argv.append("--reduced")
+    with Calls(launch_serve, "Engine", keep=True) as made, \
+            kernel_run(stash["moe_a"]) as launches["moe_a"]:
+        stats_a = launch_serve.main(argv)
+    engine = made.kept[0][1]
+    params = engine.params
+    rng = np.random.default_rng(seed)
+    prompts_a = [rng.integers(1, cfg.vocab, rng.integers(4, 24)).astype(
+        np.int32) for _ in range(8)]
+    rng = np.random.default_rng(seed)
+    reqs = [Request(prompt=rng.integers(1, cfg.vocab, P11["long_prompt"])
+                    .astype(np.int32), max_new=P11["long_new"])
+            for _ in range(P11["long_requests"])]
+    engine_b = Engine(engine.model, params, batch_slots=4,
+                      max_len=P11["long_max_len"], device=device)
+    finite = finite_logits(engine_b)
+    with kernel_run(stash["moe_b"]) as launches["moe_b"]:
+        stats_b = engine_b.run(reqs)
+    for run, st, n_tok, forwards in (
+            ("moe_a", stats_a, 8 * 16, 2 * 16),
+            ("moe_b", stats_b, P11["long_requests"] * P11["long_new"],
+             P11["long_new"])):
+        want = forwards * cfg.n_layers
+        got = launches[run]
+        if st["tokens_out"] != n_tok:
+            raise AssertionError(f"phase 11a {run}: {st['tokens_out']} "
+                                 f"tokens, want {n_tok}")
+        if got["flash_attention"] != want or sum(got.values()) != want:
+            raise AssertionError(f"phase 11a {run}: launches {got}, want "
+                                 f"{want} of flash_attention only")
+        log(f"phase 11a ({smi}) {run}: " + json.dumps(
+            {k: st[k] for k in ("tok_per_s", "wall_s", "prefill_s",
+                                "decode_s", "decode_steps", "tokens_out",
+                                "batches")}
+            | {"flash_attention": got["flash_attention"]}))
+    if not all(finite) or any(len(r.out) != P11["long_new"] for r in reqs):
+        raise AssertionError("phase 11a moe_b: non-finite logits or short "
+                             "outputs")
+    if device == "cuda":  # run b once more, shorter, traced: busy share
+        again = [Request(prompt=r.prompt, max_new=P11["trace_new"])
+                 for r in reqs]
+        profiled("moe_b", lambda: engine_b.run(again), TRACE_DIR)
+
+    # the first prefill of the defaults at full width and cpu_layers
+    # layers against the CPU's float32 prefill. The card runs it in float32
+    # too (the same weights, cast), so that the routing cannot flip on bf16
+    # rounding: within 1e-3. The card's bf16 prefill (the served dtype) is
+    # held to the CPU's own bf16 prefill, each against the CPU's float32
+    # one: its error at most 1.5x the CPU's, its routing choices that
+    # differ at most 1.5x the CPU's + 8
+    plen = max(len(p) for p in prompts_a[:4])
+    toks = np.zeros((4, plen), np.int32)
+    for j, p in enumerate(prompts_a[:4]):
+        toks[j, plen - len(p):] = p
+    toks = torch.from_numpy(toks)
+    nl = P11["cpu_layers"]
+    cut = dataclasses.replace(cfg, n_layers=nl)
+    cut32 = dataclasses.replace(cut, param_dtype="float32")
+    p_cut = dict(params, blocks=tree_map(lambda w: w[:nl], params["blocks"]))
+
+    def prefill(c, prm, dev):
+        with Calls(moe, "route", keep=True) as routes:
+            out, _ = transformer.prefill(c, prm, toks.to(dev), 128)
+        return out.float().cpu(), [r.eidx.cpu() for _, r in routes.kept]
+
+    runs = {"card_f32": (cut32, tree_map(lambda w: w.float(), p_cut), device),
+            "card_bf16": (cut, p_cut, device),
+            "cpu_bf16": (cut, tree_map(lambda w: w.detach().cpu(), p_cut),
+                         "cpu"),
+            "cpu_f32": (cut32, tree_map(lambda w: w.detach().float().cpu(),
+                                        p_cut), "cpu")}
+    got = {}
+    for name in runs:
+        got[name] = prefill(*runs[name])
+        runs[name] = None
+    want, want_routes = got["cpu_f32"]
+    cmp = {}
+    for name in ("card_f32", "card_bf16", "cpu_bf16"):
+        out, routes = got[name]
+        if out.shape != want.shape or not torch.isfinite(out).all():
+            raise AssertionError(f"phase 11a: {name} prefill {out.shape}")
+        cmp[name] = {"rel_err": float((out - want).norm() / want.norm()),
+                     "routing_differs": sum(int((a != b).sum()) for a, b
+                                            in zip(routes, want_routes))}
+    cmp["choices"] = sum(r.numel() for r in want_routes)
+    bf16, cpu16 = cmp["card_bf16"], cmp["cpu_bf16"]
+    if cmp["card_f32"]["rel_err"] > 1e-3 or \
+            bf16["rel_err"] > 1.5 * cpu16["rel_err"] or \
+            bf16["routing_differs"] > 1.5 * cpu16["routing_differs"] + 8:
+        raise AssertionError(f"phase 11a: the card's prefill at {nl} layers "
+                             f"vs the CPU's: {cmp}")
+    log(f"phase 11a ({smi}): the first prefill at full width and {nl} "
+        f"layers against the CPU's float32 prefill (relative error norm of "
+        f"the logits, routing choices that differ): " + json.dumps(cmp)
+        + f"; {time.perf_counter() - t0:.3f} s")
+    del engine, engine_b, params, made
+    free_card()
+    return launches
+
+
+def kimi_serving(seed, smi, stash, device="cuda"):
+    """11b: kimi-k2 at full width and ``kimi_layers`` layers, weights
+    drawn on the card, through ``api.build`` and ``Engine``."""
+    import numpy as np
+    import torch
+    from repro_torch.models import build, init_params, param_count
+    from repro_torch.serve import Engine, Request
+
+    cfg = p11_config(P11["kimi"], n_layers=P11["kimi_layers"])
+    model = build(cfg)
+    log(f"phase 11b: {describe(cfg)} (depth cut to {cfg.n_layers} of "
+        f"{p11_config(P11['kimi']).n_layers}); "
+        f"{param_count(model.param_specs) / 1e9:.3f} B parameters")
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = init_params(model.param_specs, gen)
+    t_init = time.perf_counter() - t0
+    rng = np.random.default_rng(seed)
+    reqs = [Request(prompt=rng.integers(1, cfg.vocab, P11["kimi_prompt"])
+                    .astype(np.int32), max_new=P11["kimi_new"])
+            for _ in range(P11["kimi_requests"])]
+    engine = Engine(model, params, batch_slots=4,
+                    max_len=P11["kimi_prompt"] + P11["kimi_new"],
+                    device=device)
+    finite = finite_logits(engine)
+    with kernel_run(stash["kimi"]) as launches:
+        st = engine.run(reqs)
+    want = P11["kimi_new"] * cfg.n_layers
+    if st["tokens_out"] != len(reqs) * P11["kimi_new"] or not all(finite):
+        raise AssertionError(f"phase 11b: {st['tokens_out']} tokens, "
+                             f"finite logits {all(finite)}")
+    if launches["flash_attention"] != want or sum(launches.values()) != want:
+        raise AssertionError(f"phase 11b: launches {launches}, want {want} "
+                             f"of flash_attention only")
+    mem = (torch.cuda.max_memory_allocated() / 1e9
+           if torch.cuda.is_available() else float("nan"))
+    log(f"phase 11b ({smi}): " + json.dumps(
+        {k: st[k] for k in ("tok_per_s", "wall_s", "prefill_s", "decode_s",
+                            "decode_steps", "tokens_out")}
+        | {"init_s": t_init, "flash_attention": launches["flash_attention"],
+           "peak_mem_gb": mem}))
+    del engine, params
+    free_card()
+    return launches
+
+
+def full_logits(cfg, params, tokens, first):
+    """The logits [B, S - first, vocab_padded] of positions first..S-1 from
+    one causal forward over ``tokens`` (the train path's forward)."""
+    import torch
+    from repro_torch.models import hybrid, mamba2
+    module = {"ssm": mamba2, "hybrid": hybrid}[cfg.family]
+    with torch.no_grad():
+        return module.logits(cfg, params, tokens)[:, first:]
+
+
+def state_serving(arch, path, part, seed, smi, stash, device="cuda"):
+    """11c / 11d: an SSM or hybrid model at full width and depth, weights
+    drawn on the card: prefill of ``ssm_batch`` x ``ssm_prompt`` tokens,
+    then ``ssm_decode`` teacher-forced decode steps, each step's logits
+    against one forward over the same tokens. In bf16 (the serving
+    numbers) the prefill and decode arithmetic round at different places
+    (the chunked scan rounds ``x * dt`` and ``D * x`` to bf16, the decode
+    step keeps them in float32), so the gate is the same run on the same
+    weights cast to float32 (relative error norm <= 1e-3 at every step);
+the bf16 run's own drift is held to <= 0.1 at every step. The float32
+    twin's launches are recorded under ``stash[path + "_check"]``: phase 5
+    checks them, and they do not count as the path's. Returns (stats,
+    launches, the twin's launches)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.kernels.flash_attention import ops as attn_ops
+    from repro_torch.models import build, init_params, param_count
+    from repro_torch.models.spec import tree_map
+
+    cfg = p11_config(arch)
+    log(f"phase 11{part}: {describe(cfg)}; "
+        f"{param_count(build(cfg).param_specs) / 1e9:.3f} B parameters")
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = init_params(build(cfg).param_specs, gen)
+    b, s, n_dec = P11["ssm_batch"], P11["ssm_prompt"], P11["ssm_decode"]
+    rng = np.random.default_rng(seed)
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab, (b, s + n_dec))
+                            .astype(np.int32)).to(device)
+
+    def run(c, prm, steps=n_dec):
+        """Prefill, then ``steps`` decode steps: (logits of positions
+        s-1 .. s+steps-1, prefill s, decode step seconds)."""
+        model = build(c)
+        t0 = clock()
+        logits, state = model.prefill(prm, {"tokens": toks[:, :s],
+                                            "max_len": s + n_dec})
+        out, dec_s = [logits], []
+        t_pre = clock() - t0
+        for i in range(steps):
+            t1 = clock()
+            logits, state = model.decode(prm, {
+                "token": toks[:, s + i:s + i + 1], "cache": state,
+                "pos": s + i})
+            dec_s.append(clock() - t1)
+            out.append(logits)
+        return torch.cat(out, dim=1), t_pre, dec_s
+
+    def errors(c, prm, got):
+        want = full_logits(c, prm, toks, s - 1)
+        return [float((got[:, i] - want[:, i]).float().norm()
+                      / want[:, i].float().norm()) for i in range(n_dec + 1)]
+
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32")
+    with kernel_run(stash[path]) as launches:
+        got, t_pre, dec_s = run(cfg, params)
+    params32 = tree_map(lambda w: w.float(), params)
+    with kernel_run(stash[path + "_check"]) as twin:
+        got32, t_pre32, dec_s32 = run(cfg32, params32)
+    if device == "cuda":  # the prefill and a few steps, traced: busy share
+        profiled(path, lambda: run(cfg, params, P11["trace_decode"]),
+                 TRACE_DIR)
+    t0 = clock()
+    rels = errors(cfg, params, got)
+    t_full = clock() - t0
+    rels32 = errors(cfg32, params32, got32)
+    if not torch.isfinite(got).all() or max(rels32) > 1e-3 or \
+            max(rels) > 0.1:
+        raise AssertionError(f"phase 11{part}: prefill-then-decode vs one "
+                             f"forward, relative error norms: float32 "
+                             f"{rels32}, bf16 {rels}")
+    n_attn = 0 if cfg.family == "ssm" else cfg.n_layers // \
+        cfg.shared_attn_every
+    want_l = n_attn * (1 + n_dec)
+    for run_l in (launches, twin):
+        if run_l["flash_attention"] != want_l or \
+                sum(run_l.values()) != want_l:
+            raise AssertionError(f"phase 11{part}: launches {run_l}, want "
+                                 f"{want_l} of flash_attention only")
+    stats = {"prefill_s": t_pre, "prefill_tok_per_s": b * s / t_pre,
+             "decode_step_ms_median": 1e3 * sorted(dec_s)[len(dec_s) // 2],
+             "decode_tok_per_s": b * len(dec_s) / sum(dec_s),
+             "one_forward_s": t_full, "f32_prefill_s": t_pre32,
+             "f32_decode_step_ms_median":
+                 1e3 * sorted(dec_s32)[len(dec_s32) // 2],
+             "max_rel_err_f32": max(rels32), "max_rel_err_bf16": max(rels),
+             "rel_err_bf16_first_last": [rels[1], rels[-1]],
+             "flash_attention": launches["flash_attention"]}
+    if n_attn:
+        stats["decode_splits"] = attn_ops.decode_splits(
+            b, 1, s + n_dec, cfg.n_heads, cfg.n_kv_heads, True, s)
+        if device == "cuda" and stats["decode_splits"] < 2:
+            raise AssertionError(f"phase 11{part}: decode ran unsplit")
+    log(f"phase 11{part} ({smi}): prefill {b} x {s} tokens then "
+        f"{n_dec} decode steps, bf16 then float32: " + json.dumps(stats))
+    del params, params32, got, got32
+    free_card()
+    return stats, launches, twin
+
+
+def family_training(seed, smi, stash, device="cuda"):
+    """11e: one training step per family through ``make_train_step`` at
+    full width and reduced depth (``train_layers``), then every leaf's
+    gradient on the card against the same weights' on the CPU (computed
+    after the card's counted block): mamba2 and zamba2 in bf16 against
+    float32 (relative error norm <= 5e-2), olmoe in float32 on both
+    (<= 1e-3, the routing compared). Self-attention runs only on #7,
+    twice a layer a call (the remat recompute). The card's gradient run
+    for the check is recorded under ``stash["train_families_check"]``:
+    phase 5 checks its inputs, and they do not count as the path's.
+    Returns (stats, launches, the check's launches)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.models import build, init_params, moe
+    from repro_torch.models.spec import tree_leaves, tree_map
+    from repro_torch.train import AdamWConfig, adamw_init, make_train_step
+    from repro_torch.train.train_step import loss_and_grads
+
+    runs, want_l = [], 0
+    with kernel_run(stash["train_families"]) as launches:
+        for arch in (P11["moe"], P11["ssm"], P11["hybrid"]):
+            kw = {} if P11["reduced"] else {
+                "n_layers": P11["train_layers"][arch]}
+            if arch == P11["moe"]:  # routing cannot flip on bf16 rounding
+                kw["param_dtype"] = "float32"
+            cfg = p11_config(arch, **kw)
+            model = build(cfg)
+            n_attn = {"moe": cfg.n_layers, "ssm": 0}.get(
+                cfg.family, cfg.n_layers // max(cfg.shared_attn_every, 1))
+            want_l += 2 * n_attn * P11["train_steps"]
+            params = init_params(model.param_specs,
+                                 torch.Generator().manual_seed(seed))
+            card = tree_map(lambda p: p.to(device), params)
+            toks = torch.from_numpy(np.random.default_rng(seed).integers(
+                1, cfg.vocab, (P11["train_batch"], P11["train_seq"]))
+                .astype(np.int32))
+            batch = {"tokens": toks.to(device)}
+            opt_cfg = AdamWConfig(peak_lr=1e-3, warmup_steps=1,
+                                  total_steps=P11["train_steps"])
+            step = make_train_step(model, opt_cfg)
+            state, step_s, losses = (card, adamw_init(card, opt_cfg)), [], []
+            for _ in range(P11["train_steps"]):  # the same batch each step
+                t0 = clock()
+                *state, loss = step(*state, batch)
+                losses.append(float(loss))
+                step_s.append(clock() - t0)
+            del state
+            runs.append(dict(cfg=cfg, params=params, toks=toks, card=card,
+                             step_s=step_s, losses=losses))
+    with kernel_run(stash["train_families_check"]) as check:
+        for run in runs:  # each family's gradient on the card
+            with Calls(moe, "route", keep=True) as routes:
+                _, got = loss_and_grads(build(run["cfg"]), run.pop("card"),
+                                        {"tokens": run["toks"].to(device)})
+            run["got"] = tree_map(lambda g: g.detach().float().cpu(), got)
+            run["card_routes"] = routes.kept
+            del got
+            free_card()
+
+    out = {}
+    for run in runs:
+        cfg, params, toks, got, card_routes, step_s, losses = (
+            run[k] for k in ("cfg", "params", "toks", "got", "card_routes",
+                             "step_s", "losses"))
+        cpu_model = build(dataclasses.replace(cfg, param_dtype="float32"))
+        with Calls(moe, "route", keep=True) as cpu_routes:
+            _, want = loss_and_grads(cpu_model,
+                                     tree_map(lambda p: p.float(), params),
+                                     {"tokens": toks})
+        errs = leaf_grad_errors(got, want)
+        limit = 1e-3 if cfg.family == "moe" else 5e-2
+        bad = [(n, e) for n, e, g in zip(leaf_names(params), errs,
+                                        tree_leaves(got))
+               if e[0] > limit or e[1] <= 0
+               or not bool(torch.isfinite(g).all())]
+        if bad or not np.all(np.isfinite(losses)):
+            raise AssertionError(f"phase 11e {cfg.name}: leaf gradients "
+                                 f"off: {bad}, losses {losses}")
+        rec = {"layers": cfg.n_layers, "dtype": cfg.param_dtype,
+               "step_ms": 1e3 * step_s[-1], "first_step_ms": 1e3 * step_s[0],
+               "tok_per_s": toks.numel() / step_s[-1], "losses": losses,
+               "max_grad_rel_err": max(e[0] for e in errs), "limit": limit}
+        if cfg.family == "moe":  # each layer's forward routing
+            pairs = list(zip(card_routes, cpu_routes.kept))[:cfg.n_layers]
+            rec["routing_differs"] = sum(
+                int((a.eidx.cpu() != b.eidx).sum()
+                    + (a.keep.cpu() != b.keep).sum())
+                for (_, a), (_, b) in pairs)
+        out[cfg.name] = rec
+        log(f"phase 11e ({smi}) {describe(cfg)}: batch {P11['train_batch']} "
+            f"x {P11['train_seq']}: " + json.dumps(rec))
+    for run_l, want in ((launches, want_l),
+                        (check, want_l // P11["train_steps"])):
+        if run_l["flash_attention"] != want or sum(run_l.values()) != want:
+            raise AssertionError(f"phase 11e: launches {run_l}, want "
+                                 f"{want} of flash_attention only")
+    return out, launches, check
+
+
+def families(seed, smi, stash, device="cuda"):
+    """Phase 11: (a)-(e). Returns (stats, launches by path; a
+    ``*_check`` path's are a check's, not the path's)."""
+    launches, stats, walls = {}, {}, {}
+    t = time.perf_counter()
+    launches.update(moe_serving(seed, smi, stash, device))
+    walls["a"] = time.perf_counter() - t
+    launches["kimi"] = kimi_serving(seed, smi, stash, device)
+    walls["b"] = time.perf_counter() - t - sum(walls.values())
+    for arch, path, part in ((P11["ssm"], "mamba2", "c"),
+                             (P11["hybrid"], "zamba2", "d")):
+        stats[path], launches[path], launches[path + "_check"] = \
+            state_serving(arch, path, part, seed, smi, stash, device)
+        walls[part] = time.perf_counter() - t - sum(walls.values())
+    (stats["train"], launches["train_families"],
+     launches["train_families_check"]) = family_training(seed, smi, stash,
+                                                         device)
+    walls["e"] = time.perf_counter() - t - sum(walls.values())
+    log(f"phase 11: {time.perf_counter() - t:.3f} s; by part (s): "
+        + json.dumps(walls))
+    return stats, launches
+
+
 # ------------------------------------------------------------------ phase 8
 # 8a's stream: Graph500 scale 16's edge count (16 batches of 65,536) of
 # Zipf(1.1) rows over 2^16 ids, columns uniform over 4,096 (a hot row holds
@@ -2200,7 +2684,8 @@ def mesh_path(graph, cap, smi, stash, device="cuda"):
     for j, geo in enumerate(geos):
         args = [torch.as_tensor(inputs[f"g{j}_{m}"], device=device)
                 for m in range(len(geo))]
-        recs["merge_path_rank"].calls[(geo, ())] = [
+        key = (geo, (), tuple(str(a.dtype)[6:] for a in args))
+        recs["merge_path_rank"].calls[key] = [
             sum(x["geometries"][j][1] for x in res), (args, {})]
     stash["mesh"] = recs
     launches = {"mesh": {k: sum(x["counted"][k] for x in res)
@@ -2298,6 +2783,8 @@ def input_groups(inputs):
         text = f"{path} " + " ".join(
             str(list(x)) if isinstance(x, tuple) else str(x)
             for x in key[0]) + "".join(f" {k}={v}" for k, v in kw.items())
+        if len(set(key[2])) == 1 and key[2][0] != "int32":  # one float type
+            text += f" {key[2][0]}"
         groups.setdefault(text, []).append(n)
         if off is not None:
             offs.setdefault(text, []).append(off)
@@ -2318,7 +2805,9 @@ def kernel_checks(stash, launches):
     ``stash[path]["tablet_read"]`` the 4c reads). ``launches[path]`` are
     the paths' launch counts. Every time is the mean per launch over all
     the paths' launches, so ms x launches is the kernel's device time on
-    the paths."""
+    the paths. A ``*_check`` path (phase 11's float32 twins and gradient
+    check) is a check's run: its inputs are held to the plain version, and
+    its launches are neither counted as the kernel's nor timed."""
     import numpy as np
     import torch
     from repro_torch.kernels.common import I32_MAX
@@ -2644,7 +3133,7 @@ def kernel_checks(stash, launches):
         return lambda: a @ xc
 
     # name, kernel, plain, cost, library, plain timing reps, check, op
-    # peak, library timed eagerly (cuSPARSE is not captured in a graph),
+    # peak (or a function of the inputs), library timed eagerly (cuSPARSE is not captured in a graph),
     # source, TPU kernel, and the kernel it redesigned (checked and timed
     # beside it), if any
     specs = (
@@ -2697,8 +3186,11 @@ def kernel_checks(stash, launches):
         ("spmv_csr", spmv_csr, spmv_csr_ref, csr_cost, csr_lib, (3, 1),
          check_close, PEAK_F32_PER_S, True, "src/repro_torch/csrc/spmv_csr.cu",
          "src/repro/kernels/spmv/kernel.py:34", None),
+        # bf16 inputs run on the tensor cores, float32 on the CUDA cores
         ("flash_attention", flash_attention, flash_attention_ref, attn_cost,
-         attn_lib, (5, 1), check_attn, PEAK_BF16_PER_S, False,
+         attn_lib, (5, 1), check_attn,
+         lambda args: (PEAK_BF16_PER_S if args[0].dtype == torch.bfloat16
+                       else PEAK_F32_PER_S), False,
          "src/repro_torch/csrc/flash_attention.cu",
          "src/repro/kernels/flash_attention/kernel.py:64", None),
     )
@@ -2756,16 +3248,20 @@ def kernel_checks(stash, launches):
     log(f"launch floor (an empty kernel, graph replay): {floor_ms:.6g} ms")
     for (name, fn, ref, cost, lib, (p_reps, p_warm), chk, peak, lib_eager,
          src, tpu, old) in specs:
-        by_path, inputs = {}, []
+        by_path, inputs, by_check, check_inputs = {}, [], {}, []
         for path, recorders in stash.items():
             calls = recorders[name].calls
-            by_path[path] = sum(c for c, _ in calls.values())
-            if by_path[path] != launches[path][name]:
+            n = sum(c for c, _ in calls.values())
+            if n != launches[path][name]:
                 raise AssertionError(
-                    f"{name} in {path}: recorded {by_path[path]} calls, "
+                    f"{name} in {path}: recorded {n} calls, "
                     f"{launches[path][name]} launches")
-            inputs += [(path, key, *calls[key])
-                       for key in sorted(calls, key=lambda g: -calls[g][0])]
+            recs = [(path, key, *calls[key])
+                    for key in sorted(calls, key=lambda g: -calls[g][0])]
+            if path.endswith("_check"):  # checked, neither counted nor timed
+                by_check[path], check_inputs = n, check_inputs + recs
+            else:
+                by_path[path], inputs = n, inputs + recs
         n_calls = sum(by_path.values())
         if n_calls == 0:
             raise AssertionError(f"{name}: launched on no path")
@@ -2794,9 +3290,13 @@ def kernel_checks(stash, launches):
                     t[form] = timer(f, 50)
                 t["lib"] = min(t[form] for form in forms)
             del want
-            t["bound"], by = bound_ms(*cost(args, kw), peak_ops=peak)
+            t["bound"], by = bound_ms(*cost(args, kw), peak_ops=(
+                peak(args) if callable(peak) else peak))
             ops_by[by == "operations"] += cnt * t["bound"]
             per.append(t)
+
+        for _, _, _, (args, kw) in check_inputs:
+            err = max(err, chk(name, fn(*args, **kw), ref(*args, **kw)))
 
         def mean(idx, k):  # launch-weighted mean over some inputs
             n = sum(inputs[i][2] for i in idx)
@@ -2823,6 +3323,12 @@ def kernel_checks(stash, launches):
                     "launches_by_path": {k: v for k, v in by_path.items()
                                          if v},
                     "inputs": "; ".join(groups)})
+        if any(by_check.values()):  # the checks' launches, held to plain
+            out[-1]["check_launches"] = {k: v for k, v in by_check.items()
+                                         if v}
+            log(f"{name}: also equal to plain at the inputs of the checks' "
+                f"launches " + json.dumps(out[-1]["check_launches"]) + ": "
+                + "; ".join(input_groups(check_inputs)))
         if lib_forms:
             out[-1]["library_forms_ms"] = {k[4:]: tot[k] for k in lib_forms}
         if old is not None:
@@ -2844,6 +3350,16 @@ def kernel_checks(stash, launches):
         if name == "tablet_gather":  # the single engine's whole point read
             out[-1].update(read_routes(stash))
         if name == "flash_attention":
+            by_hd = {}  # launch-weighted means per head dim
+            for i, (_, key, _, _) in enumerate(inputs):
+                by_hd.setdefault(key[0][0][-1], []).append(i)
+            out[-1]["by_head_dim"] = {
+                str(hd): {"launches": sum(inputs[i][2] for i in idx),
+                          **{k: mean(idx, k) for k in ("ms", "plain",
+                                                        "lib", "bound")}}
+                for hd, idx in sorted(by_hd.items())}
+            log("flash_attention by head dim: "
+                + json.dumps(out[-1]["by_head_dim"]))
             out[-1]["rel_err"] = attn_rel[0]
             out[-1]["planted_faults"] = attn_faults()
             log(f"flash_attention: largest relative error norm {attn_rel[0]:.3g}"
@@ -2934,7 +3450,10 @@ def main(argv=None):
     stash = {p: {} for p in ("listing1", "fig4", "graphulo", "single",
                              "recover", "tablets", "tablets_recover",
                              "tokens", "mesh", "mesh_nccl", "serve_a",
-                             "serve_b", "train")}
+                             "serve_b", "train", "moe_a", "moe_b", "kimi",
+                             "mamba2", "zamba2", "train_families",
+                             "mamba2_check", "zamba2_check",
+                             "train_families_check")}
     launches = {}
     reads, stats, times, launches["listing1"] = listing1(
         graph, True, cap, stash["listing1"])
@@ -3057,6 +3576,10 @@ def main(argv=None):
     train_stats, launches["train"] = training(args.seed, smi, stash["train"])
     log(f"phase 10 ({smi}): " + json.dumps(train_stats))
     log(f"phase 10: {time.perf_counter() - t10:.3f} s")
+
+    # 11. the MoE, Mamba2 and hybrid families: serving and one train step
+    family_stats, family_launches = families(args.seed, smi, stash)
+    launches.update(family_launches)
 
     # 5. kernels against their plain versions
     kernels = kernel_checks(stash, launches)

@@ -42,8 +42,9 @@
 //    (so each K/V element is read from memory once, not rep times) and a
 //    run of 64-key tiles up to the causal limit, the next tile's loads in
 //    flight while this one is used; a warp takes a row, lane j scores keys
-//    j and j + 32 against K^T in shared memory and owns hd / 32 output
-//    dims, the weights shared through shared memory. The wrapper picks the
+//    j and j + 32 against K^T in shared memory and owns ceil(hd / 32)
+//    output dims (the last ones guarded where hd is not a multiple of 32),
+//    the weights shared through shared memory. The wrapper picks the
 //    splits: one per tile until the grid has ~512 blocks, none for a cache
 //    of at most 4 tiles. Each split writes its f32 (acc[hd], m, l) per row
 //    to a scratch the wrapper allocates, and a second small kernel merges
@@ -53,7 +54,13 @@
 // 3. float32 prefill (Sq >= 16) on the CUDA cores (TF32 would be another
 //    result): a block of 8 warps owns one (batch, head) and 8 query rows;
 //    32-key tiles of K (transposed) and V staged as float32, lane j scores
-//    key j, lanes own hd / 32 output dims each.
+//    key j, lanes own ceil(hd / 32) output dims each (guarded).
+// Head dims 64, 80, 112 and 128 are built. At 80 and 112 the tensor-core
+// body needs no change (5 and 7 k-steps of 16; padded rows of 176 and 240
+// bytes keep cp.async and ldmatrix 16-byte aligned and the 8 rows of an
+// ldmatrix on 8 different bank groups); the CUDA-core bodies stage a tile in
+// whole 16-byte loads with a guarded remainder, and the merge kernel rounds
+// its block up to whole warps.
 // wgmma and TMA (bigger row blocks, tiles multicast to a cluster) are the
 // next redesign of body 1.
 #include <cuda_bf16.h>
@@ -391,12 +398,13 @@ __global__ void __launch_bounds__(kDecThreads)
                         float* __restrict__ ws, int sq, int sk, int n_heads,
                         int n_kv, int causal, int q_offset, float scale,
                         int key_end, int per) {
-  constexpr int kPer = HD / 32;  // output dims per lane
+  constexpr int kPer = (HD + 31) / 32;  // output dims per lane (guarded)
   constexpr int kLdk = kDecKeys + 1;  // odd: a column of K^T spans the banks
   constexpr int kVec = 16 / sizeof(T);
+  static_assert(HD % kVec == 0, "a row is whole 16-byte loads");
   constexpr int kRowVecs = HD / kVec;
-  constexpr int kLoads = kDecKeys * kRowVecs / kDecThreads;
-  static_assert(kDecKeys * kRowVecs % kDecThreads == 0, "staging tiles");
+  constexpr int kTileVecs = kDecKeys * kRowVecs;
+  constexpr int kLoads = (kTileVecs + kDecThreads - 1) / kDecThreads;
   extern __shared__ float4 smem_dec[];
   float* qs = reinterpret_cast<float*>(smem_dec);  // [16][HD]
   float* kt = qs + kDecRows * HD;                  // [HD][kLdk]
@@ -423,7 +431,7 @@ __global__ void __launch_bounds__(kDecThreads)
       const int e = threadIdx.x + c * kDecThreads;
       const int key = k0 + e / kRowVecs;
       const size_t off = key * kv_row + (e % kRowVecs) * kVec;
-      const bool in = key < sk;
+      const bool in = key < sk && e < kTileVecs;
       kr[c] = in ? __ldg(reinterpret_cast<const uint4*>(kb + off))
                  : make_uint4(0, 0, 0, 0);
       vr[c] = in ? __ldg(reinterpret_cast<const uint4*>(vb + off))
@@ -461,6 +469,7 @@ __global__ void __launch_bounds__(kDecThreads)
 #pragma unroll
     for (int c = 0; c < kLoads; ++c) {
       const int e = threadIdx.x + c * kDecThreads;
+      if (kTileVecs % kDecThreads != 0 && e >= kTileVecs) break;
       const int j = e / kRowVecs, d0 = (e % kRowVecs) * kVec;
       float f[kVec];
       unpack(kr[c], f, T());
@@ -513,7 +522,8 @@ __global__ void __launch_bounds__(kDecThreads)
         const float pj = pw[j];
 #pragma unroll
         for (int t = 0; t < kPer; ++t)
-          pv[j & 1][t] = fmaf(pj, vs[j * HD + lane + 32 * t], pv[j & 1][t]);
+          if (HD % 32 == 0 || lane + 32 * t < HD)
+            pv[j & 1][t] = fmaf(pj, vs[j * HD + lane + 32 * t], pv[j & 1][t]);
       }
 #pragma unroll
       for (int t = 0; t < kPer; ++t)
@@ -530,13 +540,15 @@ __global__ void __launch_bounds__(kDecThreads)
                 static_cast<size_t>(g * rep + rho % rep) * HD;
 #pragma unroll
       for (int t = 0; t < kPer; ++t)
-        orow[lane + 32 * t] = from_f32<T>(acc[u][t] * inv);
+        if (HD % 32 == 0 || lane + 32 * t < HD)
+          orow[lane + 32 * t] = from_f32<T>(acc[u][t] * inv);
       continue;
     }
     float* st = ws + ((static_cast<size_t>(group) * splits + split) * n_rows +
                       rho) * (HD + 2);
 #pragma unroll
-    for (int t = 0; t < kPer; ++t) st[lane + 32 * t] = acc[u][t];
+    for (int t = 0; t < kPer; ++t)
+      if (HD % 32 == 0 || lane + 32 * t < HD) st[lane + 32 * t] = acc[u][t];
     if (lane == 0) {
       st[HD] = m[u];
       st[HD + 1] = l[u];
@@ -544,17 +556,26 @@ __global__ void __launch_bounds__(kDecThreads)
   }
 }
 
-// grid (groups, n_rows), HD threads, `splits` words of shared memory:
-// merges the splits of one row. Every load is issued at once (thread d:
-// dim d of the first 32 splits' acc, and (m, l) of splits d, d + HD, ...);
-// m and l are reduced across the block in a fixed order.
+// threads of the merge kernel: HD rounded up to whole warps
+template <int HD>
+__host__ __device__ constexpr int combine_threads() {
+  return (HD + 31) / 32 * 32;
+}
+
+// grid (groups, n_rows), combine_threads<HD>() threads, `splits` words of
+// shared memory: merges the splits of one row. Every load is issued at once
+// (thread d < HD: dim d of the first 32 splits' acc; every thread: (m, l)
+// of splits d, d + threads, ...); m and l are reduced across the block in a
+// fixed order. Threads d >= HD take part in the reductions only.
 template <typename T, int HD>
-__global__ void __launch_bounds__(HD)
+__global__ void __launch_bounds__(combine_threads<HD>())
     flash_combine_kernel(const float* __restrict__ ws, T* __restrict__ o,
                          int sq, int n_heads, int n_kv, int splits) {
   constexpr int kChunk = 32;
+  constexpr int kThreads = combine_threads<HD>();
+  constexpr int kWarps = kThreads / 32;
   extern __shared__ float w_s[];  // each split's weight e^(m_s - m)
-  __shared__ float red[2][HD / 32];
+  __shared__ float red[2][kWarps];
   const int rep = n_heads / n_kv, n_rows = sq * rep;
   const int group = blockIdx.x, rho = blockIdx.y, d = threadIdx.x;
   const int warp = d >> 5, lane = d & 31;
@@ -562,12 +583,13 @@ __global__ void __launch_bounds__(HD)
   const float* st = ws + (static_cast<size_t>(group) * splits * n_rows + rho) *
                              (HD + 2);
   const size_t stride = static_cast<size_t>(n_rows) * (HD + 2);
+  const bool dim = d < HD;  // the thread owns an output dim
   float a[kChunk];
 #pragma unroll
   for (int i = 0; i < kChunk; ++i)
-    a[i] = i < splits ? st[i * stride + d] : 0.0f;
+    a[i] = dim && i < splits ? st[i * stride + d] : 0.0f;
   float mx = -INFINITY;
-  for (int s = d; s < splits; s += HD) {
+  for (int s = d; s < splits; s += kThreads) {
     w_s[s] = st[s * stride + HD];
     mx = fmaxf(mx, w_s[s]);
   }
@@ -576,9 +598,9 @@ __global__ void __launch_bounds__(HD)
   __syncthreads();
   mx = red[0][0];
 #pragma unroll
-  for (int w = 1; w < HD / 32; ++w) mx = fmaxf(mx, red[0][w]);
+  for (int w = 1; w < kWarps; ++w) mx = fmaxf(mx, red[0][w]);
   float l = 0.0f;
-  for (int s = d; s < splits; s += HD) {  // a split that saw no key weighs 0
+  for (int s = d; s < splits; s += kThreads) {  // no key seen: weight 0
     const float w = w_s[s] == -INFINITY ? 0.0f : expf(w_s[s] - mx);
     w_s[s] = w;
     l += st[s * stride + HD + 1] * w;
@@ -588,7 +610,8 @@ __global__ void __launch_bounds__(HD)
   __syncthreads();
   l = 0.0f;
 #pragma unroll
-  for (int w = 0; w < HD / 32; ++w) l += red[1][w];
+  for (int w = 0; w < kWarps; ++w) l += red[1][w];
+  if (!dim) return;  // past the reductions' barriers
   float acc = 0.0f;
   for (int s0 = 0; s0 < splits; s0 += kChunk) {
     if (s0 > 0) {
@@ -621,11 +644,12 @@ __global__ void __launch_bounds__(kF32Threads)
                      const float* __restrict__ v, float* __restrict__ o,
                      int sq, int sk, int n_heads, int n_kv, int causal,
                      int q_offset, float scale) {
-  constexpr int kPer = HD / 32;  // output dims per lane
+  constexpr int kPer = (HD + 31) / 32;  // output dims per lane (guarded)
   constexpr int kLdk = kF32Keys + 1;  // odd: a column of K^T spans the banks
+  static_assert(HD % 4 == 0, "a row is whole 16-byte loads");
   constexpr int kRowVecs = HD / 4;
-  constexpr int kLoads = kF32Keys * kRowVecs / kF32Threads;
-  static_assert(kF32Keys * kRowVecs % kF32Threads == 0, "staging tiles");
+  constexpr int kTileVecs = kF32Keys * kRowVecs;
+  constexpr int kLoads = (kTileVecs + kF32Threads - 1) / kF32Threads;
   extern __shared__ float4 smem_f32[];
   float* qs = reinterpret_cast<float*>(smem_f32);  // [8][HD]
   float* kt = qs + kF32Warps * HD;                 // [HD][kLdk]
@@ -666,7 +690,7 @@ __global__ void __launch_bounds__(kF32Threads)
       const int e = threadIdx.x + c * kF32Threads;
       const int key = k0 + e / kRowVecs;
       const size_t off = key * kv_row + (e % kRowVecs) * 4;
-      const bool in = key < sk;
+      const bool in = key < sk && e < kTileVecs;
       kr[c] = in ? __ldg(reinterpret_cast<const float4*>(kb + off))
                  : make_float4(0, 0, 0, 0);
       vr[c] = in ? __ldg(reinterpret_cast<const float4*>(vb + off))
@@ -676,6 +700,7 @@ __global__ void __launch_bounds__(kF32Threads)
 #pragma unroll
     for (int c = 0; c < kLoads; ++c) {
       const int e = threadIdx.x + c * kF32Threads;
+      if (kTileVecs % kF32Threads != 0 && e >= kTileVecs) break;
       const int j = e / kRowVecs, d0 = (e % kRowVecs) * 4;
       kt[d0 * kLdk + j] = kr[c].x;
       kt[(d0 + 1) * kLdk + j] = kr[c].y;
@@ -712,7 +737,8 @@ __global__ void __launch_bounds__(kF32Threads)
       const float pj = __shfl_sync(0xffffffffu, p, j);
 #pragma unroll
       for (int t = 0; t < kPer; ++t)
-        acc[t] = fmaf(pj, vs[j * HD + lane + 32 * t], acc[t]);
+        if (HD % 32 == 0 || lane + 32 * t < HD)
+          acc[t] = fmaf(pj, vs[j * HD + lane + 32 * t], acc[t]);
     }
   }
   if (!active) return;
@@ -720,7 +746,8 @@ __global__ void __launch_bounds__(kF32Threads)
   float* orow = o + (static_cast<size_t>(b) * sq + i) * n_heads * HD +
                 static_cast<size_t>(h) * HD;
 #pragma unroll
-  for (int t = 0; t < kPer; ++t) orow[lane + 32 * t] = acc[t] * inv;
+  for (int t = 0; t < kPer; ++t)
+    if (HD % 32 == 0 || lane + 32 * t < HD) orow[lane + 32 * t] = acc[t] * inv;
 }
 
 // ------------------------------------------------------------- launches
@@ -742,7 +769,8 @@ void launch_decode(const void* q, const void* k, const void* v, void* o,
       causal, q_offset, scale, key_end, per);
   if (splits > 1)
     flash_combine_kernel<T, HD>
-        <<<dim3(b * n_kv, n_rows), HD, splits * sizeof(float), stream>>>(
+        <<<dim3(b * n_kv, n_rows), combine_threads<HD>(),
+           splits * sizeof(float), stream>>>(
             ws, static_cast<T*>(o), sq, n_heads, n_kv, splits);
 }
 
@@ -800,9 +828,9 @@ int launch(const void* q, const void* k, const void* v, void* o, float* ws,
 }  // namespace
 
 // q [b, sq, n_heads, hd], k and v [b, sk, n_kv, hd], o like q; contiguous,
-// 16-byte aligned, one dtype: bf16 (is_bf16 = 1) or float32. hd is 64 or
-// 128 (anything else returns cudaErrorInvalidValue; the wrapper refuses it
-// first). sq < 16 runs the split-K decode: `splits` >= 1 key splits and,
+// 16-byte aligned, one dtype: bf16 (is_bf16 = 1) or float32. hd is 64, 80,
+// 112 or 128 (anything else returns cudaErrorInvalidValue; the wrapper
+// refuses it first). sq < 16 runs the split-K decode: `splits` >= 1 key splits and,
 // for more than one, `ws` a float32 scratch of b * n_kv * splits * sq *
 // (n_heads / n_kv) * (hd + 2) words; otherwise both are unused.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
@@ -814,6 +842,12 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
   if (hd == 64)
     return launch<64>(q, k, v, o, ws, b, sq, sk, n_heads, n_kv, causal,
                       q_offset, is_bf16, splits, stream);
+  if (hd == 80)
+    return launch<80>(q, k, v, o, ws, b, sq, sk, n_heads, n_kv, causal,
+                      q_offset, is_bf16, splits, stream);
+  if (hd == 112)
+    return launch<112>(q, k, v, o, ws, b, sq, sk, n_heads, n_kv, causal,
+                       q_offset, is_bf16, splits, stream);
   if (hd == 128)
     return launch<128>(q, k, v, o, ws, b, sq, sk, n_heads, n_kv, causal,
                        q_offset, is_bf16, splits, stream);

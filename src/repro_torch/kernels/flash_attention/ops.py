@@ -12,7 +12,7 @@ import torch
 from ..common import cdiv, check_cuda, launch
 from .ref import flash_attention_bwd_ref, flash_attention_ref
 
-HEAD_DIMS = (64, 128)  # the head dims the kernel is built for
+HEAD_DIMS = (64, 80, 112, 128)  # the head dims the kernel is built for
 _MAX_GRID_Y = 65535  # the grid's y extent (float32 prefill: blocks of 8 rows)
 _DECODE_ROWS = 16  # Sq below this runs the split-K decode
 _DECODE_KEYS = 64  # keys per tile of a decode split
@@ -39,7 +39,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q: [B, Sq, H, hd]; k, v: [B, Sk, KV, hd] with H a multiple of KV ->
     [B, Sq, H, hd] in ``q.dtype``. Any Sq and Sk; ``q_offset`` (>= 0) is
     the position of query row 0 for the causal mask. On the card: bf16 or
-    float32, hd 64 or 128."""
+    float32, hd 64, 80, 112 or 128."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"flash_attention takes q[B, Sq, H, hd] and "
                          f"k, v[B, Sk, KV, hd]; got {tuple(q.shape)}, "

@@ -7,8 +7,8 @@ one device, with checkpoint/restart.
 
 The weights are the port's seeded random init (``--seed``), the corpus is
 synthetic and lives in a ``TokenStore``. Runs on the card unless
-``--device cpu`` (the card's attention kernel takes head dims 64 and 128,
-so the reduced configs train on the CPU). On ``--resume`` the batches of
+``--device cpu`` (the card's attention kernel takes head dims 64, 80, 112
+and 128, so the reduced configs, hd 16, train on the CPU). On ``--resume`` the batches of
 the steps before the checkpoint are drawn and dropped, so step s trains on
 the batch an uninterrupted run gives it.
 """

@@ -1,7 +1,7 @@
 """Unified model API: ``build(cfg)`` returns the step functions and input
-specs of one architecture. The port trains and serves the dense family;
-the other families raise ``NotImplementedError`` naming the ROADMAP item
-that ports them."""
+specs of one architecture. The port trains and serves the dense, MoE,
+Mamba2 (``ssm``) and hybrid families; the other families raise
+``NotImplementedError`` naming the ROADMAP item that ports them."""
 from __future__ import annotations
 
 import dataclasses
@@ -9,13 +9,17 @@ from typing import Any, Callable
 
 import torch
 
-from . import transformer
+from . import hybrid, mamba2, transformer
 from .config import ModelConfig
 from .spec import PSpec
 
 # family -> the ROADMAP Queue 1 item that ports it
-_LATER = {"moe": "11c (MoE)", "ssm": "11d (Mamba2)", "hybrid": "11e (hybrid)",
-          "encdec": "11f (enc-dec)", "vlm": "11g (VLM)"}
+_LATER = {"encdec": "11f (enc-dec)", "vlm": "11g (VLM)"}
+# family -> (its module, the PSpecs (cfg, batch, max_len) of its decode state)
+_FAMILIES = {"dense": (transformer, transformer.cache_specs),
+             "moe": (transformer, transformer.cache_specs),
+             "ssm": (mamba2, mamba2.state_specs),
+             "hybrid": (hybrid, hybrid.state_specs)}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,30 +39,37 @@ def _tok_spec(gb: int, s: int) -> PSpec:
 
 
 def build(cfg: ModelConfig) -> Model:
-    if cfg.family in _LATER:
+    """The step functions of ``cfg``'s family. Prefill takes
+    ``{"tokens", "max_len"?}`` (an SSM's state does not grow with the
+    length, so it ignores ``max_len``); decode takes ``{"token", "cache",
+    "pos"}`` (no ``pos`` for an SSM)."""
+    f = cfg.family
+    if f in _LATER:
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet: ROADMAP Queue 1 item "
-            f"{_LATER[cfg.family]}")
-    if cfg.family != "dense":
-        raise ValueError(f"unknown family {cfg.family!r}")
+            f"family {f!r} is not ported yet: ROADMAP Queue 1 item "
+            f"{_LATER[f]}")
+    if f not in _FAMILIES:
+        raise ValueError(f"unknown family {f!r}")
+    m, state_specs = _FAMILIES[f]
 
     def train(p, b, remat="dots_no_batch"):
-        return transformer.train_loss(cfg, p, b, remat)
+        return m.train_loss(cfg, p, b, remat)
 
     def prefill(p, b):
-        return transformer.prefill(cfg, p, b["tokens"], b.get("max_len"))
+        return m.prefill(cfg, p, b["tokens"], b.get("max_len"))
 
     def decode(p, b):
-        return transformer.decode_step(cfg, p, b["token"], b["cache"],
-                                       b["pos"])
+        return m.decode_step(cfg, p, b["token"], b["cache"], b.get("pos"))
 
     def tok_in(gb, s):
         return {"tokens": _tok_spec(gb, s)}
 
     def decode_in(gb, s):
-        return {"token": _tok_spec(gb, 1),
-                "pos": PSpec((), torch.int32, "zeros"),
-                "cache": transformer.cache_specs(cfg, gb, s)}
+        specs = {"token": _tok_spec(gb, 1),
+                 "cache": state_specs(cfg, gb, s)}
+        if f != "ssm":
+            specs["pos"] = PSpec((), torch.int32, "zeros")
+        return specs
 
-    return Model(cfg, transformer.param_specs(cfg), train, prefill, decode,
-                 tok_in, tok_in, decode_in)
+    return Model(cfg, m.param_specs(cfg), train, prefill, decode, tok_in,
+                 tok_in, decode_in)

@@ -11,9 +11,9 @@ import numpy as np
 import torch
 
 from ..kernels.common import resolve_device
+from .api import build
 from .config import ModelConfig
 from .spec import PSpec, tree_map
-from . import transformer
 
 
 def tensor_from_numpy(arr: np.ndarray, dtype: torch.dtype,
@@ -49,11 +49,11 @@ def tree_to_numpy(tree):
 
 
 def params_from_jax(cfg: ModelConfig, tree, device="cuda") -> dict:
-    """The JAX parameter pytree of ``transformer.param_specs(cfg)`` (numpy
-    leaves, stacked ``[L, ...]`` blocks) -> the port's parameter tree on
-    ``device``; every leaf's shape must match its spec. Without a card this
-    raises unless ``device="cpu"`` is given."""
-    return _from_specs(transformer.param_specs(cfg), tree, device)
+    """The JAX parameter pytree of ``cfg``'s model (numpy leaves, stacked
+    block leaves) -> the port's parameter tree (``build(cfg).param_specs``)
+    on ``device``; every leaf's shape must match its spec. Without a card
+    this raises unless ``device="cpu"`` is given."""
+    return _from_specs(build(cfg).param_specs, tree, device)
 
 
 def opt_state_from_jax(cfg: ModelConfig, opt_cfg, tree, device="cuda") -> dict:
@@ -62,7 +62,7 @@ def opt_state_from_jax(cfg: ModelConfig, opt_cfg, tree, device="cuda") -> dict:
     leaf under ``opt_cfg.quantized_state`` — and ``count``) -> the port's
     state on ``device``, bit for bit."""
     from ..train.optimizer import opt_state_specs  # train imports models
-    return _from_specs(opt_state_specs(transformer.param_specs(cfg), opt_cfg),
+    return _from_specs(opt_state_specs(build(cfg).param_specs, opt_cfg),
                        tree, device)
 
 

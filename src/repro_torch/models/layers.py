@@ -1,5 +1,5 @@
 """Shared transformer layers: norms, RoPE, GQA self-attention (+KV cache),
-MLPs, embedding, unembedding and the training loss.
+MLPs, embedding, unembedding, the training loss and the remat policies.
 
 Plain functions on tensors over a parameter tree (``spec.py``), with the
 JAX package's layouts: weights ``[in, out]`` (``x @ w``), activations
@@ -13,10 +13,13 @@ recompute (``kernels.flash_attention``).
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..kernels.flash_attention import flash_attention
 from .config import ModelConfig
@@ -178,3 +181,45 @@ def softmax_xent(cfg: ModelConfig, logits: torch.Tensor, labels: torch.Tensor,
     if mask is None:
         return nll.mean()
     return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def next_token_loss(cfg: ModelConfig, logits: torch.Tensor,
+                    tokens: torch.Tensor) -> torch.Tensor:
+    """``softmax_xent`` of ``logits`` [B, S, V] against the next token of
+    ``tokens`` [B, S], the last position masked (every family's
+    ``train_loss``)."""
+    b, s = tokens.shape
+    labels = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])],
+                       dim=1)
+    mask = torch.cat([torch.ones(b, s - 1, device=tokens.device),
+                      torch.zeros(b, 1, device=tokens.device)], dim=1)
+    return softmax_xent(cfg, logits, labels, mask)
+
+
+# ------------------------------------------------------------------- remat
+_aten = torch.ops.aten
+# The JAX checkpoint policies by name: None runs a layer without a
+# checkpoint; otherwise each layer is one checkpoint that keeps the outputs
+# of these ops and recomputes the rest in the backward ("dots_no_batch":
+# ``x @ w`` reaches the dispatcher as ``mm``; "dots" also keeps batched
+# products; "nothing" keeps none).
+REMAT_POLICIES = {
+    "none": None,
+    "dots": (_aten.mm.default, _aten.addmm.default, _aten.bmm.default),
+    "dots_no_batch": (_aten.mm.default, _aten.addmm.default),
+    "nothing": (),
+}
+
+
+def remat_runner(remat: str):
+    """``run(fn, *args)``: ``fn(*args)`` as one checkpoint under the remat
+    policy ``remat`` (a ``REMAT_POLICIES`` name; another raises
+    ``KeyError``), or plainly under ``"none"``."""
+    saved = REMAT_POLICIES[remat]
+    if saved is None:
+        return lambda fn, *args: fn(*args)
+    kw = {"use_reentrant": False}
+    if saved:
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, list(saved))
+    return lambda fn, *args: checkpoint(fn, *args, **kw)

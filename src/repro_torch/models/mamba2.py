@@ -1,0 +1,293 @@
+"""Mamba2 (SSD, state-space duality, arXiv:2405.21060): the mixer and the
+attention-free LM (the JAX package's ``models/mamba2.py``).
+
+Chunked SSD: an intra-chunk quadratic (attention-like) term plus the
+inter-chunk state recurrence, a loop over chunks that emits the state on
+entry to each chunk (the JAX ``lax.scan``). A single-token state update
+serves decode. Plain PyTorch: no kernel.
+
+Discretization: h_t = exp(dt_t * A) h_{t-1} + dt_t * B_t x_t,
+y_t = C_t h_t + D x_t, with a per-head scalar A < 0 and one B/C group.
+
+Where the JAX module leaves a choice to XLA or a library, the port fixes
+it: the depthwise causal conv sums its K shifted products in order
+j = 0..K-1 in the activation dtype (not ``F.conv1d``); softplus is
+``logaddexp(x, 0)`` (``jax.nn.softplus``, no threshold); each
+three-operand einsum is two explicit products, so that none forms a
+[B, nc, Q, Q, H, P] intermediate. The intra-chunk decay matrix is
+``exp(where(mask, seg, -inf))``, the mask applied before the exponential:
+the JAX module takes ``where(mask, exp(seg), 0)``, whose exponential
+overflows above the diagonal at real chunk lengths, which turns its
+gradient into NaN (0 x inf); the forward values are the same.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from . import layers
+from .config import ModelConfig
+from .spec import PSpec, tree_map
+
+States = Tuple[torch.Tensor, torch.Tensor]  # (ssm [L,B,H,P,N], conv [L,B,K-1,C])
+
+
+def mamba_specs(cfg: ModelConfig, L=()) -> Dict:
+    d, di, n, h = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    k = cfg.ssm_conv
+    conv_dim = di + 2 * n
+    dt = cfg.dtype
+    f32 = torch.float32
+    return {
+        "in_proj": PSpec(L + (d, 2 * di + 2 * n + h), dt),
+        "conv_w": PSpec(L + (conv_dim, k), dt),
+        "conv_b": PSpec(L + (conv_dim,), f32, "zeros"),
+        "A_log": PSpec(L + (h,), f32, "ones"),
+        "D": PSpec(L + (h,), f32, "ones"),
+        "dt_bias": PSpec(L + (h,), f32, "zeros"),
+        "norm": PSpec(L + (di,), f32, "ones"),
+        "out_proj": PSpec(L + (di, d), dt),
+    }
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: log(1 + e^x) as ``logaddexp(x, 0)``."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor,
+                 b: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv. x: [B, S, C]; w: [C, K]; returns silu(conv)."""
+    k = w.shape[-1]
+    s = x.shape[1]
+    xp = F.pad(x, (0, 0, k - 1, 0))
+    out = xp[:, 0:s, :] * w[:, 0].to(x.dtype)
+    for j in range(1, k):
+        out = out + xp[:, j:j + s, :] * w[:, j].to(x.dtype)
+    return F.silu(out + b.to(x.dtype))
+
+
+def _split_proj(cfg: ModelConfig, zxbcdt: torch.Tensor):
+    di, n = cfg.d_inner, cfg.ssm_state
+    return (zxbcdt[..., :di], zxbcdt[..., di:2 * di + 2 * n],
+            zxbcdt[..., 2 * di + 2 * n:])
+
+
+def _ssd_chunked(cfg: ModelConfig, x: torch.Tensor, dt: torch.Tensor,
+                 a_log: torch.Tensor, b_: torch.Tensor, c_: torch.Tensor,
+                 init_state: Optional[torch.Tensor] = None):
+    """x: [B, S, H, P] (the silu'd conv output); dt: [B, S, H] float32
+    (softplus'd); b_, c_: [B, S, N]. Returns (y [B, S, H, P] in x's
+    dtype, final state [B, H, P, N] float32)."""
+    bsz, s_orig, h, p = x.shape
+    n = b_.shape[-1]
+    q = min(cfg.ssm_chunk, s_orig)
+    pad = (-s_orig) % q
+    if pad:  # ragged tail: dt = 0 padding is exact (decay 1, no input)
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        b_ = F.pad(b_, (0, 0, 0, pad))
+        c_ = F.pad(c_, (0, 0, 0, pad))
+    s = s_orig + pad
+    nc = s // q
+    fa = -torch.exp(a_log.float())                               # [H] < 0
+    a = dt * fa                                                  # [B,S,H]
+    xdt = x * dt[..., None].to(x.dtype)                          # dt-weighted
+
+    acs = torch.cumsum(a.reshape(bsz, nc, q, h), dim=2)          # [B,nc,Q,H]
+    xc = xdt.reshape(bsz, nc, q, h, p).float()
+    bc = b_.reshape(bsz, nc, q, n).float()
+    cc = c_.reshape(bsz, nc, q, n).float()
+
+    # intra-chunk: decay L[q, k] = exp(acs_q - acs_k) for k <= q, the mask
+    # before the exponential
+    seg = acs[:, :, :, None, :] - acs[:, :, None, :, :]          # [B,nc,Q,K,H]
+    mask = torch.ones(q, q, dtype=torch.bool, device=x.device).tril()
+    l_mat = torch.exp(torch.where(mask[None, None, :, :, None], seg,
+                                  torch.full((), -torch.inf,
+                                             device=x.device)))
+    cb = torch.einsum("bcqn,bckn->bcqk", cc, bc)
+    y_diag = torch.einsum("bcqkh,bckhp->bcqhp", cb[..., None] * l_mat, xc)
+
+    # per-chunk end states
+    decay_out = torch.exp(acs[:, :, -1:, :] - acs)               # [B,nc,Q,H]
+    states = torch.einsum("bckn,bckhp->bchpn", bc,
+                          xc * decay_out[..., None])
+    chunk_decay = torch.exp(acs[:, :, -1, :])                    # [B,nc,H]
+
+    # inter-chunk recurrence: the state entering each chunk
+    st = (torch.zeros(bsz, h, p, n, dtype=torch.float32, device=x.device)
+          if init_state is None else init_state.float())
+    prev = []
+    for c in range(nc):
+        prev.append(st)
+        st = st * chunk_decay[:, c, :, None, None] + states[:, c]
+    prev_states = torch.stack(prev, dim=1)                       # [B,nc,H,P,N]
+
+    y_off = torch.einsum("bcqn,bchpn->bcqhp", cc, prev_states) \
+        * torch.exp(acs)[..., None]
+    y = (y_diag + y_off).reshape(bsz, s, h, p)[:, :s_orig]
+    return y.to(x.dtype), st
+
+
+def _gated_norm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
+                dtype) -> torch.Tensor:
+    """Mamba2's gated RMSNorm, norm(y * silu(z)), in float32, eps 1e-6."""
+    g = y * F.silu(z.float()).to(y.dtype)
+    gf = g.float()
+    return (gf * torch.rsqrt((gf * gf).mean(-1, keepdim=True) + 1e-6)
+            * scale).to(dtype)
+
+
+def apply_mamba(cfg: ModelConfig, p, x: torch.Tensor,
+                init_state: Optional[torch.Tensor] = None,
+                return_state: bool = False):
+    """The mixer: in_proj -> conv -> SSD -> gated norm -> out_proj. x:
+    [B, S, D] -> (out, None), or with ``return_state`` (out, (final ssm
+    state [B, H, P, N] float32, conv state [B, K-1, C]: the last K-1
+    pre-conv inputs))."""
+    bsz, s, _ = x.shape
+    di, n, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    z, xbc_raw, dtr = _split_proj(cfg, x @ p["in_proj"])
+    xbc = _causal_conv(xbc_raw, p["conv_w"], p["conv_b"])
+    xs = xbc[..., :di].reshape(bsz, s, h, cfg.ssm_headdim)
+    b_ = xbc[..., di:di + n]
+    c_ = xbc[..., di + n:]
+    dt = softplus(dtr.float() + p["dt_bias"])
+    y, final_state = _ssd_chunked(cfg, xs, dt, p["A_log"], b_, c_,
+                                  init_state)
+    y = y + p["D"].to(y.dtype)[None, None, :, None] * xs
+    g = _gated_norm(y.reshape(bsz, s, di), z, p["norm"], x.dtype)
+    out = g @ p["out_proj"]
+    if return_state:
+        k = cfg.ssm_conv
+        conv_state = F.pad(xbc_raw[:, max(s - (k - 1), 0):, :],
+                           (0, 0, max(k - 1 - s, 0), 0))
+        return out, (final_state, conv_state)
+    return out, None
+
+
+def mamba_decode(cfg: ModelConfig, p, xt: torch.Tensor,
+                 ssm_state: torch.Tensor, conv_state: torch.Tensor):
+    """One-token step. xt: [B, D]; ssm_state: [B, H, P, N]; conv_state:
+    [B, K-1, C] (pre-activation conv inputs). Returns (out [B, D], new ssm
+    state, new conv state)."""
+    bsz = xt.shape[0]
+    di, n, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    z, xbc_new, dtr = _split_proj(cfg, xt @ p["in_proj"])
+    xfull = torch.cat([conv_state, xbc_new[:, None, :]], dim=1)
+    conv = xfull[:, 0, :] * p["conv_w"][:, 0].to(xt.dtype)
+    for j in range(1, cfg.ssm_conv):
+        conv = conv + xfull[:, j, :] * p["conv_w"][:, j].to(xt.dtype)
+    xbc = F.silu(conv + p["conv_b"].to(xt.dtype))
+    xs = xbc[:, :di].reshape(bsz, h, cfg.ssm_headdim).float()
+    b_ = xbc[:, di:di + n].float()
+    c_ = xbc[:, di + n:].float()
+    dt = softplus(dtr.float() + p["dt_bias"])                    # [B,H]
+    decay = torch.exp(dt * -torch.exp(p["A_log"].float()))       # [B,H]
+    upd = (dt[:, :, None] * xs)[..., None] * b_[:, None, None, :]
+    new_state = ssm_state * decay[:, :, None, None] + upd
+    y = torch.einsum("bn,bhpn->bhp", c_, new_state) \
+        + p["D"][None, :, None] * xs
+    g = _gated_norm(y.reshape(bsz, di), z, p["norm"], xt.dtype)
+    out = g @ p["out_proj"]
+    return out, new_state.to(ssm_state.dtype), xfull[:, 1:, :]
+
+
+# ------------------------------------------------------------ the LM (ssm)
+def param_specs(cfg: ModelConfig) -> Dict:
+    return {
+        "embed": layers.embed_specs(cfg),
+        "blocks": {"ln": layers.norm_specs(cfg, (cfg.n_layers,)),
+                   "mamba": mamba_specs(cfg, (cfg.n_layers,))},
+        "final_norm": layers.norm_specs(cfg),
+    }
+
+
+def residual_block(cfg: ModelConfig, blk, x: torch.Tensor) -> torch.Tensor:
+    h, _ = apply_mamba(cfg, blk["mamba"],
+                       layers.apply_norm(cfg, blk["ln"], x))
+    return x + h
+
+
+def logits(cfg: ModelConfig, params, tokens: torch.Tensor,
+           remat: str = "none") -> torch.Tensor:
+    """The logits [B, S, vocab_padded] of one causal forward over
+    ``tokens`` [B, S], each layer one checkpoint under ``remat``."""
+    run = layers.remat_runner(remat)
+    x = layers.embed_tokens(params["embed"], tokens)
+    blocks = params["blocks"]
+    for i in range(cfg.n_layers):  # layer i's parameters: views of the stack
+        x = run(lambda blk, y: residual_block(cfg, blk, y),
+                tree_map(lambda w: w[i], blocks), x)
+    x = layers.apply_norm(cfg, params["final_norm"], x)
+    return layers.unembed(cfg, params["embed"], x)
+
+
+def train_loss(cfg: ModelConfig, params, batch: Dict,
+               remat: str = "dots_no_batch") -> torch.Tensor:
+    """Mean next-token cross-entropy of ``batch["tokens"]`` [B, S] (the
+    last position masked), each layer one checkpoint under ``remat``."""
+    tokens = batch["tokens"]
+    return layers.next_token_loss(cfg, logits(cfg, params, tokens, remat),
+                                  tokens)
+
+
+@torch.no_grad()
+def prefill(cfg: ModelConfig, params, tokens: torch.Tensor,
+            max_len: Optional[int] = None):
+    """Returns (last-position logits [B, 1, vocab_padded] float32,
+    (ssm states [L, B, H, P, N] float32, conv states [L, B, K-1, C])).
+    The state does not grow with the length: ``max_len`` is ignored."""
+    x = layers.embed_tokens(params["embed"], tokens)
+    states = state_zeros(cfg, tokens.shape[0], tokens.device)
+    blocks = params["blocks"]
+    for i in range(cfg.n_layers):
+        blk = tree_map(lambda w: w[i], blocks)
+        h, (ss, cs) = apply_mamba(cfg, blk["mamba"],
+                                  layers.apply_norm(cfg, blk["ln"], x),
+                                  return_state=True)
+        x = x + h
+        states[0][i] = ss
+        states[1][i] = cs
+    x = layers.apply_norm(cfg, params["final_norm"], x)
+    return layers.unembed(cfg, params["embed"], x[:, -1:]), states
+
+
+@torch.no_grad()
+def decode_step(cfg: ModelConfig, params, token: torch.Tensor,
+                states: States, pos: Optional[int] = None):
+    """token: [B, 1]; states as ``prefill`` returns them, updated in place
+    and returned with the logits [B, 1, vocab_padded] float32. The step
+    does not depend on the position: ``pos`` is ignored."""
+    x = layers.embed_tokens(params["embed"], token)[:, 0, :]
+    ssm, conv = states
+    blocks = params["blocks"]
+    for i in range(cfg.n_layers):
+        blk = tree_map(lambda w: w[i], blocks)
+        xn = layers.apply_norm(cfg, blk["ln"], x[:, None, :])[:, 0, :]
+        h, ss, cs = mamba_decode(cfg, blk["mamba"], xn, ssm[i], conv[i])
+        x = x + h
+        ssm[i] = ss
+        conv[i] = cs
+    x = layers.apply_norm(cfg, params["final_norm"], x[:, None, :])
+    return layers.unembed(cfg, params["embed"], x), states
+
+
+def state_specs(cfg: ModelConfig, batch: int,
+                max_len: Optional[int] = None):
+    """The decode state's PSpecs (``max_len`` ignored, as in ``prefill``)."""
+    di, n = cfg.d_inner, cfg.ssm_state
+    return (
+        PSpec((cfg.n_layers, batch, cfg.ssm_heads, cfg.ssm_headdim, n),
+              torch.float32, "zeros"),
+        PSpec((cfg.n_layers, batch, cfg.ssm_conv - 1, di + 2 * n),
+              cfg.dtype, "zeros"),
+    )
+
+
+def state_zeros(cfg: ModelConfig, batch: int, device) -> States:
+    return tuple(torch.zeros(s.shape, dtype=s.dtype, device=device)
+                 for s in state_specs(cfg, batch))

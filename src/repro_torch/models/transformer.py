@@ -1,56 +1,38 @@
-"""Decoder-only transformer LM, dense GQA family: the train loss and the
-serving steps.
+"""Decoder-only transformer LM (dense GQA and MoE families): the train loss
+and the serving steps.
 
 The parameter tree keeps the JAX package's stacked ``[L, ...]`` block
 leaves; the JAX ``lax.scan`` over layers is a Python loop over per-layer
 views. Three step kinds: the train loss (with per-layer remat), prefill
-(builds the KV cache) and single-token decode. The MoE block comes with
-a later slice (ROADMAP Queue 1 item 11c).
+(builds the KV cache) and single-token decode.
 """
 from __future__ import annotations
 
-import functools
 from typing import Dict, Optional, Tuple
 
 import torch
-from torch.utils.checkpoint import (checkpoint,
-                                    create_selective_checkpoint_contexts)
 
-from . import layers
+from . import layers, moe
 from .config import ModelConfig
 from .spec import PSpec, tree_map
 
 Cache = Tuple[torch.Tensor, torch.Tensor]  # (k, v), each [L, B, Smax, KV, hd]
 
-_aten = torch.ops.aten
-# The JAX checkpoint policies by name: None runs a layer without a
-# checkpoint; otherwise each layer is one checkpoint that keeps the outputs
-# of these ops and recomputes the rest in the backward ("dots_no_batch":
-# ``x @ w`` reaches the dispatcher as ``mm``; "dots" also keeps batched
-# products; "nothing" keeps none).
-REMAT_POLICIES = {
-    "none": None,
-    "dots": (_aten.mm.default, _aten.addmm.default, _aten.bmm.default),
-    "dots_no_batch": (_aten.mm.default, _aten.addmm.default),
-    "nothing": (),
-}
-
-
-def _dense_only(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"family {cfg.family!r}: the port runs the dense family only "
-            "(MoE blocks: ROADMAP Queue 1 item 11c)")
-
 
 def block_specs(cfg: ModelConfig, L: Tuple[int, ...]) -> Dict:
-    _dense_only(cfg)
-    return {
+    if cfg.family not in ("dense", "moe"):
+        raise ValueError(f"transformer: family {cfg.family!r} is not a "
+                         "decoder-only transformer")
+    sp = {
         "ln1": layers.norm_specs(cfg, L),
         "ln2": layers.norm_specs(cfg, L),
         "attn": layers.attn_specs(cfg, L),
-        "mlp": layers.mlp_specs(cfg, L),
     }
+    if cfg.family == "moe":
+        sp["moe"] = moe.moe_specs(cfg, L)
+    else:
+        sp["mlp"] = layers.mlp_specs(cfg, L)
+    return sp
 
 
 def param_specs(cfg: ModelConfig) -> Dict:
@@ -63,13 +45,19 @@ def param_specs(cfg: ModelConfig) -> Dict:
 
 def apply_block(cfg: ModelConfig, p, x: torch.Tensor, positions, *,
                 cache: Optional[Cache] = None, cache_pos: int = 0):
-    """One pre-norm block; returns (x, cache)."""
+    """One pre-norm block; returns (x, cache, aux), aux the MoE block's
+    load-balance loss (0 for a dense block)."""
     h, new_kv = layers.attention(
         cfg, p["attn"], layers.apply_norm(cfg, p["ln1"], x), positions,
         causal=True, cache=cache, cache_pos=cache_pos)
     x = x + h
-    x = x + layers.apply_mlp(cfg, p["mlp"], layers.apply_norm(cfg, p["ln2"], x))
-    return x, new_kv
+    hn = layers.apply_norm(cfg, p["ln2"], x)
+    if cfg.family == "moe":
+        h, aux = moe.apply_moe(cfg, p["moe"], hn)
+    else:
+        h = layers.apply_mlp(cfg, p["mlp"], hn)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + h, new_kv, aux
 
 
 def apply_stack(cfg: ModelConfig, blocks, x: torch.Tensor, positions,
@@ -77,20 +65,17 @@ def apply_stack(cfg: ModelConfig, blocks, x: torch.Tensor, positions,
     """The train path's layers in order, each under the remat policy
     ``remat`` (a ``REMAT_POLICIES`` name; another raises ``KeyError``);
     returns (x, aux_sum), the dense family's aux being 0."""
-    _dense_only(cfg)
-    saved = REMAT_POLICIES[remat]
-    kw = {"use_reentrant": False}
-    if saved:
-        kw["context_fn"] = functools.partial(
-            create_selective_checkpoint_contexts, list(saved))
+    run = layers.remat_runner(remat)
 
     def body(blk, y):
-        return apply_block(cfg, blk, y, positions)[0]
+        y, _, aux = apply_block(cfg, blk, y, positions)
+        return y, aux
 
+    aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_layers):  # layer i's parameters: views of the stack
-        blk = tree_map(lambda w: w[i], blocks)
-        x = body(blk, x) if saved is None else checkpoint(body, blk, x, **kw)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+        x, aux = run(body, tree_map(lambda w: w[i], blocks), x)
+        aux_sum = aux_sum + aux
+    return x, aux_sum
 
 
 def train_loss(cfg: ModelConfig, params, batch: Dict,
@@ -98,7 +83,6 @@ def train_loss(cfg: ModelConfig, params, batch: Dict,
     """Mean next-token cross-entropy of ``batch["tokens"]`` [B, S] (the
     last position masked) plus 0.01 x the blocks' aux loss: a 0-d float32
     tensor."""
-    _dense_only(cfg)
     tokens = batch["tokens"]
     x = layers.embed_tokens(params["embed"], tokens)
     positions = torch.arange(tokens.shape[1], dtype=torch.int32,
@@ -106,22 +90,16 @@ def train_loss(cfg: ModelConfig, params, batch: Dict,
     x, aux = apply_stack(cfg, params["blocks"], x, positions, remat)
     x = layers.apply_norm(cfg, params["final_norm"], x)
     logits = layers.unembed(cfg, params["embed"], x)
-    labels = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])],
-                       dim=1)
-    b, s = tokens.shape
-    mask = torch.cat([torch.ones(b, s - 1, device=tokens.device),
-                      torch.zeros(b, 1, device=tokens.device)], dim=1)
-    loss = layers.softmax_xent(cfg, logits, labels, mask)
-    return loss + 0.01 * aux
+    return layers.next_token_loss(cfg, logits, tokens) + 0.01 * aux
 
 
 def _run_layers(cfg: ModelConfig, params, x, positions, cache: Cache,
                 pos: int):
     blocks = params["blocks"]
     for i in range(cfg.n_layers):  # layer i's parameters: views of the stack
-        x, _ = apply_block(cfg, tree_map(lambda w: w[i], blocks), x,
-                           positions, cache=(cache[0][i], cache[1][i]),
-                           cache_pos=pos)
+        x, _, _ = apply_block(cfg, tree_map(lambda w: w[i], blocks), x,
+                              positions, cache=(cache[0][i], cache[1][i]),
+                              cache_pos=pos)
     return layers.apply_norm(cfg, params["final_norm"], x)
 
 
@@ -132,7 +110,6 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor,
     (k, v), each [L, B, max_len, KV, hd] (``max_len`` defaults to S).
     Returns (last-position logits [B, 1, vocab_padded] float32, cache).
     As in the JAX package, attention runs over all ``max_len`` slots."""
-    _dense_only(cfg)
     b, s = tokens.shape
     smax = max_len or s
     cache = cache_zeros(cfg, b, smax, tokens.device)
@@ -148,7 +125,6 @@ def decode_step(cfg: ModelConfig, params, token: torch.Tensor, cache: Cache,
     """One decode step. token: [B, 1]; ``pos`` (an int) is the new token's
     position. The cache is updated in place and returned with the logits
     [B, 1, vocab_padded] float32."""
-    _dense_only(cfg)
     x = layers.embed_tokens(params["embed"], token)
     positions = torch.full((1,), pos, dtype=torch.int32, device=token.device)
     x = _run_layers(cfg, params, x, positions, cache, pos)

@@ -30,6 +30,9 @@ class Engine:
     def __init__(self, model: Model, params, batch_slots: int = 4,
                  max_len: int = 256,
                  device: Union[str, torch.device] = "cuda"):
+        if model.cfg.family not in ("dense", "moe"):
+            raise ValueError(f"Engine serves decoder-only transformer LMs "
+                             f"(dense, moe), not {model.cfg.family!r}")
         self.device = resolve_device(device)
         self.model = model
         self.params = tree_map(lambda w: w.to(self.device), params)

@@ -116,15 +116,28 @@ def test_wrapper_validates_and_cpu_never_launches():
 @pytest.mark.gpu
 def test_kernel_on_card_matches_plain_version():
     """The CUDA kernel against the plain version on the card: bf16 and
-    float32, hd 64 and 128, prefill (8 rows a block), decode (splits over
-    keys) and ragged lengths; other head dims and dtypes raise."""
+    float32, hd 64, 80, 112 and 128, prefill (8 rows a block), decode
+    (splits over keys) and ragged lengths; other head dims and dtypes
+    raise."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     dev = torch.device("cuda")
     cases = [((2, 12, 20, 9, 3, 64), 0, True), ((4, 1, 2048, 9, 3, 64), 1999, True),
              ((2, 1, 40, 9, 3, 64), 39, True), ((1, 77, 300, 8, 2, 128), 5, True),
              ((2, 3, 513, 16, 2, 128), 510, True), ((2, 64, 64, 6, 3, 64), 0, False),
-             ((1, 1, 1, 4, 1, 64), 0, True)]
+             ((1, 1, 1, 4, 1, 64), 0, True),
+             # hd 80 and 112 (zamba2's shared attention, kimi-k2): prefill,
+             # decode with one split and with several, rep 1 and 8, Sk not
+             # a multiple of 64
+             ((2, 12, 20, 4, 4, 80), 0, True), ((1, 77, 300, 8, 1, 80), 5, True),
+             ((4, 1, 2048, 32, 32, 80), 1999, True),
+             ((2, 3, 200, 8, 1, 80), 190, True), ((2, 1, 1000, 8, 1, 80), 900, True),
+             ((2, 64, 64, 4, 2, 80), 0, False),
+             ((2, 12, 20, 16, 2, 112), 0, True),
+             ((1, 77, 300, 8, 1, 112), 5, True),
+             ((2, 1, 2000, 64, 8, 112), 1999, True),
+             ((2, 3, 513, 8, 8, 112), 510, True), ((2, 5, 200, 8, 1, 112), 190, True),
+             ((2, 64, 64, 6, 3, 112), 0, False)]
     for shape, off, causal in cases:
         for dtype in ("bfloat16", "float32"):
             q, k, v = (_torch(x, dtype).to(dev)
@@ -304,7 +317,7 @@ def _attn_check(got, want):
 
 def _card_cases():
     cases = []
-    for hd in (64, 128):
+    for hd in (64, 80, 112, 128):
         for rep in (1, 3, 8):
             kvh = 1 if rep == 8 else 2
             for sq in (16, 23, 1920):
@@ -319,8 +332,8 @@ def _card_cases():
 @pytest.mark.parametrize("shape,q_offset,causal", _card_cases())
 def test_tensor_core_prefill_on_card(shape, q_offset, causal):
     """bf16 prefill (Sq >= 16) on the tensor cores against the plain
-    version: hd 64 and 128, rep 1, 3 and 8, Sq 16, 23 and 1,920, Sk not a
-    multiple of 64."""
+    version: hd 64, 80, 112 and 128, rep 1, 3 and 8, Sq 16, 23 and 1,920,
+    Sk not a multiple of 64."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     q, k, v = (_torch(x, "bfloat16").cuda()

@@ -21,7 +21,9 @@ def test_port_imports_without_jax_or_repro():
             "repro_torch.obs.export, repro_torch.kernels.segment_reduce, "
             "repro_torch.kernels.spmv, repro_torch.db.schema, "
             "repro_torch.db.naive, repro_torch.db.graphulo, "
-            "repro_torch.models, repro_torch.configs, repro_torch.serve, "
+            "repro_torch.models, repro_torch.models.moe, "
+            "repro_torch.models.mamba2, repro_torch.models.hybrid, "
+            "repro_torch.configs, repro_torch.serve, "
             "repro_torch.launch.serve, repro_torch.kernels.flash_attention, "
             "repro_torch.train, repro_torch.train.optimizer, "
             "repro_torch.train.train_step, repro_torch.train.checkpoint, "

@@ -53,7 +53,8 @@ def _close(got, want, tol, what):
                                atol=tol, err_msg=what)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + ["olmoe-1b-7b", "mamba2-2.7b",
+                                         "zamba2-2.7b"])
 def test_params_from_jax_bit_equal(arch):
     jcfg, cfg = _cfgs(arch, "bfloat16")
     jp = _jax_params(jcfg)
@@ -168,38 +169,72 @@ def test_layernorm_and_gelu_match_jax():
 
 
 def test_build_serves_dense_only_and_refuses_training():
-    """``build`` takes the dense family only (the other families name
-    their ROADMAP item); a dense model trains: ``train_loss`` of a small
-    batch is a finite 0-d float32 tensor. (Training was refused before it
-    was ported; the name is kept for the record.)"""
+    """``build`` takes the dense, MoE, Mamba2 and hybrid families (enc-dec
+    and VLM name their ROADMAP item); each trains: ``train_loss`` of a
+    small batch is a finite 0-d float32 tensor, and its parameter count
+    is the JAX package's. (The name is kept for the record: the port once
+    took the dense family only, and refused training.)"""
     from repro.configs import get_config as jax_config
     from repro.models import param_count as jax_param_count
     from repro_torch.configs import ARCH_IDS, get_config
     from repro_torch.models import init_params, param_count
+    later = {"encdec": "11f", "vlm": "11g"}
+    built = set()
     for arch in ARCH_IDS:
         cfg = get_reduced(arch)
-        if cfg.family == "dense":
-            model = build(cfg)
-            for port, ref in ((cfg, jax_reduced(arch)),
-                              (get_config(arch), jax_config(arch))):
-                assert param_count(build(port).param_specs) == \
-                    jax_param_count(jax_build(ref).param_specs)
-            params = init_params(model.param_specs,
-                                 torch.Generator().manual_seed(0))
-            toks = torch.randint(1, cfg.vocab, (2, 8), dtype=torch.int32,
-                                 generator=torch.Generator().manual_seed(1))
-            loss = model.train_loss(params, {"tokens": toks})
-            assert loss.dtype == torch.float32 and loss.dim() == 0
-            assert bool(torch.isfinite(loss))
-            assert set(model.train_input_specs(2, 16)) == {"tokens"}
-            assert set(model.decode_input_specs(2, 16)) == {"token", "pos",
-                                                            "cache"}
-        else:
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
+        if cfg.family in later:
+            with pytest.raises(NotImplementedError,
+                               match=f"ROADMAP.*{later[cfg.family]}"):
                 build(cfg)
+            continue
+        model = build(cfg)
+        built.add(cfg.family)
+        for port, ref in ((cfg, jax_reduced(arch)),
+                          (get_config(arch), jax_config(arch))):
+            assert param_count(build(port).param_specs) == \
+                jax_param_count(jax_build(ref).param_specs)
+        params = init_params(model.param_specs,
+                             torch.Generator().manual_seed(0))
+        toks = torch.randint(1, cfg.vocab, (2, 8), dtype=torch.int32,
+                             generator=torch.Generator().manual_seed(1))
+        loss = model.train_loss(params, {"tokens": toks})
+        assert loss.dtype == torch.float32 and loss.dim() == 0
+        assert bool(torch.isfinite(loss))
+        assert set(model.train_input_specs(2, 16)) == {"tokens"}
+        want = {"token", "cache"} | ({"pos"} if cfg.family != "ssm" else set())
+        assert set(model.decode_input_specs(2, 16)) == want
+    assert built == {"dense", "moe", "ssm", "hybrid"}
     full = get_config("smollm-135m")
     assert (full.n_layers, full.d_model, full.n_heads, full.n_kv_heads,
             full.hd, full.vocab) == (30, 576, 9, 3, 64, 49152)
+
+
+def test_init_params_draws_a_large_leaf_in_slices(monkeypatch):
+    """A leaf past ``SLICE_ELEMENTS`` is drawn a slice over its leading
+    axes at a time into a tensor of its own dtype: the right shape, dtype
+    and std, the same draw for the same seed, and the leaves under the
+    limit drawn exactly as before."""
+    from repro_torch.models import spec
+    specs = {"big": spec.PSpec((3, 4, 50, 64), torch.bfloat16),
+             "small": spec.PSpec((40, 30), torch.float32)}
+    whole = spec.init_params(specs, torch.Generator().manual_seed(7))
+    monkeypatch.setattr(spec, "SLICE_ELEMENTS", 4 * 50 * 64)
+    draws = [spec.init_params(specs, torch.Generator().manual_seed(s))
+             for s in (7, 7, 8)]
+    big = draws[0]["big"]
+    assert big.shape == (3, 4, 50, 64) and big.dtype == torch.bfloat16
+    std = min(0.02, 50 ** -0.5)
+    assert abs(float(big.float().std()) / std - 1) < 0.05
+    assert abs(float(big.float().mean())) < 0.05 * std
+    assert torch.equal(draws[0]["big"], draws[1]["big"])
+    assert not torch.equal(draws[0]["big"], draws[2]["big"])
+    # three slices of [4, 50, 64]: the first is the first draw of its size
+    first = torch.randn((4, 50, 64), generator=torch.Generator().manual_seed(
+        7)) * std
+    assert torch.equal(big[0], first.to(torch.bfloat16))
+    monkeypatch.setattr(spec, "SLICE_ELEMENTS", 1 << 28)
+    assert torch.equal(whole["small"], spec.init_params(
+        specs, torch.Generator().manual_seed(7))["small"])
 
 
 def test_tensor_from_numpy_keeps_bf16_bits():

@@ -37,7 +37,7 @@ from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_bwd_ref,
                                                  flash_attention_ref)
 from repro_torch.kernels.flash_attention import ops as attn_ops
-from repro_torch.models import build, layers, params_from_jax, transformer
+from repro_torch.models import build, layers, params_from_jax
 from repro_torch.models.spec import tree_leaves
 from repro_torch.train.train_step import loss_and_grads
 
@@ -204,7 +204,7 @@ def test_remat_policies_agree_bit_for_bit():
     batch = {"tokens": torch.from_numpy(_tokens(cfg, 5))}
     model = build(cfg)
     runs = {r: loss_and_grads(model, params, batch, r)
-            for r in transformer.REMAT_POLICIES}
+            for r in layers.REMAT_POLICIES}
     assert set(runs) == {"none", "nothing", "dots", "dots_no_batch"}
     loss0, g0 = runs["none"]
     for remat, (loss, g) in runs.items():
@@ -220,10 +220,22 @@ def test_train_main_checkpoints_and_resumes(tmp_path, monkeypatch):
     a run that dies after its step-3 checkpoint, then resumes to step 6
     with the same losses (the skipped batches are drawn again); the
     checkpoints' steps and LATEST."""
+    _train_main_crash_and_resume("smollm-135m", tmp_path, monkeypatch)
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "mamba2-2.7b",
+                                  "zamba2-2.7b"])
+def test_train_main_trains_each_family(arch, tmp_path, monkeypatch):
+    """The same run, crash and resume through ``launch.train.main`` for
+    the MoE, Mamba2 and hybrid families' reduced configs."""
+    _train_main_crash_and_resume(arch, tmp_path, monkeypatch)
+
+
+def _train_main_crash_and_resume(arch, tmp_path, monkeypatch):
     from repro_torch.launch import train as launch_train
     from repro_torch.train import checkpoint
 
-    argv = ["--arch", "smollm-135m", "--reduced", "--device", "cpu",
+    argv = ["--arch", arch, "--reduced", "--device", "cpu",
             "--steps", "6", "--batch", "2", "--seq", "16", "--docs", "8",
             "--log-every", "1", "--ckpt-every", "3"]
     whole = launch_train.main(argv + ["--ckpt-dir", str(tmp_path / "a")])
@@ -257,7 +269,7 @@ def test_train_main_needs_the_card_or_cpu():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         main(["--reduced", "--steps", "1"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        main(["--arch", "olmoe-1b-7b", "--reduced", "--device", "cpu"])
+        main(["--arch", "whisper-large-v3", "--reduced", "--device", "cpu"])
 
 
 # ------------------------------------------------------------------ card
