@@ -11,8 +11,9 @@ Zipf stream (with a crash and a per-tablet recovery), the store-backed
 token pipeline, the SPMD mesh path (4 rank processes and a single NCCL
 rank), the LM serving path (``launch/serve.py`` → ``Engine`` → prefill /
 decode), the LM training path (``launch/train.py`` → train step →
-``train_loss`` with per-layer remat → AdamW, checkpoints and a resume)
-and the MoE, Mamba2 and hybrid families (serving and a train step);
+``train_loss`` with per-layer remat → AdamW, checkpoints and a resume),
+the MoE, Mamba2 and hybrid families (serving and a train step) and the
+enc-dec and VLM families (serving, training with a resume, a train step);
 builds the hand-written CUDA
 kernels from ``src/repro_torch/csrc``, shows that each path launched its
 kernels, and holds each kernel against its plain PyTorch version at the
@@ -136,6 +137,23 @@ Phases (each raises on failure):
      attention output detached from q, k, v) must fail; (c) during (a)
      self-attention ran only on #7, 2 launches a layer a step (the remat
      recompute), 2,400 in all, and no other kernel;
+  12. (run before 11, which leaves its recorded inputs on the card) the
+     enc-dec and VLM families at full width (sizes and cuts in ``P12``), weights drawn on the card, frames and image embeddings
+     seeded (the frontends are stubs), served greedily through
+     ``build(cfg).prefill`` / ``.decode``: (a) whisper-large-v3 (32
+     encoder + 32 decoder layers, 20 heads at hd 64, 1,500 frames), 4
+     requests of a 4-token prompt, 128 new tokens: #7 96 times in the
+     prefill (the encoder's and the cross-attention non-causal over 1,500
+     keys) and 64 a step; (b) internvl2-26b (48 layers, 48 heads over 8
+     at hd 128), 4 requests of 256 image embeddings and 512 tokens, 32
+     new over an 800-slot cache: #7 48 times a forward; each at 2 layers
+     a stack in float32, the card's prefill against the CPU's (and for
+     whisper prefill-then-decode against one forward) within 1e-3, the
+     bf16 drift logged; (c) whisper through ``launch.train.main`` at full
+     depth, 3 steps of 2 x 256 tokens and 1,500 frames, a crash after
+     step 2 and a resume with losses equal to the uninterrupted run's; one
+     train step per family at 2 layers a stack, every leaf's gradient
+     (bf16) within 5e-2 of the CPU's (float32);
   11. the MoE, Mamba2 and hybrid families at full width (sizes in
      ``P11``): (a) olmoe-1b-7b (16 layers, 64 experts, top 8, hd 128)
      through ``launch.serve``'s defaults (512 attention launches) and one
@@ -157,7 +175,7 @@ Phases (each raises on failure):
      bf16 against float32 within 5e-2);
   5. each kernel against its plain version on the card at every input
      each path gave it (recorded in phases 3, 4b, 4c, 4d, 7, 8, 9 — by the
-     ranks, per geometry — 6, 10 and 11: per
+     ranks, per geometry — 6, 10, 12 and 11: per
      geometry for the LSM kernels and flash attention, per call for the
      1-D rank, the tablet gather, segment sum and SpMVs), ranks, merged
      rows, read entries and degree sums exactly equal (the merge-path
@@ -1128,16 +1146,75 @@ class SimulatedCrash(Exception):
     pass
 
 
-def train_argv(seed, device, ckpt_dir=None, resume=False):
+def train_argv(seed, device):
     argv = ["--arch", P10["arch"], "--steps", str(P10["steps"]),
             "--batch", str(P10["batch"]), "--seq", str(P10["seq"]),
             "--docs", str(P10["docs"]), "--ckpt-every", str(P10["crash"]),
             "--seed", str(seed), "--device", str(device)]
-    if P10["reduced"]:
-        argv.append("--reduced")
-    if ckpt_dir is not None:
-        argv += ["--ckpt-dir", str(ckpt_dir)]
-    return argv + (["--resume"] if resume else [])
+    return argv + (["--reduced"] if P10["reduced"] else [])
+
+
+def crash_resume(argv, ckpt_dir, stash, keep_leaves=False):
+    """Three runs of ``repro_torch.launch.train.main(argv)`` under one
+    ``kernel_run(stash)``: uninterrupted; with ``--ckpt-dir ckpt_dir``,
+    "crashing" right after its first checkpoint (an exception out of
+    ``checkpoint.save``, once the files are down); and that run resumed.
+    Every step is timed (host clock, synchronised by the loss). Returns
+    (losses, resumed losses, step seconds by run, the crash's {"step"} and
+    with ``keep_leaves`` its ``"leaves"`` as numpy, launches, wall seconds
+    of the uninterrupted and the resumed run)."""
+    import shutil
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.convert import leaf_to_numpy
+    from repro_torch.models.spec import tree_leaves
+    from repro_torch.train import checkpoint
+
+    step_s, saved, walls = {}, {}, {}  # step_s: run -> seconds of each step
+    make_step, save = launch_train.make_train_step, checkpoint.save
+
+    def timed_steps(run):
+        def make(*a, **kw):
+            step = make_step(*a, **kw)
+
+            def timed(*args):
+                t0 = clock()
+                out = step(*args)
+                out[2].item()
+                step_s[run].append(clock() - t0)
+                return out
+            return timed
+        step_s[run] = []
+        launch_train.make_train_step = make
+
+    def save_then_crash(ckpt_dir, step, tree, **kw):
+        saved["step"] = step
+        if keep_leaves:
+            saved["leaves"] = [leaf_to_numpy(x) for x in tree_leaves(tree)]
+        save(ckpt_dir, step, tree, **kw)
+        raise SimulatedCrash(step)
+
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    ckpt = ["--ckpt-dir", str(ckpt_dir)]
+    try:
+        with kernel_run(stash) as launches:
+            timed_steps("whole")
+            whole, walls["whole"] = timed_call(lambda: launch_train.main(
+                argv))
+            timed_steps("crashed")
+            checkpoint.save = save_then_crash
+            try:
+                launch_train.main(argv + ckpt)
+                raise AssertionError(f"{argv}: the run did not crash")
+            except SimulatedCrash:
+                pass
+            finally:
+                checkpoint.save = save
+            timed_steps("resumed")
+            resumed, walls["resumed"] = timed_call(lambda: launch_train.main(
+                argv + ckpt + ["--resume"]))
+    finally:
+        launch_train.make_train_step = make_step
+    return whole, resumed, step_s, saved, launches, walls
 
 
 def leaf_grad_errors(got, want):
@@ -1173,10 +1250,8 @@ def training(seed, smi, stash, device="cuda"):
     import torch
     from repro_torch.configs import get_config, get_reduced
     from repro_torch.kernels.flash_attention import flash_attention_bwd_ref
-    from repro_torch.launch import train as launch_train
     from repro_torch.models import build, init_params, layers
-    from repro_torch.models.convert import leaf_to_numpy
-    from repro_torch.models.spec import tree_leaves, tree_map
+    from repro_torch.models.spec import tree_map
     from repro_torch.train import checkpoint
     from repro_torch.train.train_step import loss_and_grads
 
@@ -1188,56 +1263,13 @@ def training(seed, smi, stash, device="cuda"):
         f"{cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads}, hd "
         f"{cfg.hd}, vocab {cfg.vocab}, {cfg.param_dtype}; {n_steps} steps "
         f"of {P10['batch']} x {P10['seq']} tokens, remat dots_no_batch")
-    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
-    step_s = {}  # run -> seconds of each step
-    make_step = launch_train.make_train_step
-
-    def timed_steps(run):
-        def make(*a, **kw):
-            step = make_step(*a, **kw)
-
-            def timed(*args):
-                t0 = clock()
-                out = step(*args)
-                out[2].item()
-                step_s[run].append(clock() - t0)
-                return out
-            return timed
-        step_s[run] = []
-        launch_train.make_train_step = make
-
-    saved = {}
-    save = checkpoint.save
-
-    def save_then_crash(ckpt_dir, step, tree, **kw):
-        saved["step"] = step
-        saved["leaves"] = [leaf_to_numpy(x) for x in tree_leaves(tree)]
-        save(ckpt_dir, step, tree, **kw)
-        raise SimulatedCrash(step)
-
     if device == "cuda":  # what earlier phases hold stays out of the peak
         torch.cuda.reset_peak_memory_stats()
         held = torch.cuda.memory_allocated()
     t_a = time.perf_counter()
-    try:
-        with kernel_run(stash) as launches:
-            timed_steps("whole")
-            whole, t_whole = timed_call(lambda: launch_train.main(
-                train_argv(seed, device)))
-            timed_steps("crashed")
-            checkpoint.save = save_then_crash
-            try:
-                launch_train.main(train_argv(seed, device, TRAIN_DIR))
-                raise AssertionError("phase 10: the run did not crash")
-            except SimulatedCrash:
-                pass
-            finally:
-                checkpoint.save = save
-            timed_steps("resumed")
-            resumed, t_resumed = timed_call(lambda: launch_train.main(
-                train_argv(seed, device, TRAIN_DIR, resume=True)))
-    finally:
-        launch_train.make_train_step = make_step
+    whole, resumed, step_s, saved, launches, walls = crash_resume(
+        train_argv(seed, device), TRAIN_DIR, stash, keep_leaves=True)
+    t_whole, t_resumed = walls["whole"], walls["resumed"]
     t_a = time.perf_counter() - t_a
     if device == "cuda":
         peak = torch.cuda.max_memory_allocated()
@@ -1432,6 +1464,12 @@ def describe(cfg):
                  f"{cfg.ssm_chunk}")
     if cfg.family == "hybrid":
         extra += f", shared attention every {cfg.shared_attn_every}"
+    if cfg.family == "encdec":
+        extra = (f", {cfg.n_enc_layers} encoder layers over "
+                 f"{cfg.n_frames} frames, d_ff {cfg.d_ff}, {cfg.mlp}, "
+                 f"{cfg.norm}")
+    if cfg.family == "vlm":
+        extra = f", d_ff {cfg.d_ff}, {cfg.n_img_tokens} image tokens"
     attn = ("" if cfg.family == "ssm" else
             f", {cfg.n_heads} heads over {cfg.n_kv_heads}, hd {cfg.hd}")
     return (f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}"
@@ -1854,6 +1892,424 @@ def families(seed, smi, stash, device="cuda"):
                                                          device)
     walls["e"] = time.perf_counter() - t - sum(walls.values())
     log(f"phase 11: {time.perf_counter() - t:.3f} s; by part (s): "
+        + json.dumps(walls))
+    return stats, launches
+
+
+# ------------------------------------------------------------------ phase 12
+# The enc-dec and VLM families on the card: (a) whisper-large-v3 and (b)
+# internvl2-26b served at full width and depth (greedy, through
+# ``build(cfg).prefill`` / ``.decode``: ``Engine`` serves decoder-only LMs
+# only, as in the JAX package), (c) whisper trained through launch/train.py
+# at full width and depth with a crash and a resume, and one train step per
+# family at full width and reduced depth. Cut from the published sizes:
+# weights seeded random and the frontends stubs (seeded frames and image
+# embeddings, normal x 0.02); whisper decodes 128 of a segment's up to 448
+# tokens; the float32 checks run 2 encoder + 2 decoder layers (whisper, 2
+# requests) and 2 layers (internvl2, 1 request); training runs 3 steps of
+# 2 x 256 tokens (a crash after step 2), the reduced-depth steps 2 + 2
+# layers (whisper) and 2 layers (internvl2), the gradient check at 1 x 256
+# text tokens
+P12 = dict(reduced=False, encdec="whisper-large-v3", vlm="internvl2-26b",
+           requests=4, prompt=4, new=128, vlm_prompt=512, vlm_new=32,
+           vlm_max_len=800, check_layers=2, check_requests=2, check_steps=8,
+           vlm_check_requests=1, train_steps=3, train_crash=2, train_batch=2,
+           train_seq=256, train_docs=16, grad_layers=2, grad_batch=1,
+           grad_seq=256)
+TRAIN12_DIR = ROOT / "build" / "phase12"
+
+
+def p12_config(arch, **kw):
+    import dataclasses
+    from repro_torch.configs import get_config, get_reduced
+    cfg = (get_reduced if P12["reduced"] else get_config)(arch)
+    return dataclasses.replace(cfg, **kw) if kw else cfg
+
+
+def rel_err(got, want):
+    """||got - want|| / ||want||, in float32 on the host."""
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    return float((got - want).norm() / want.norm().clamp_min(1e-30))
+
+
+def prefix_inputs(cfg, batch, seq, seed):
+    """Seeded host inputs of an enc-dec or VLM request batch: (the frames
+    or image embeddings [batch, n, d_model], ``normal * 0.02`` in float32
+    (the frontends are stubs), the prompt tokens [batch, seq] int32)."""
+    import numpy as np
+    import torch
+    from repro_torch.models.api import prefix_input
+    n = prefix_input(cfg)[1]
+    rng = np.random.default_rng(seed)
+    x = (rng.normal(size=(batch, n, cfg.d_model)) * 0.02).astype(np.float32)
+    toks = rng.integers(1, cfg.vocab, (batch, seq)).astype(np.int32)
+    return torch.from_numpy(x), torch.from_numpy(toks)
+
+
+def prefix_batch(cfg, x, toks, device, **kw):
+    """The prefill batch of ``x`` (cast to the parameter dtype) and
+    ``toks``, on ``device``."""
+    from repro_torch.models.api import prefix_input
+    return {prefix_input(cfg)[0]: x.to(cfg.dtype).to(device),
+            "tokens": toks.to(device), **kw}
+
+
+def greedy(model, params, batch, new):
+    """Greedy decoding through ``model.prefill`` / ``model.decode``: the
+    prefill of ``batch``, then ``new - 1`` decode steps, each token the
+    argmax of the last logits. Returns (tokens [B, new], prefill seconds,
+    each decode step's seconds, every logit finite, #7's launches in the
+    prefill)."""
+    import torch
+    from repro_torch.kernels import LAUNCHES
+    cfg = model.cfg
+    t0 = clock()
+    out = model.prefill(params, batch)
+    logits, state = out[0], out[1]
+    extra = {"cross": out[2]} if cfg.family == "encdec" else {}
+    tok = logits[:, -1].argmax(-1, keepdim=True).int()
+    t_pre = clock() - t0
+    pre_launches = LAUNCHES["flash_attention"]
+    finite = torch.isfinite(logits).all()
+    pos = batch["tokens"].shape[1] + (cfg.n_img_tokens
+                                      if cfg.family == "vlm" else 0)
+    toks, steps = [tok], []
+    for i in range(new - 1):
+        t1 = clock()
+        logits, state = model.decode(params, dict(extra, token=tok,
+                                                  cache=state, pos=pos + i))
+        tok = logits[:, -1].argmax(-1, keepdim=True).int()
+        finite &= torch.isfinite(logits).all()
+        steps.append(clock() - t1)
+        toks.append(tok)
+    return torch.cat(toks, 1), t_pre, steps, bool(finite), pre_launches
+
+
+def peak_reset():
+    """Resets the peak-memory counter; returns the bytes held now (what
+    earlier phases hold stays out of the peak)."""
+    import torch
+    if not torch.cuda.is_available():
+        return 0
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def peak_gb(held):
+    """(the peak device memory since ``peak_reset`` less ``held``, and
+    ``held``), in GB."""
+    import torch
+    if not torch.cuda.is_available():
+        return float("nan"), float("nan")
+    return (torch.cuda.max_memory_allocated() - held) / 1e9, held / 1e9
+
+
+def cut_params(cfg, params, nl):
+    """The first ``nl`` layers of every stack of ``params`` (views)."""
+    from repro_torch.models.spec import tree_map
+    stacks = ("enc_blocks", "dec_blocks") if cfg.family == "encdec" else \
+        ("blocks",)
+    return dict(params, **{k: tree_map(lambda w: w[:nl], params[k])
+                           for k in stacks})
+
+
+def as_dtype(params, dtype, device=None):
+    from repro_torch.models.spec import tree_map
+    return tree_map(lambda w: w.detach().to(device=device, dtype=dtype),
+                    params)
+
+
+def prefix_serving(part, arch, path, seed, smi, stash, device="cuda"):
+    """12a / 12b: an enc-dec or VLM model at full width and depth, weights
+    drawn on the card, serving one batch greedily (sizes in ``P12``):
+    every logit finite, #7 launched exactly as the family's layers say, in
+    the prefill and in each step. Then at ``check_layers`` layers of every
+    stack, on the same weights cast to float32, the card's prefill (logits
+    and caches) against the CPU's, a relative error norm <= 1e-3 each;
+    for the enc-dec also prefill-then-decode (``check_steps``
+    teacher-forced steps after the prompt) against one forward over the
+    same tokens and frames, <= 1e-3 at every step; the bf16 weights' error
+    logged beside them. The checks' card runs are recorded under
+    ``stash[path + "_check"]``: phase 5 holds their inputs to plain,
+    neither counting nor timing them. Returns (stats, launches, the
+    checks')."""
+    import dataclasses
+    import torch
+    from repro_torch.kernels.flash_attention import ops as attn_ops
+    from repro_torch.models import build, encdec, init_params, param_count
+
+    cfg = p12_config(arch)
+    model = build(cfg)
+    enc = cfg.family == "encdec"
+    log(f"phase 12{part}: {describe(cfg)}; "
+        f"{param_count(model.param_specs) / 1e9:.3f} B parameters")
+    b = P12["requests"]
+    s, new = (P12["prompt"], P12["new"]) if enc else \
+        (P12["vlm_prompt"], P12["vlm_new"])
+    max_len = s + new if enc else P12["vlm_max_len"]
+    held = peak_reset()
+    t0 = time.perf_counter()
+    params = init_params(model.param_specs,
+                         torch.Generator(device=device).manual_seed(seed))
+    t_init = time.perf_counter() - t0
+    x32, prompt = prefix_inputs(cfg, b, s, seed)
+    with kernel_run(stash[path]) as launches:
+        toks, t_pre, steps, finite, pre_l = greedy(
+            model, params, prefix_batch(cfg, x32, prompt, device,
+                                        max_len=max_len), new)
+    stats = {"prefill_s": t_pre,
+             "prefill_tok_per_s": b * (s + (0 if enc else cfg.n_img_tokens))
+             / t_pre,
+             "decode_step_ms_median": 1e3 * sorted(steps)[len(steps) // 2],
+             "tok_per_s": b * new / (t_pre + sum(steps)),
+             "decode_tok_per_s": b * len(steps) / sum(steps),
+             "init_s": t_init}
+    stats["peak_mem_gb"], stats["held_gb"] = peak_gb(held)
+    # a forward: the decoder's self and cross attention a layer, and in the
+    # prefill the encoder's too; the VLM one a layer
+    per_fwd = 2 * cfg.n_layers if enc else cfg.n_layers
+    want_pre = per_fwd + (cfg.n_enc_layers if enc else 0)
+    want = want_pre + per_fwd * (new - 1)
+    if pre_l != want_pre or launches["flash_attention"] != want or \
+            sum(launches.values()) != want:
+        raise AssertionError(f"phase 12{part}: prefill launches {pre_l}, "
+                             f"all {launches}; want {want_pre}, then {want} "
+                             f"of flash_attention only")
+    if not finite or toks.shape != (b, new):
+        raise AssertionError(f"phase 12{part}: finite logits {finite}, "
+                             f"tokens {tuple(toks.shape)}")
+    stats["flash_attention"] = launches["flash_attention"]
+    last = s + (0 if enc else cfg.n_img_tokens) + new - 2  # last step's
+    stats["decode_splits"] = attn_ops.decode_splits(
+        b, 1, max_len, cfg.n_heads, cfg.n_kv_heads, True, last)
+    if enc:
+        stats["cross_decode_splits"] = attn_ops.decode_splits(
+            b, 1, cfg.n_frames, cfg.n_heads, cfg.n_kv_heads, False, 0)
+
+    nl = P12["check_layers"]
+    r = P12["check_requests"] if enc else P12["vlm_check_requests"]
+    n_chk = P12["check_steps"] if enc else 0
+    chk_len = s + n_chk if enc else max_len
+    cut = dataclasses.replace(cfg, n_layers=nl, **(
+        {"n_enc_layers": nl} if enc else {}))
+    cut32 = dataclasses.replace(cut, param_dtype="float32")
+    seq = torch.cat([prompt[:r], toks[:r, :n_chk].cpu()], 1)
+
+    def run(c, prm, dev):
+        """On the host: the prefill's logits; for the enc-dec each
+        teacher-forced step's logits and one forward's; the caches after
+        the steps."""
+        m = build(c)
+        bt = prefix_batch(c, x32[:r], seq[:, :s], dev, max_len=chk_len)
+        out = m.prefill(prm, bt)
+        got = {"logits": out[0].float().cpu()}
+        if enc:
+            steps = [out[0]]
+            for i in range(n_chk):  # the cache is updated in place
+                logits, _ = m.decode(prm, {
+                    "token": seq[:, s + i:s + i + 1].to(dev),
+                    "cache": out[1], "cross": out[2], "pos": s + i})
+                steps.append(logits)
+            got["steps"] = torch.cat(steps, 1).float().cpu()
+            with torch.no_grad():
+                got["forward"] = encdec.logits(
+                    c, prm, bt["frames"], seq.to(dev))[:, s - 1:].float().cpu()
+        for name, kv in zip(("cache", "cross"), out[1:]):  # after the steps
+            got.update({f"{name}_{side}": t.float().cpu()
+                        for side, t in zip("kv", kv)})
+        return got
+
+    with kernel_run(stash[path + "_check"]) as check:
+        card32 = run(cut32, as_dtype(cut_params(cfg, params, nl),
+                                     torch.float32), device)
+        card16 = run(cut, cut_params(cfg, params, nl), device)
+    host32 = as_dtype(cut_params(cfg, params, nl), torch.float32, "cpu")
+    del params
+    free_card()
+    cpu32 = run(cut32, host32, "cpu")
+    del host32
+    errs = {k: rel_err(card32[k], cpu32[k]) for k in cpu32
+            if k not in ("steps", "forward")}
+    drift = {k: rel_err(card16[k], cpu32[k]) for k in errs}
+    if enc:
+        errs["decode_vs_forward"] = max(
+            rel_err(card32["steps"][:, i], card32["forward"][:, i])
+            for i in range(n_chk + 1))
+        drift["decode_vs_forward"] = [
+            rel_err(card16["steps"][:, i], card16["forward"][:, i])
+            for i in range(n_chk + 1)]
+    if max(errs.values()) > 1e-3 or not all(
+            torch.isfinite(t).all() for t in card16.values()):
+        raise AssertionError(f"phase 12{part}: the card's float32 at {nl} "
+                             f"layers vs the CPU's (relative error norms): "
+                             f"{errs}")
+    # each check run: the prefill, the steps and, enc-dec, one forward
+    want = 2 * (3 * nl + 2 * nl * n_chk + 3 * nl if enc else nl)
+    if check["flash_attention"] != want or sum(check.values()) != want:
+        raise AssertionError(f"phase 12{part}: the checks' launches "
+                             f"{check}, want {want} of flash_attention")
+    stats["f32_rel_err"], stats["bf16_rel_err"] = errs, drift
+    log(f"phase 12{part} ({smi}): {b} requests of {s} tokens"
+        + (f" and {cfg.n_frames} frames" if enc else
+           f" after {cfg.n_img_tokens} image embeddings")
+        + f", {new} new: " + json.dumps(stats))
+    return stats, launches, check
+
+
+def prefix_training(seed, smi, stash, device="cuda"):
+    """12c: (i) whisper-large-v3 at full width and depth through
+    ``repro_torch.launch.train.main`` (``train_batch`` x ``train_seq``
+    tokens and ``n_frames`` frames a step, remat ``dots_no_batch``):
+    ``train_steps`` steps uninterrupted, then with a checkpoint every
+    ``train_crash`` steps that crashes right after the first, resumed to
+    the end: the resumed losses must equal the uninterrupted run's within
+    ``RESUME_RTOL`` (the frames of the steps before the checkpoint are
+    drawn and dropped on resume, as the tokens are). #7 runs twice a
+    layer's attention a step (the remat recompute). (ii) One
+    ``make_train_step`` step per family at full width and
+    ``grad_layers`` layers of every stack, then every leaf's gradient on
+    the card (bf16) against the same weights' on the CPU (float32),
+    ``grad_batch`` x ``grad_seq`` tokens: finite, non-zero and within
+    5e-2 (relative error norm); the card's gradient run is recorded under
+    ``stash["train_prefix_check"]``. Returns (stats, launches of (i), of
+    (ii)'s steps, of its check)."""
+    import dataclasses
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.models import build, init_params
+    from repro_torch.models.spec import tree_leaves
+    from repro_torch.train import AdamWConfig, adamw_init, make_train_step
+    from repro_torch.train.train_step import loss_and_grads
+
+    arch = P12["encdec"]
+    cfg = p12_config(arch)
+    n_steps, crash = P12["train_steps"], P12["train_crash"]
+    argv = ["--arch", arch, "--steps", str(n_steps),
+            "--batch", str(P12["train_batch"]), "--seq", str(P12["train_seq"]),
+            "--docs", str(P12["train_docs"]), "--ckpt-every", str(crash),
+            "--seed", str(seed), "--device", str(device)]
+    argv += ["--reduced"] if P12["reduced"] else []
+    held = peak_reset()
+    t0 = time.perf_counter()
+    whole, resumed, step_s, saved, launches, walls = crash_resume(
+        argv, TRAIN12_DIR, stash["train_whisper"])
+    t_i = time.perf_counter() - t0
+    if len(whole) != n_steps or not np.all(np.isfinite(whole)):
+        raise AssertionError(f"phase 12c: losses {whole}")
+    if saved.get("step") != crash or len(resumed) != n_steps - crash:
+        raise AssertionError(f"phase 12c: crashed at {saved.get('step')}, "
+                             f"resumed {len(resumed)} steps")
+    resume_err = max(abs(a - b) / abs(b) for a, b in zip(resumed,
+                                                         whole[crash:]))
+    if resume_err > RESUME_RTOL:
+        raise AssertionError(f"phase 12c: resumed losses {resumed} vs "
+                             f"{whole[crash:]} (rel {resume_err:.3g})")
+    shutil.rmtree(TRAIN12_DIR, ignore_errors=True)
+    per_step = 2 * (cfg.n_enc_layers + 2 * cfg.n_layers)
+    want = per_step * (n_steps + crash + n_steps - crash)
+    if launches["flash_attention"] != want or \
+            sum(launches.values()) != want:
+        raise AssertionError(f"phase 12c: launches {launches}, want {want} "
+                             f"of flash_attention only")
+    steady = sorted(step_s["whole"][1:])
+    med = steady[len(steady) // 2]
+    tokens = P12["train_batch"] * P12["train_seq"]
+    stats = {"losses": whole, "resumed": resumed, "resume_rel_err": resume_err,
+             "first_step_s": step_s["whole"][0], "median_step_s": med,
+             "step_s": step_s, "tok_per_s": tokens / med,
+             "frames_per_s": P12["train_batch"] * cfg.n_frames / med,
+             "wall_s": t_i, "walls_s": walls,
+             "flash_attention": launches["flash_attention"]}
+    stats["peak_mem_gb"], stats["held_gb"] = peak_gb(held)
+    log(f"phase 12c (i) ({smi}) {describe(cfg)}: {n_steps} steps of "
+        f"{P12['train_batch']} x {P12['train_seq']} tokens and "
+        f"{cfg.n_frames} frames, a crash after step {crash}, resumed: "
+        + json.dumps(stats))
+    free_card()
+
+    runs, want_l, nl = [], 0, P12["grad_layers"]
+    with kernel_run(stash["train_prefix"]) as step_launches:
+        for arch in (P12["encdec"], P12["vlm"]):
+            cfg = p12_config(arch)
+            if not P12["reduced"]:
+                cfg = dataclasses.replace(
+                    cfg, n_layers=nl, n_enc_layers=min(nl, cfg.n_enc_layers))
+            model = build(cfg)
+            fwd = (cfg.n_enc_layers + 2 * cfg.n_layers
+                   if cfg.family == "encdec" else cfg.n_layers)
+            want_l += 2 * fwd
+            card = init_params(model.param_specs, torch.Generator(
+                device=device).manual_seed(seed))
+            x32, toks = prefix_inputs(cfg, P12["grad_batch"],
+                                      P12["grad_seq"], seed)
+            batch = prefix_batch(cfg, x32, toks, device)
+            opt_cfg = AdamWConfig(peak_lr=1e-3, warmup_steps=1,
+                                  total_steps=1)
+            held = peak_reset()
+            t0 = clock()
+            new_params, _, loss = make_train_step(model, opt_cfg)(
+                card, adamw_init(card, opt_cfg), batch)
+            loss = float(loss)
+            step_ms = 1e3 * (clock() - t0)
+            del new_params
+            runs.append(dict(cfg=cfg, x32=x32, toks=toks, card=card,
+                             loss=loss, step_ms=step_ms,
+                             peak_mem_gb=peak_gb(held)))
+    with kernel_run(stash["train_prefix_check"]) as check:
+        for run in runs:  # each family's gradient on the card
+            card = run.pop("card")
+            _, got = loss_and_grads(build(run["cfg"]), card, prefix_batch(
+                run["cfg"], run["x32"], run["toks"], device))
+            run["got"] = as_dtype(got, torch.float32, "cpu")
+            run["params"] = as_dtype(card, torch.float32, "cpu")
+            del got, card
+            free_card()
+    out = {"i": stats}
+    for run in runs:
+        cfg, params, got = run["cfg"], run["params"], run["got"]
+        cfg32 = dataclasses.replace(cfg, param_dtype="float32")
+        _, want = loss_and_grads(build(cfg32), params, prefix_batch(
+            cfg32, run["x32"], run["toks"], "cpu"), remat="none")
+        errs = leaf_grad_errors(got, want)
+        bad = [(n, e) for n, e, g in zip(leaf_names(params), errs,
+                                        tree_leaves(got))
+               if e[0] > 5e-2 or e[1] <= 0
+               or not bool(torch.isfinite(g).all())]
+        if bad or not np.isfinite(run["loss"]):
+            raise AssertionError(f"phase 12c {cfg.name}: leaf gradients "
+                                 f"off: {bad}, loss {run['loss']}")
+        rec = {"layers": cfg.n_layers, "enc_layers": cfg.n_enc_layers,
+               "step_ms": run["step_ms"], "loss": run["loss"],
+               "peak_mem_gb": run["peak_mem_gb"][0],
+               "held_gb": run["peak_mem_gb"][1],
+               "max_grad_rel_err": max(e[0] for e in errs), "limit": 5e-2}
+        out[cfg.name] = rec
+        log(f"phase 12c (ii) ({smi}) {describe(cfg)}: batch "
+            f"{P12['grad_batch']} x {P12['grad_seq']}: " + json.dumps(rec))
+        del want, run["got"], run["params"]
+    for run_l, n in ((step_launches, want_l), (check, want_l)):
+        if run_l["flash_attention"] != n or sum(run_l.values()) != n:
+            raise AssertionError(f"phase 12c (ii): launches {run_l}, want "
+                                 f"{n} of flash_attention only")
+    return out, launches, step_launches, check
+
+
+def prefix_families(seed, smi, stash, device="cuda"):
+    """Phase 12: (a)-(c). Returns (stats, launches by path; a ``*_check``
+    path's are a check's, not the path's)."""
+    launches, stats, walls = {}, {}, {}
+    t = time.perf_counter()
+    for part, arch, path in (("a", P12["encdec"], "whisper"),
+                             ("b", P12["vlm"], "internvl2")):
+        stats[path], launches[path], launches[path + "_check"] = \
+            prefix_serving(part, arch, path, seed, smi, stash, device)
+        walls[part] = time.perf_counter() - t - sum(walls.values())
+    (stats["train"], launches["train_whisper"], launches["train_prefix"],
+     launches["train_prefix_check"]) = prefix_training(seed, smi, stash,
+                                                       device)
+    walls["c"] = time.perf_counter() - t - sum(walls.values())
+    log(f"phase 12: {time.perf_counter() - t:.3f} s; by part (s): "
         + json.dumps(walls))
     return stats, launches
 
@@ -2800,14 +3256,15 @@ def input_groups(inputs):
 def kernel_checks(stash, launches):
     """Each kernel against its plain version at every input each path gave
     it (``stash[path][kernel]``, recorded in phases 3, 4b, 4c, 4d, 7, 8, 9,
-    6 and 10: one per geometry for #1-#3 and #7, every call for #4-#6 and the
-    tablet gather; a decode step's position is part of #7's geometry;
-    ``stash[path]["tablet_read"]`` the 4c reads). ``launches[path]`` are
-    the paths' launch counts. Every time is the mean per launch over all
-    the paths' launches, so ms x launches is the kernel's device time on
-    the paths. A ``*_check`` path (phase 11's float32 twins and gradient
-    check) is a check's run: its inputs are held to the plain version, and
-    its launches are neither counted as the kernel's nor timed."""
+    6, 10, 12 and 11: one per geometry for #1-#3 and #7, every call for
+    #4-#6 and the tablet gather; a decode step's position is part of #7's
+    geometry; ``stash[path]["tablet_read"]`` the 4c reads).
+    ``launches[path]`` are the paths' launch counts. Every time is the
+    mean per launch over all the paths' launches, so ms x launches is the
+    kernel's device time on the paths. A ``*_check`` path (the float32
+    twins and gradient checks of phases 11 and 12) is a check's run: its
+    inputs are held to the plain version, and its launches are neither
+    counted as the kernel's nor timed."""
     import numpy as np
     import torch
     from repro_torch.kernels.common import I32_MAX
@@ -3453,7 +3910,10 @@ def main(argv=None):
                              "serve_b", "train", "moe_a", "moe_b", "kimi",
                              "mamba2", "zamba2", "train_families",
                              "mamba2_check", "zamba2_check",
-                             "train_families_check")}
+                             "train_families_check", "whisper",
+                             "internvl2", "train_whisper", "train_prefix",
+                             "whisper_check", "internvl2_check",
+                             "train_prefix_check")}
     launches = {}
     reads, stats, times, launches["listing1"] = listing1(
         graph, True, cap, stash["listing1"])
@@ -3577,11 +4037,19 @@ def main(argv=None):
     log(f"phase 10 ({smi}): " + json.dumps(train_stats))
     log(f"phase 10: {time.perf_counter() - t10:.3f} s")
 
+    # 12. the enc-dec and VLM families: serving and training. It runs
+    # before phase 11: 12c's AdamW step at internvl2's width and the
+    # recorded inputs of phase 11 (its decode caches) do not fit together
+    prefix_stats, prefix_launches = prefix_families(args.seed, smi, stash)
+    launches.update(prefix_launches)
+
     # 11. the MoE, Mamba2 and hybrid families: serving and one train step
     family_stats, family_launches = families(args.seed, smi, stash)
     launches.update(family_launches)
 
     # 5. kernels against their plain versions
+    log(f"phase 5: the recorded inputs hold "
+        f"{torch.cuda.memory_allocated() / 1e9:.3f} GB of the card")
     kernels = kernel_checks(stash, launches)
     log(f"total: {time.perf_counter() - t_start:.3f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -5,12 +5,16 @@ one device, with checkpoint/restart.
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
       --reduced --steps 50 --batch 8 --seq 128 --ckpt-dir /tmp/ck --device cpu
 
-The weights are the port's seeded random init (``--seed``), the corpus is
-synthetic and lives in a ``TokenStore``. Runs on the card unless
-``--device cpu`` (the card's attention kernel takes head dims 64, 80, 112
-and 128, so the reduced configs, hd 16, train on the CPU). On ``--resume`` the batches of
-the steps before the checkpoint are drawn and dropped, so step s trains on
-the batch an uninterrupted run gives it.
+The weights are the port's seeded random init (``--seed``), drawn on the
+device that trains them; the corpus is synthetic and lives in a
+``TokenStore``. Runs on the card unless ``--device cpu`` (the card's
+attention kernel takes head dims 64, 80, 112 and 128, so the reduced
+configs, hd 16, train on the CPU). An enc-dec (VLM) batch also holds
+seeded frames (image embeddings), drawn after the tokens as the JAX
+package's ``launch/train.py`` draws them. On ``--resume`` the batches of
+the steps before the checkpoint, their frames or image embeddings
+included, are drawn and dropped, so step s trains on the batch an
+uninterrupted run gives it.
 """
 from __future__ import annotations
 
@@ -24,8 +28,25 @@ from ..configs import get_config, get_reduced
 from ..data import TokenStore, synthetic_corpus
 from ..kernels.common import resolve_device
 from ..models import build, init_params
+from ..models.api import prefix_input
 from ..train import AdamWConfig, adamw_init, checkpoint
 from ..train.train_step import make_train_step
+
+
+def draw_batch(cfg, store, batch: int, seq: int, rng) -> dict:
+    """One step's batch of host tensors, drawn as the JAX package's
+    ``launch/train.py`` draws it: ``tokens`` [batch, seq] from the store,
+    then for a VLM ``img_embeds`` [batch, n_img, d_model] and for an
+    enc-dec ``frames`` [batch, n_frames, d_model], ``rng.normal() * 0.02``
+    in float64, rounded to float32 and then to the parameter dtype
+    (``jnp.asarray`` rounds a float64 array to float32 first)."""
+    out = {"tokens": torch.from_numpy(store.sample_batch(batch, seq, rng))}
+    prefix = prefix_input(cfg)
+    if prefix is not None:
+        name, n = prefix
+        x = rng.normal(size=(batch, n, cfg.d_model)) * 0.02
+        out[name] = torch.from_numpy(x.astype(np.float32)).to(cfg.dtype)
+    return out
 
 
 def main(argv=None):
@@ -56,9 +77,8 @@ def main(argv=None):
 
     opt_cfg = AdamWConfig(peak_lr=args.lr, warmup_steps=max(args.steps // 10, 1),
                           total_steps=args.steps)
-    params = init_params(model.param_specs,
-                         torch.Generator().manual_seed(args.seed),
-                         device=device)
+    params = init_params(model.param_specs,  # drawn where it trains
+                         torch.Generator(device=device).manual_seed(args.seed))
     opt = adamw_init(params, opt_cfg)
     start = 0
     if args.resume and args.ckpt_dir:
@@ -74,12 +94,12 @@ def main(argv=None):
     step_fn = make_train_step(model, opt_cfg, microbatches=args.microbatches)
     rng = np.random.default_rng(args.seed)
     for _ in range(start):  # the batches the checkpoint already took
-        store.sample_batch(args.batch, args.seq, rng)
+        draw_batch(cfg, store, args.batch, args.seq, rng)
     losses = []
     t0 = time.time()
     for step in range(start, args.steps):
-        toks = store.sample_batch(args.batch, args.seq, rng)
-        batch = {"tokens": torch.from_numpy(toks).to(device)}
+        batch = {k: x.to(device) for k, x in
+                 draw_batch(cfg, store, args.batch, args.seq, rng).items()}
         params, opt, loss = step_fn(params, opt, batch)
         losses.append(float(loss))
         if step % args.log_every == 0 or step == args.steps - 1:

@@ -1,7 +1,6 @@
 """Unified model API: ``build(cfg)`` returns the step functions and input
-specs of one architecture. The port trains and serves the dense, MoE,
-Mamba2 (``ssm``) and hybrid families; the other families raise
-``NotImplementedError`` naming the ROADMAP item that ports them."""
+specs of one architecture: the dense, MoE, Mamba2 (``ssm``), hybrid,
+enc-dec and VLM families train and serve."""
 from __future__ import annotations
 
 import dataclasses
@@ -9,17 +8,17 @@ from typing import Any, Callable
 
 import torch
 
-from . import hybrid, mamba2, transformer
+from . import encdec, hybrid, mamba2, transformer, vlm
 from .config import ModelConfig
 from .spec import PSpec
 
-# family -> the ROADMAP Queue 1 item that ports it
-_LATER = {"encdec": "11f (enc-dec)", "vlm": "11g (VLM)"}
 # family -> (its module, the PSpecs (cfg, batch, max_len) of its decode state)
 _FAMILIES = {"dense": (transformer, transformer.cache_specs),
              "moe": (transformer, transformer.cache_specs),
              "ssm": (mamba2, mamba2.state_specs),
-             "hybrid": (hybrid, hybrid.state_specs)}
+             "hybrid": (hybrid, hybrid.state_specs),
+             "encdec": (encdec, encdec.cache_specs),
+             "vlm": (vlm, vlm.cache_specs)}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -27,7 +26,7 @@ class Model:
     cfg: ModelConfig
     param_specs: Any
     train_loss: Callable          # (params, batch, remat) -> loss
-    prefill: Callable             # (params, batch) -> (logits, cache)
+    prefill: Callable             # (params, batch) -> (logits, cache[, cross])
     decode: Callable              # (params, batch) -> (logits, cache)
     train_input_specs: Callable   # (gb, seq) -> PSpec dict
     prefill_input_specs: Callable  # (gb, seq) -> PSpec dict
@@ -38,35 +37,56 @@ def _tok_spec(gb: int, s: int) -> PSpec:
     return PSpec((gb, s), torch.int32, "zeros")
 
 
+def prefix_input(cfg: ModelConfig):
+    """(batch key, length) of the embeddings [B, length, d_model] that an
+    enc-dec (audio frames) or a VLM (image embeddings) takes ahead of its
+    tokens, the frontends being stubs; None for the other families."""
+    return {"encdec": ("frames", cfg.n_frames),
+            "vlm": ("img_embeds", cfg.n_img_tokens)}.get(cfg.family)
+
+
 def build(cfg: ModelConfig) -> Model:
     """The step functions of ``cfg``'s family. Prefill takes
-    ``{"tokens", "max_len"?}`` (an SSM's state does not grow with the
-    length, so it ignores ``max_len``); decode takes ``{"token", "cache",
-    "pos"}`` (no ``pos`` for an SSM)."""
+    ``{"tokens", "max_len"?}``, with ``"frames"`` [B, n_frames, d_model]
+    (enc-dec) or ``"img_embeds"`` [B, n_img, d_model] (VLM); an SSM's
+    state does not grow with the length, so it ignores ``max_len``.
+    Decode takes ``{"token", "cache", "pos"}`` (no ``pos`` for an SSM;
+    enc-dec also ``"cross"``, the cross-attention keys and values its
+    prefill returns after the self cache)."""
     f = cfg.family
-    if f in _LATER:
-        raise NotImplementedError(
-            f"family {f!r} is not ported yet: ROADMAP Queue 1 item "
-            f"{_LATER[f]}")
     if f not in _FAMILIES:
         raise ValueError(f"unknown family {f!r}")
     m, state_specs = _FAMILIES[f]
+    prefix = prefix_input(cfg)
 
     def train(p, b, remat="dots_no_batch"):
         return m.train_loss(cfg, p, b, remat)
 
     def prefill(p, b):
+        if prefix is not None:
+            return m.prefill(cfg, p, b[prefix[0]], b["tokens"],
+                             b.get("max_len"))
         return m.prefill(cfg, p, b["tokens"], b.get("max_len"))
 
     def decode(p, b):
+        if f == "encdec":
+            return m.decode_step(cfg, p, b["token"], b["cache"], b["cross"],
+                                 b["pos"])
         return m.decode_step(cfg, p, b["token"], b["cache"], b.get("pos"))
 
     def tok_in(gb, s):
-        return {"tokens": _tok_spec(gb, s)}
+        if prefix is None:
+            return {"tokens": _tok_spec(gb, s)}
+        name, n = prefix  # a VLM's image prefix takes n of the s positions
+        return {"tokens": _tok_spec(gb, s - n if f == "vlm" else s),
+                name: PSpec((gb, n, cfg.d_model), cfg.dtype)}
 
     def decode_in(gb, s):
-        specs = {"token": _tok_spec(gb, 1),
-                 "cache": state_specs(cfg, gb, s)}
+        specs = {"token": _tok_spec(gb, 1)}
+        if f == "encdec":
+            specs["cache"], specs["cross"] = state_specs(cfg, gb, s)
+        else:
+            specs["cache"] = state_specs(cfg, gb, s)
         if f != "ssm":
             specs["pos"] = PSpec((), torch.int32, "zeros")
         return specs

@@ -1,11 +1,12 @@
 """Shared transformer layers: norms, RoPE, GQA self-attention (+KV cache),
-MLPs, embedding, unembedding, the training loss and the remat policies.
+cross-attention (enc-dec), MLPs, embedding, unembedding, the training loss
+and the remat policies.
 
 Plain functions on tensors over a parameter tree (``spec.py``), with the
 JAX package's layouts: weights ``[in, out]`` (``x @ w``), activations
 ``[B, S, ...]``, heads ``[B, S, H, hd]``. Math in the parameter dtype with
-float32 norms, RoPE angles and attention. Self-attention is
-``kernels.flash_attention`` on every path: the JAX ``_sdpa`` and
+float32 norms, RoPE angles and attention. Every attention, self and
+cross, is ``kernels.flash_attention`` on every path: the JAX ``_sdpa`` and
 ``_blocked_sdpa`` (Sq >= 4096) compute the same function, except that
 they round scores and weights to the activation dtype where the kernel
 keeps float32. On the card its gradient is the plain version's, by
@@ -95,17 +96,20 @@ def _project_qkv(cfg: ModelConfig, p, x: torch.Tensor):
 
 
 def attention(cfg: ModelConfig, p, x: torch.Tensor, positions: torch.Tensor,
-              *, causal: bool = True,
+              *, causal: bool = True, use_rope: bool = True,
               cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
               cache_pos: int = 0):
     """Self-attention; returns (out, cache). ``cache=(k, v)`` of shape
     [B, Smax, KV, hd] takes the new keys and values at ``cache_pos`` (in
     place; the JAX function returns a new array of the same values) and
     the queries attend over all Smax slots, the causal mask hiding the
-    ones past each query's position."""
+    ones past each query's position. ``use_rope=False`` leaves q and k
+    unrotated (the enc-dec family's sinusoidal positions are added to the
+    activations instead)."""
     q, k, v = _project_qkv(cfg, p, x)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    if use_rope:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
     if cache is not None:
         ck, cv = cache
         s = x.shape[1]
@@ -120,6 +124,26 @@ def attention(cfg: ModelConfig, p, x: torch.Tensor, positions: torch.Tensor,
     b, sq = x.shape[:2]
     out = att.reshape(b, sq, cfg.n_heads * cfg.hd) @ p["wo"]
     return out, cache
+
+
+def cross_attention(cfg: ModelConfig, p, x: torch.Tensor,
+                    kv: Tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+    """The decoder's attention over encoder keys and values ``kv`` (each
+    [B, Senc, KV, hd], from ``cross_kv``): ``x @ wq``, every query over
+    every key (``flash_attention``, ``causal=False``), ``@ wo``; no bias,
+    as in the JAX package."""
+    b, s = x.shape[:2]
+    q = (x @ p["wq"]).reshape(b, s, cfg.n_heads, cfg.hd)
+    att = flash_attention(q, kv[0], kv[1], causal=False)
+    return att.reshape(b, s, cfg.n_heads * cfg.hd) @ p["wo"]
+
+
+def cross_kv(cfg: ModelConfig, p, enc_out: torch.Tensor):
+    """The cross-attention keys and values of ``enc_out`` [B, Senc, D]:
+    (k, v), each [B, Senc, KV, hd]."""
+    b, s = enc_out.shape[:2]
+    return ((enc_out @ p["wk"]).reshape(b, s, cfg.n_kv_heads, cfg.hd),
+            (enc_out @ p["wv"]).reshape(b, s, cfg.n_kv_heads, cfg.hd))
 
 
 # ---------------------------------------------------------------------- mlp

@@ -1,5 +1,5 @@
-"""Decoder-only transformer LM (dense GQA and MoE families): the train loss
-and the serving steps.
+"""Decoder-only transformer LM (dense GQA and MoE families, and the VLM's
+backbone): the train loss and the serving steps.
 
 The parameter tree keeps the JAX package's stacked ``[L, ...]`` block
 leaves; the JAX ``lax.scan`` over layers is a Python loop over per-layer
@@ -20,7 +20,7 @@ Cache = Tuple[torch.Tensor, torch.Tensor]  # (k, v), each [L, B, Smax, KV, hd]
 
 
 def block_specs(cfg: ModelConfig, L: Tuple[int, ...]) -> Dict:
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in ("dense", "moe", "vlm"):  # vlm: dense blocks
         raise ValueError(f"transformer: family {cfg.family!r} is not a "
                          "decoder-only transformer")
     sp = {

@@ -83,6 +83,24 @@ def test_port_matches_jax_ref_at_the_slice_geometries(shape, q_offset, dtype):
     _check_port(sum(shape) + q_offset, shape, True, dtype, q_offset)
 
 
+# the enc-dec and VLM slice: whisper's non-causal attention over 1,500
+# frames (the encoder's self-attention, cut to 2 heads of 64 rows here, and
+# the decoder's cross-attention of a few rows), 20 heads at hd 64 with
+# Sk = 23 x 64 + 28; internvl2's GQA rep 6 at hd 128 (48 heads over 8, cut
+# to 12 over 2) in prefill and decode over an 800-slot cache
+@pytest.mark.parametrize("shape,q_offset,causal", [
+    ((1, 64, 1500, 2, 2, 64), 0, False),
+    ((2, 4, 1500, 20, 20, 64), 0, False),
+    ((2, 1, 1500, 20, 20, 64), 0, False),
+    ((1, 48, 800, 12, 2, 128), 0, True),
+    ((2, 1, 800, 12, 2, 128), 790, True),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_port_matches_jax_ref_at_the_encdec_and_vlm_geometries(
+        shape, q_offset, causal, dtype):
+    _check_port(sum(shape) + q_offset, shape, causal, dtype, q_offset)
+
+
 @pytest.mark.parametrize("shape,qb,kb,causal", [
     ((1, 64, 64, 4, 2, 16), 32, 32, True),
     ((2, 32, 96, 6, 3, 8), 16, 32, False),
@@ -305,6 +323,22 @@ def test_decode_splits_fill_the_card(b, sq, sk, h, kvh, off, want):
     assert splits <= -(-key_end // 64)
 
 
+@pytest.mark.parametrize("b,sq,sk,h,kvh,causal,off,want", [
+    (4, 1, 1500, 20, 20, False, 0, 8),   # whisper's cross-attention decode
+    (4, 4, 1500, 20, 20, False, 0, 8),   # its prefill, a 4-token prompt
+    (4, 4, 132, 20, 20, True, 0, 1),     # the decoder's self-attention
+    (4, 1, 132, 20, 20, True, 130, 1),   # 3 tiles: one block walks them
+    (4, 1, 800, 48, 8, True, 768, 13),   # internvl2's first decode step
+    (4, 1, 800, 48, 8, True, 798, 13),   # its last: 13 tiles, 32 groups
+])
+def test_decode_splits_at_the_encdec_and_vlm_geometries(b, sq, sk, h, kvh,
+                                                        causal, off, want):
+    """Non-causal, every key tile is seen: 24 tiles over 1,500 keys, 80
+    blocks (20 groups x 4 requests) make 8 splits of 3 tiles; rep 6
+    groups 6 rows a request, one 16-row block a group."""
+    assert decode_splits(b, sq, sk, h, kvh, causal, off) == want
+
+
 def _attn_check(got, want):
     """The card check of chip_smoke.py phase 5: about one bf16 ulp (f32
     2e-5) and an error norm within 1e-2 of the output's."""
@@ -325,6 +359,13 @@ def _card_cases():
                               else (2, sq + 37, 37))
                 cases.append(((b, sq, sk, rep * kvh, kvh, hd), off, True))
     cases.append(((2, 64, 100, 6, 3, 64), 0, False))
+    # whisper's encoder self-attention over 1,500 frames (every key tile
+    # on every row, the last tile 28 keys) and its cross-attention from 23
+    # decoder rows; internvl2's rep 6 at hd 128, 16 rows and its prefill
+    cases += [((4, 1500, 1500, 20, 20, 64), 0, False),
+              ((4, 23, 1500, 20, 20, 64), 0, False),
+              ((2, 16, 800, 48, 8, 128), 0, True),
+              ((4, 768, 800, 48, 8, 128), 0, True)]
     return cases
 
 
@@ -333,7 +374,8 @@ def _card_cases():
 def test_tensor_core_prefill_on_card(shape, q_offset, causal):
     """bf16 prefill (Sq >= 16) on the tensor cores against the plain
     version: hd 64, 80, 112 and 128, rep 1, 3 and 8, Sq 16, 23 and 1,920,
-    Sk not a multiple of 64."""
+    Sk not a multiple of 64; non-causal at Sk 1,500 (whisper) and rep 6
+    at hd 128 (internvl2)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     q, k, v = (_torch(x, "bfloat16").cuda()
@@ -360,6 +402,13 @@ def test_tensor_core_prefill_on_card(shape, q_offset, causal):
     ((2, 15, 1000, 4, 4, 128), 600, True),   # rep 1, the most decode rows
     ((64, 1, 4096, 4, 1, 64), 4095, True),   # several tiles a split
     ((2, 1, 300, 6, 2, 64), 0, False),
+    # whisper's cross-attention over 1,500 frames, non-causal: 8 splits of
+    # 3 tiles, the last tile 28 keys; decode and a 4-token prompt
+    ((4, 1, 1500, 20, 20, 64), 0, False),
+    ((4, 4, 1500, 20, 20, 64), 0, False),
+    # internvl2's decode, rep 6 at hd 128 over an 800-slot cache
+    ((4, 1, 800, 48, 8, 128), 768, True),
+    ((4, 1, 800, 48, 8, 128), 798, True),
 ])
 def test_split_k_decode_on_card(shape, q_offset, causal, dtype):
     """The split-K decode (Sq < 16, both dtypes) against the plain

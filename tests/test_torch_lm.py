@@ -54,7 +54,8 @@ def _close(got, want, tol, what):
 
 
 @pytest.mark.parametrize("arch", DENSE + ["olmoe-1b-7b", "mamba2-2.7b",
-                                         "zamba2-2.7b"])
+                                         "zamba2-2.7b", "whisper-large-v3",
+                                         "internvl2-26b"])
 def test_params_from_jax_bit_equal(arch):
     jcfg, cfg = _cfgs(arch, "bfloat16")
     jp = _jax_params(jcfg)
@@ -169,24 +170,18 @@ def test_layernorm_and_gelu_match_jax():
 
 
 def test_build_serves_dense_only_and_refuses_training():
-    """``build`` takes the dense, MoE, Mamba2 and hybrid families (enc-dec
-    and VLM name their ROADMAP item); each trains: ``train_loss`` of a
-    small batch is a finite 0-d float32 tensor, and its parameter count
-    is the JAX package's. (The name is kept for the record: the port once
-    took the dense family only, and refused training.)"""
+    """``build`` takes every family of the registry (dense, MoE, Mamba2,
+    hybrid, enc-dec, VLM); each trains: ``train_loss`` of a small batch
+    is a finite 0-d float32 tensor, and its parameter count is the JAX
+    package's at reduced and full size. (The name is kept for the record:
+    the port once took the dense family only, and refused training.)"""
     from repro.configs import get_config as jax_config
     from repro.models import param_count as jax_param_count
     from repro_torch.configs import ARCH_IDS, get_config
     from repro_torch.models import init_params, param_count
-    later = {"encdec": "11f", "vlm": "11g"}
     built = set()
     for arch in ARCH_IDS:
         cfg = get_reduced(arch)
-        if cfg.family in later:
-            with pytest.raises(NotImplementedError,
-                               match=f"ROADMAP.*{later[cfg.family]}"):
-                build(cfg)
-            continue
         model = build(cfg)
         built.add(cfg.family)
         for port, ref in ((cfg, jax_reduced(arch)),
@@ -197,13 +192,22 @@ def test_build_serves_dense_only_and_refuses_training():
                              torch.Generator().manual_seed(0))
         toks = torch.randint(1, cfg.vocab, (2, 8), dtype=torch.int32,
                              generator=torch.Generator().manual_seed(1))
-        loss = model.train_loss(params, {"tokens": toks})
+        batch = {"tokens": toks}
+        prefix = {"encdec": ("frames", cfg.n_frames),
+                  "vlm": ("img_embeds", cfg.n_img_tokens)}.get(cfg.family)
+        if prefix is not None:
+            batch[prefix[0]] = 0.02 * torch.randn(
+                2, prefix[1], cfg.d_model,
+                generator=torch.Generator().manual_seed(2)).to(cfg.dtype)
+        loss = model.train_loss(params, batch)
         assert loss.dtype == torch.float32 and loss.dim() == 0
         assert bool(torch.isfinite(loss))
-        assert set(model.train_input_specs(2, 16)) == {"tokens"}
+        assert set(model.train_input_specs(2, 16)) == set(batch)
         want = {"token", "cache"} | ({"pos"} if cfg.family != "ssm" else set())
+        if cfg.family == "encdec":
+            want.add("cross")
         assert set(model.decode_input_specs(2, 16)) == want
-    assert built == {"dense", "moe", "ssm", "hybrid"}
+    assert built == {"dense", "moe", "ssm", "hybrid", "encdec", "vlm"}
     full = get_config("smollm-135m")
     assert (full.n_layers, full.d_model, full.n_heads, full.n_kv_heads,
             full.hd, full.vocab) == (30, 576, 9, 3, 64, 49152)
