@@ -12,9 +12,10 @@ token pipeline, the SPMD mesh path (4 rank processes and a single NCCL
 rank), the LM serving path (``launch/serve.py`` → ``Engine`` → prefill /
 decode), the LM training path (``launch/train.py`` → train step →
 ``train_loss`` with per-layer remat → AdamW, checkpoints and a resume),
-the MoE, Mamba2 and hybrid families (serving and a train step) and the
-enc-dec and VLM families (serving, training with a resume, a train step);
-builds the hand-written CUDA
+the MoE, Mamba2 and hybrid families (serving and a train step), the
+enc-dec and VLM families (serving, training with a resume, a train step)
+and the launch and mesh tools (MoE expert parallelism over 4 ranks, the
+op-level cost counter, the dry runs); builds the hand-written CUDA
 kernels from ``src/repro_torch/csrc``, shows that each path launched its
 kernels, and holds each kernel against its plain PyTorch version at the
 path's shapes.
@@ -92,7 +93,7 @@ Phases (each raises on failure):
      corpus. Splits, moves, migrations, balances and tokens per second
      are logged;
   9. the mesh path (``db.spmd`` on ``torch.distributed``) at phase 3's
-     scale: 4 rank processes (this script with ``--mesh-child``; gloo with
+     scale: 4 rank processes (this script with ``--rank-child``; gloo with
      every rank on ``cuda:0`` and the exchange staged through pinned host
      buffers, or NCCL with 4 or more cards) each ingest their contiguous
      quarter of phase 3's 955,111 id-space entries in 8 batches of 32,768:
@@ -137,6 +138,22 @@ Phases (each raises on failure):
      attention output detached from q, k, v) must fail; (c) during (a)
      self-attention ran only on #7, 2 launches a layer a step (the remat
      recompute), 2,400 in all, and no other kernel;
+  13. the launch and mesh tools (sizes in ``P13``): (a) olmoe-1b-7b at
+     full width cut to 2 layers, 4 rank processes (this script with
+     ``--rank-child``; gloo, every rank on ``cuda:0``), a prefill of 4 x
+     512 tokens through ``build(cfg).prefill(..., sh=make_sharder(rules,
+     mesh))`` on mesh (1, 4): at the no-drop capacity factor the float32
+     logits within 1e-5 of rank 0's local path (the bf16 gaps logged), at
+     the config's factor each rank's drops logged; on mesh (2, 2) with
+     the int8 FSDP gather, ``gather_w_int8`` equal to its plain version
+     and ``elastic_restore`` of a layer's checkpoint equal to each rank's
+     block of the full arrays; #7's launches counted (path ``moe_ep``);
+     (b) phase 10's train step once under ``launch.op_cost.OpCost`` (#7's
+     forward added by its formula), then timed: counted flops and bytes,
+     the roofline terms, the measured step and its model-FLOPs share
+     (path ``cost_step``); (c) the smollm-135m decode_32k dry runs on
+     both production meshes and the ingest dry run, each a process of
+     its own on the host's CPU, started before (a);
   12. (run before 11, which leaves its recorded inputs on the card) the
      enc-dec and VLM families at full width (sizes and cuts in ``P12``), weights drawn on the card, frames and image embeddings
      seeded (the frontends are stubs), served greedily through
@@ -175,7 +192,7 @@ Phases (each raises on failure):
      bf16 against float32 within 5e-2);
   5. each kernel against its plain version on the card at every input
      each path gave it (recorded in phases 3, 4b, 4c, 4d, 7, 8, 9 — by the
-     ranks, per geometry — 6, 10, 12 and 11: per
+     ranks, per geometry — 6, 10, 13, 12 and 11: per
      geometry for the LSM kernels and flash attention, per call for the
      1-D rank, the tablet gather, segment sum and SpMVs), ranks, merged
      rows, read entries and degree sums exactly equal (the merge-path
@@ -2716,7 +2733,7 @@ def token_pipeline(seed, smi, stash, device="cuda"):
 
 # ------------------------------------------------------------------ phase 9
 # The mesh path: phase 3's graph in id space (ids 2^16, capacity_per_shard
-# phase 3's), ingested by 4 SPMD ranks (this script with --mesh-child),
+# phase 3's), ingested by 4 SPMD ranks (this script with --rank-child),
 # each its contiguous quarter of the entries in 8 batches of 2^15; L0
 # stacks of 4 runs of 4 x 2^15; point reads in query tiles of 512, scans
 # in windows of 4,096 widened while a run's slice overflows; the tablet
@@ -2836,10 +2853,12 @@ def mesh_kept(out, *cols):
                  for c in cols)
 
 
-def mesh_rank(cfg, arrays, rank, dev):
-    """One rank of phase 9 (parts a-c); returns (result, arrays to keep,
-    rank 0's merge-path inputs)."""
+def mesh_rank(cfg, rank, dev, out_dir):
+    """One rank of phase 9 (parts a-c) on the inputs in ``out_dir``;
+    returns (result, {file name: arrays to save}): the arrays to keep and
+    rank 0's merge-path inputs."""
     import numpy as np
+    arrays = dict(np.load(out_dir / "inputs.npz"))
     from repro_torch.db import spmd
     from repro_torch.db.tablets import TabletMap
     from repro_torch.kernels import LAUNCHES
@@ -2973,7 +2992,10 @@ def mesh_rank(cfg, arrays, rank, dev):
                           and k != "merge_path_rank"},
                   map=tm.to_manifest(),
                   snapshot=default_registry().snapshot())
-    return result, keep, inputs
+    files = {f"rank{rank}.npz": keep}
+    if inputs:
+        files["merge_inputs.npz"] = inputs
+    return result, files
 
 
 def torch_int(x, dev):
@@ -2981,21 +3003,24 @@ def torch_int(x, dev):
     return torch.as_tensor(x, dtype=torch.int32, device=dev)
 
 
-def mesh_child(out_dir, rank):
-    """Phase 9's rank ``rank``, a process of its own: loads the kernel
-    library phase 2 built (and refuses to build one), joins the mesh (the
-    backend the parent chose: NCCL with a card a rank, else gloo with every
-    rank on ``cuda:0``), runs parts a-c and writes its results into
-    ``out_dir``."""
+def rank_child(out_dir, rank):
+    """Rank ``rank`` of phase 9's mesh or of phase 13a's expert-parallel
+    mesh (``"phase"`` in ``out_dir``'s config.json names which), a process
+    of its own: loads the kernel library phase 2 built (and refuses to
+    build one), joins the mesh (the backend the parent chose: NCCL with a
+    card a rank, else gloo with every rank on ``cuda:0``), runs the
+    phase's body and writes its results into ``out_dir``."""
     import numpy as np
     import torch
     import torch.distributed as dist
     from repro_torch.kernels import common
     cfg = json.loads((out_dir / "config.json").read_text())
+    body = {"phase 9": mesh_rank, "phase 13a": ep_rank}[cfg["phase"]]
     if cfg["device"] == "cuda":
         if not (common.BUILD_DIR / common.source_hash()
                 / "libreprotorch.so").exists():
-            raise RuntimeError("phase 9: no kernel library from phase 2")
+            raise RuntimeError(f"{cfg['phase']}: no kernel library from "
+                               "phase 2")
         common.lib()
         dev = torch.device("cuda", rank if cfg["backend"] == "nccl" else 0)
         torch.cuda.set_device(dev)
@@ -3005,31 +3030,31 @@ def mesh_child(out_dir, rank):
                             init_method=f"file://{out_dir / 'rdv'}",
                             world_size=cfg["ranks"], rank=rank)
     try:
-        result, keep, inputs = mesh_rank(
-            cfg, dict(np.load(out_dir / "inputs.npz")), rank, dev)
+        result, files = body(cfg, rank, dev, out_dir)
     finally:
         dist.destroy_process_group()
-    np.savez(out_dir / f"rank{rank}.npz", **keep)
-    if inputs:
-        np.savez(out_dir / "merge_inputs.npz", **inputs)
+    for name, arrays in files.items():
+        np.savez(out_dir / name, **arrays)
     (out_dir / f"rank{rank}.json").write_text(json.dumps(result))
     return 0
 
 
-def mesh_command(rank):
-    """The command line of phase 9's rank ``rank``."""
-    return [sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-child",
-            str(MESH_DIR), "--mesh-rank", str(rank)]
+def rank_command(out_dir, rank):
+    """The command line of rank ``rank`` of the mesh set up in
+    ``out_dir``."""
+    return [sys.executable, str(ROOT / "chip_smoke.py"), "--rank-child",
+            str(out_dir), "--rank", str(rank)]
 
 
-def run_ranks(n, timeout=600):
-    """Start phase 9's ``n`` ranks and wait for all; a rank that fails
-    stops the others, and its log goes into the error. Returns seconds."""
+def run_ranks(n, out_dir, timeout=600):
+    """Start the ``n`` ranks of the mesh set up in ``out_dir`` and wait for
+    all; a rank that fails stops the others, and its log goes into the
+    error. Returns seconds."""
     t0 = time.perf_counter()
     procs = []
     for r in range(n):
-        out = open(MESH_DIR / f"rank{r}.log", "w")
-        procs.append((subprocess.Popen(mesh_command(r), stdout=out,
+        out = open(out_dir / f"rank{r}.log", "w")
+        procs.append((subprocess.Popen(rank_command(out_dir, r), stdout=out,
                                        stderr=subprocess.STDOUT), out))
     try:
         while True:
@@ -3039,9 +3064,9 @@ def run_ranks(n, timeout=600):
             if bad or late:
                 r = bad[0] if bad else 0
                 raise AssertionError(
-                    f"phase 9: rank {r} "
+                    f"{out_dir.name}: rank {r} "
                     + (f"exited {codes[r]}" if bad else "timed out") + ": "
-                    + (MESH_DIR / f"rank{r}.log").read_text()[-4000:])
+                    + (out_dir / f"rank{r}.log").read_text()[-4000:])
             if all(c == 0 for c in codes):
                 break
             time.sleep(0.1)
@@ -3080,10 +3105,11 @@ def mesh_path(graph, cap, smi, stash, device="cuda"):
     MESH_DIR.mkdir(parents=True)
     arrays, cfg, want, levels = mesh_inputs(graph, cap)
     nccl = device == "cuda" and torch.cuda.device_count() >= S
-    cfg.update(backend="nccl" if nccl else "gloo", device=device)
+    cfg.update(phase="phase 9", backend="nccl" if nccl else "gloo",
+               device=device)
     np.savez(MESH_DIR / "inputs.npz", **arrays)
     (MESH_DIR / "config.json").write_text(json.dumps(cfg))
-    t_ranks = run_ranks(S)
+    t_ranks = run_ranks(S, MESH_DIR)
     res = [json.loads((MESH_DIR / f"rank{r}.json").read_text())
            for r in range(S)]
     got = [dict(np.load(MESH_DIR / f"rank{r}.npz")) for r in range(S)]
@@ -3228,6 +3254,462 @@ def single_rank(arrays, cfg, stash, device="cuda"):
 
 
 # ------------------------------------------------------------------ phase 5
+# ------------------------------------------------------------------ phase 13
+P13 = dict(reduced=False, moe="olmoe-1b-7b", layers=2, ranks=4, batch=4,
+           seq=512, rtol=1e-5, timed_steps=5)
+EP_DIR = ROOT / "build" / "phase13"
+
+
+def p13_config(**kw):
+    import dataclasses
+    from repro_torch.configs import get_config, get_reduced
+    cfg = (get_reduced if P13["reduced"] else get_config)(P13["moe"])
+    return dataclasses.replace(cfg, n_layers=P13["layers"], **kw)
+
+
+def tensors_to_npz(prefix, tensors, out):
+    """Tensors into ``out`` (a dict for ``np.savez``): bf16 as its int16
+    bits, the dtype in the key."""
+    import torch
+    for m, t in enumerate(tensors):
+        t = t.detach().cpu()
+        name = str(t.dtype)[6:]
+        if t.dtype == torch.bfloat16:
+            t = t.view(torch.int16)
+        out[f"{prefix}_{m}_{name}"] = t.numpy()
+
+
+def tensors_from_npz(prefix, arrays, device):
+    import torch
+    got = []
+    for key in sorted((k for k in arrays if k.startswith(prefix + "_")),
+                      key=lambda k: int(k.split("_")[-2])):
+        t = torch.from_numpy(arrays[key])
+        if key.endswith("_bfloat16"):
+            t = t.view(torch.bfloat16)
+        got.append(t.to(device))
+    return got
+
+
+def ep_rank(conf, rank, dev, out_dir):
+    """Phase 13a on one rank: the MoE prefill over the EP mesh against the
+    local path, the drops at the config's own capacity, the int8 gather
+    against its plain version and ``elastic_restore`` against the full
+    arrays. Returns (result dict, {file name: arrays to save}), the file
+    rank 0's attention inputs."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.models import (ShardingRules, build, init_params,
+                                    make_sharder, moe)
+    from repro_torch.models.spec import (flatten_up_to, local_block,
+                                         placements, tree_leaves, tree_map,
+                                         tree_unflatten)
+    from repro_torch.train import checkpoint
+    from repro_torch.train.elastic import elastic_restore
+
+    n = conf["ranks"]
+    cfg = p13_config()
+    wide = p13_config(param_dtype="float32",
+                      capacity_factor=cfg.n_experts / cfg.experts_per_token)
+    own = p13_config(param_dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(conf["seed"])
+    p32 = init_params(build(wide).param_specs, gen, device=dev)
+    specs16 = build(cfg).param_specs  # the served dtypes: bf16 weights
+    p16 = tree_unflatten(specs16, [w.to(s.dtype) for s, w in zip(
+        tree_leaves(specs16), flatten_up_to(specs16, p32))])
+    rng = np.random.default_rng(conf["seed"])
+    toks = torch.as_tensor(rng.integers(1, cfg.vocab, (conf["batch"],
+                                                       conf["seq"]))
+                           .astype(np.int32), device=dev)
+    mesh = init_device_mesh("cpu", (1, n), mesh_dim_names=("data", "model"))
+    sh = make_sharder(ShardingRules(batch=("data",), fsdp="data"), mesh)
+    res, keep, rec = {"rank": rank}, {}, {}
+
+    def prefill(c, params, hook):
+        with Calls(moe, "route", keep=True) as routes:
+            out = build(c).prefill(params, {"tokens": toks}, hook)[0]
+        drops = sum(int((~r.keep).sum()) for _, r in routes.kept)
+        return out.float(), drops
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm())
+
+    t0 = time.perf_counter()
+    with kernel_run(rec) as launches:
+        ep32, d32 = prefill(wide, p32, sh)
+        ep16, d16 = prefill(p13_config(capacity_factor=wide.capacity_factor),
+                            p16, sh)
+        _, res["drops_own_factor"] = prefill(own, p32, sh)
+        if rank == 0:  # the single-process local path
+            loc32, _ = prefill(wide, p32, None)
+            loc16, _ = prefill(p13_config(
+                capacity_factor=wide.capacity_factor), p16, None)
+            res["rel_f32"] = rel(ep32, loc32)
+            res["rel_bf16_vs_local_bf16"] = rel(ep16, loc16)
+            res["rel_bf16_vs_f32"] = rel(ep16, loc32)
+            res["rel_local_bf16_vs_f32"] = rel(loc16, loc32)
+        res["drops_no_drop_factor"] = d32 + d16
+        res["finite"] = bool(torch.isfinite(ep32).all()
+                             and torch.isfinite(ep16).all())
+        # the int8 FSDP gather on a (2, 2) mesh, and a prefill through it
+        mesh2 = init_device_mesh("cpu", (2, n // 2),
+                                 mesh_dim_names=("data", "model"))
+        rules2 = ShardingRules(batch=("data",), fsdp="data",
+                               moe_gather="int8")
+        ep8, d8 = prefill(wide, p32, make_sharder(rules2, mesh2))
+        res["drops_no_drop_factor"] += d8
+        res["int8_finite"] = bool(torch.isfinite(ep8).all())
+        if rank == 0:
+            res["rel_int8_vs_f32"] = rel(ep8, loc32)
+    res["launches"] = dict(launches)
+    res["calls"] = [[[list(map(list, g[0])), [list(kv) for kv in g[1]],
+                      list(g[2])], c]
+                    for g, (c, _) in rec["flash_attention"].calls.items()]
+    if rank == 0:
+        for j, (g, (_, (args, kw))) in enumerate(
+                rec["flash_attention"].calls.items()):
+            tensors_to_npz(f"g{j}", args, keep)
+    gathered = {}
+    fsdp = mesh2.get_group("data")
+    d, m = mesh2.get_coordinate()
+    blocks = tree_map(lambda w: w[0], p16["blocks"]["moe"])
+    for name, axis in (("w_gate", 1), ("w_up", 1), ("w_down", 2)):
+        w = blocks[name]
+        spec = (("model", "data", None) if axis == 1 else
+                ("model", None, "data"))
+        mine = local_block(w, placements(spec, mesh2), mesh2)
+        got = moe.gather_w_int8(mine, fsdp, axis)
+        e = w.shape[0] // (n // 2)
+        part = w.shape[axis] // 2
+        shards = [w[m * e:(m + 1) * e].narrow(axis, j * part, part)
+                  for j in range(2)]
+        gathered[name] = bool(torch.equal(got, moe.gather_w_int8_ref(
+            shards, axis)))
+    res["int8_gather_equal"] = gathered
+    # elastic_restore of layer 0's MoE parameters onto the (2, 2) mesh
+    ckpt = Path(conf["dir"]) / "ckpt"
+    if rank == 0:
+        checkpoint.save(str(ckpt), 1, tree_map(lambda w: w.cpu(), blocks))
+    dist.barrier()
+    tree, _ = elastic_restore(str(ckpt), moe.moe_specs(cfg), mesh2,
+                              rules2)
+    eq = {}
+    for name in sorted(blocks):
+        t, full = tree[name], blocks[name].cpu()
+        want = local_block(full, t.placements, mesh2)
+        eq[name] = [list(t.to_local().shape),
+                    bool(torch.equal(t.to_local(), want))]
+    res["elastic"] = eq
+    res["seconds"] = time.perf_counter() - t0
+    return res, {"attention_inputs.npz": keep} if keep else {}
+
+
+def moe_expert_parallel(seed, smi, stash, device="cuda"):
+    """13a: olmoe-1b-7b at full width (depth cut to ``P13["layers"]``) in 4
+    rank processes on mesh (1, 4) (EP 4) and (2, 2) (fsdp "data", int8
+    gather). Checks the no-drop logits against rank 0's local path (float32
+    within ``P13["rtol"]``), the int8 gathers and ``elastic_restore``
+    exactly; fills ``stash["moe_ep"]`` with rank 0's #7 inputs (the calls
+    of all ranks) and returns the path's launches."""
+    import shutil
+    import numpy as np
+    import torch
+    n = P13["ranks"]
+    shutil.rmtree(EP_DIR, ignore_errors=True)
+    EP_DIR.mkdir(parents=True)
+    from repro_torch.configs import get_config
+    cfg = p13_config()
+    log(f"phase 13a: {describe(cfg)} (depth cut to {cfg.n_layers} of "
+        f"{get_config(P13['moe']).n_layers}); {n} ranks, "
+        f"{P13['batch']} x {P13['seq']} tokens")
+    (EP_DIR / "config.json").write_text(json.dumps(
+        dict(phase="phase 13a", backend="gloo", seed=seed, device=device,
+             ranks=n, batch=P13["batch"], seq=P13["seq"], dir=str(EP_DIR))))
+    t_ranks = run_ranks(n, EP_DIR, timeout=300)
+    res = [json.loads((EP_DIR / f"rank{r}.json").read_text())
+           for r in range(n)]
+    r0 = res[0]
+    if r0["rel_f32"] > P13["rtol"]:
+        raise AssertionError(f"phase 13a: the expert-parallel float32 "
+                             f"logits vs the local path's: {r0['rel_f32']}")
+    for x in res:
+        if x["drops_no_drop_factor"] or not x["finite"] \
+                or not x["int8_finite"]:
+            raise AssertionError(f"phase 13a rank {x['rank']}: drops "
+                                 f"{x['drops_no_drop_factor']} at the no-drop"
+                                 f" capacity, or non-finite logits")
+        if not all(x["int8_gather_equal"].values()):
+            raise AssertionError(f"phase 13a rank {x['rank']}: the int8 "
+                                 f"gather vs its plain version "
+                                 f"{x['int8_gather_equal']}")
+        if not all(v[1] for v in x["elastic"].values()):
+            raise AssertionError(f"phase 13a rank {x['rank']}: "
+                                 f"elastic_restore {x['elastic']}")
+        others = {k: v for k, v in x["launches"].items()
+                  if v and k != "flash_attention"}
+        prefills = 6 if x["rank"] == 0 else 4
+        want = prefills * cfg.n_layers
+        if device == "cuda" and (others or
+                                 x["launches"]["flash_attention"] != want):
+            raise AssertionError(f"phase 13a rank {x['rank']}: launches "
+                                 f"{x['launches']}, want {want} of "
+                                 f"flash_attention only")
+    # phase 5's inputs: rank 0's per geometry, the calls of every rank
+    inputs = dict(np.load(EP_DIR / "attention_inputs.npz"))
+    recs = {name: Recorded() for name in wrapper_sites()}
+    recs["probe_stack"], recs["combine_rows"] = Recorded(), Recorded()
+    counts = {}
+    for x in res:
+        for g, c in x["calls"]:
+            key = (tuple(tuple(s) for s in g[0]),
+                   tuple(tuple(kv) for kv in g[1]), tuple(g[2]))
+            counts[key] = counts.get(key, 0) + c
+    for j, (g, _) in enumerate(r0["calls"]):
+        key = (tuple(tuple(s) for s in g[0]),
+               tuple(tuple(kv) for kv in g[1]), tuple(g[2]))
+        args = tensors_from_npz(f"g{j}", inputs, device)
+        recs["flash_attention"].calls[key] = [counts[key],
+                                              (args, dict(key[1]))]
+    if sum(counts.values()) != sum(c for c, _ in
+                                   recs["flash_attention"].calls.values()):
+        raise AssertionError("phase 13a: the ranks' attention geometries "
+                             "differ from rank 0's")
+    stash["moe_ep"] = recs
+    launches = {k: sum(x["launches"][k] for x in res)
+                for k in res[0]["launches"]}
+    log(f"phase 13a ({smi}): {n} ranks on {device} over gloo, "
+        f"{t_ranks:.3f} s from start to exit; no-drop capacity factor "
+        f"{cfg.n_experts / cfg.experts_per_token:g}: float32 logits vs the "
+        f"local path's relative error norm {r0['rel_f32']:.3g} (limit "
+        f"{P13['rtol']:g}); bf16: vs the local bf16 "
+        f"{r0['rel_bf16_vs_local_bf16']:.3g}, vs the local float32 "
+        f"{r0['rel_bf16_vs_f32']:.3g} (the local bf16 vs float32 "
+        f"{r0['rel_local_bf16_vs_f32']:.3g}); drops at the config's factor "
+        f"{cfg.capacity_factor:g} by rank "
+        + json.dumps([x["drops_own_factor"] for x in res])
+        + f"; mesh (2, 2) int8 gather equal to plain "
+        + json.dumps(r0["int8_gather_equal"])
+        + f", its logits vs the local float32 {r0['rel_int8_vs_f32']:.3g}; "
+        f"elastic_restore blocks equal to the full arrays' on every rank "
+        + json.dumps(r0["elastic"]) + "; #7 launches by rank "
+        + json.dumps([x["launches"]["flash_attention"] for x in res])
+        + "; seconds by rank "
+        + json.dumps([round(x["seconds"], 3) for x in res]))
+    shutil.rmtree(EP_DIR, ignore_errors=True)
+    return {"moe_ep": launches}
+
+
+def attention_work(args, kw):
+    """(bytes, flops) of one #7 forward call on ``args`` / ``kw``: q read
+    and o written once, and of K and V only the keys some row may see (the
+    causal limit of the last row); four flops per (row, key, dim) pair
+    kept by the mask (q.k and p.v, multiply + add)."""
+    import numpy as np
+    q, k = args[:2]
+    b, sq, h, hd = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    off = kw.get("q_offset", 0)
+    if kw.get("causal", True):
+        pairs = int(np.minimum(sk, off + np.arange(sq) + 1).sum())
+        keys = min(sk, off + sq)
+    else:
+        pairs, keys = sq * sk, sk
+    es = q.element_size()
+    return (es * (2 * b * sq * h * hd + 2 * b * keys * kvh * hd),
+            4 * b * h * hd * pairs)
+
+
+def cost_step(seed, smi, stash, device="cuda"):
+    """13b: phase 10's smollm-135m train step (``P10``'s batch, full width)
+    once under ``launch.op_cost.OpCost`` (#7's forward, which the counter
+    cannot see, added by ``attention_work`` from the recorded inputs: the
+    causal triangle, not the square), then timed
+    uncounted; the counted roofline against the measured step, and the
+    step's model-FLOPs share. Returns the counted run's launches."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config, get_reduced
+    from repro_torch.launch import analysis
+    from repro_torch.launch.op_cost import OpCost
+    from repro_torch.models import build, init_params
+    from repro_torch.train import AdamWConfig, adamw_init, make_train_step
+
+    cfg = (get_reduced if P10["reduced"] else get_config)(P10["arch"])
+    model = build(cfg)
+    b, s = P10["batch"], P10["seq"]
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = init_params(model.param_specs, gen, device=device)
+    opt_cfg = AdamWConfig()
+    opt = adamw_init(params, opt_cfg)
+    step = make_train_step(model, opt_cfg, remat="dots_no_batch")
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": torch.as_tensor(rng.integers(1, cfg.vocab, (b, s))
+                                       .astype(np.int32), device=device)}
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+    with kernel_run(stash) as launches:
+        with OpCost() as counter:
+            params, opt, loss = step(params, opt, batch)
+        loss = float(loss)
+    if device == "cuda" and (launches["flash_attention"] != 2 * cfg.n_layers
+                             or sum(launches.values())
+                             != launches["flash_attention"]):
+        raise AssertionError(f"phase 13b: launches {launches}, want "
+                             f"{2 * cfg.n_layers} of flash_attention only")
+    cost = counter.cost
+    attn_flops = attn_bytes = 0
+    for count, (args, kw) in stash["flash_attention"].calls.values():
+        nbytes, flops = attention_work(args, kw)
+        attn_flops += count * flops
+        attn_bytes += count * nbytes
+    cost.flops += attn_flops
+    cost.bytes += attn_bytes
+    cost.bytes_ideal += attn_bytes
+    peak = (torch.cuda.max_memory_allocated() - held if device == "cuda"
+            else 0)
+    mflops = analysis.model_flops_for(cfg, "train", s, b)
+    roof = analysis.analyze(cost, 1, mflops, peak)
+    if not math.isfinite(loss) or cost.flops < mflops:
+        raise AssertionError(f"phase 13b: loss {loss}, counted flops "
+                             f"{cost.flops} below the model's {mflops}")
+    step(params, opt, batch)  # uncounted, warm
+    times = []
+    for _ in range(P13["timed_steps"]):
+        t0 = clock()
+        params, opt, loss_t = step(params, opt, batch)
+        float(loss_t)
+        times.append(clock() - t0)
+    t = float(np.median(times))
+    share = mflops / (t * analysis.PEAK_FLOPS)
+    log(f"phase 13b ({smi}): {cfg.name} train step, {b} x {s} tokens, remat "
+        f"dots_no_batch, counted by op_cost: "
+        + json.dumps({"flops": cost.flops, "attention_flops": attn_flops,
+                      "bytes": cost.bytes, "bytes_ideal": cost.bytes_ideal,
+                      "roofline_bytes": roof.bytes_per_device,
+                      "compute_ms": roof.compute_s * 1e3,
+                      "memory_ms": roof.memory_s * 1e3,
+                      "bottleneck": roof.bottleneck,
+                      "model_flops": mflops,
+                      "useful_ratio": roof.useful_ratio,
+                      "peak_mem_gb": peak / 1e9,
+                      "ops": len(counter.by_op)}))
+    log(f"phase 13b ({smi}): measured step {t * 1e3:.3f} ms median of "
+        f"{len(times)} (" + ", ".join(f"{x * 1e3:.3f}" for x in times)
+        + f" ms); roofline compute {roof.compute_s * 1e3:.3f} ms, memory "
+        f"{roof.memory_s * 1e3:.3f} ms; model-FLOPs share "
+        f"{mflops:.6g} / ({t:.6g} s x {analysis.PEAK_FLOPS:g}) = {share:.4f}")
+    top = sorted(counter.by_op.items(), key=lambda kv: -kv[1][2])[:6]
+    log("phase 13b: the counted ops moving the most bytes (calls, flops, "
+        "bytes): " + json.dumps(dict(top)))
+    return launches
+
+
+DRY_RUNS = {
+    "dryrun_single": [sys.executable, "-c",
+                      "import json; from repro_torch.launch.dryrun import "
+                      "run_cell; print('RECORD ' + json.dumps(run_cell("
+                      "'smollm-135m', 'decode_32k', False)))"],
+    "dryrun_multi": [sys.executable, "-c",
+                     "import json; from repro_torch.launch.dryrun import "
+                     "run_cell; print('RECORD ' + json.dumps(run_cell("
+                     "'smollm-135m', 'decode_32k', True)))"],
+    "ingest": [sys.executable, "-m", "repro_torch.launch.ingest", "--dryrun",
+               "--mesh", "single"],
+}
+
+
+def dry_runs_start():
+    """13c: the dry runs, each in a process of its own (a fake world is
+    process-wide), on the host's CPU while 13a and 13b use the card."""
+    import os
+    EP_DIR.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    procs = {}
+    for name, cmd in DRY_RUNS.items():
+        out = open(EP_DIR.parent / f"phase13_{name}.log", "w")
+        procs[name] = (subprocess.Popen(cmd, stdout=out,
+                                        stderr=subprocess.STDOUT, env=env,
+                                        cwd=str(ROOT)), out)
+    return procs, time.perf_counter()
+
+
+def dry_runs_finish(procs, t0, smi, timeout=300):
+    """Wait for 13c's processes and check their records."""
+    recs = {}
+    try:
+        for name, (p, out) in procs.items():
+            code = p.wait(timeout=max(1.0, timeout - (time.perf_counter()
+                                                      - t0)))
+            out.close()
+            text = (EP_DIR.parent / f"phase13_{name}.log").read_text()
+            if code != 0:
+                raise AssertionError(f"phase 13c {name}: exit {code}: "
+                                     + text[-3000:])
+            recs[name] = text
+    finally:
+        for p, out in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            out.close()
+    summary = {}
+    for name, multi in (("dryrun_single", False), ("dryrun_multi", True)):
+        line = [x for x in recs[name].splitlines()
+                if x.startswith("RECORD ")][-1]
+        r = json.loads(line[len("RECORD "):])
+        if r["chips"] != (512 if multi else 256) or \
+                not r["flops_per_device"] > 0 or r["collective_s"] < 0 or \
+                r["bottleneck"] not in ("compute", "memory", "collective") \
+                or not r["hbm_bytes_per_device"] < 80e9:
+            raise AssertionError(f"phase 13c {name}: {r}")
+        summary[r["mesh"]] = {k: r[k] for k in (
+            "chips", "trace_s", "flops_per_device", "bytes_per_device",
+            "arg_bytes", "temp_bytes", "hbm_bytes_per_device", "compute_s",
+            "memory_s", "collective_s", "bottleneck", "useful_ratio",
+            "collective_counts")}
+    ingest = [x for x in recs["ingest"].splitlines()
+              if "ingest dry-run" in x][-1]
+    if "colls={'all-to-all': 1}" not in ingest:
+        raise AssertionError(f"phase 13c ingest: {ingest}")
+    log(f"phase 13c: smollm-135m decode_32k dry runs (a fake world on the "
+        f"host's CPU, its terms from the H100 data-sheet peaks in "
+        f"launch.analysis; this card: {smi}): " + json.dumps(summary))
+    log(f"phase 13c: {ingest}; {time.perf_counter() - t0:.3f} s for the "
+        f"three")
+
+
+def launch_tools(seed, smi, stash, device="cuda"):
+    """Phase 13: the dry runs started on the CPU, then 13a and 13b on the
+    card, then the dry runs' records. Returns launches by path."""
+    procs, t0 = dry_runs_start()
+    try:
+        t = {}
+        ta = time.perf_counter()
+        launches = moe_expert_parallel(seed, smi, stash, device)
+        t["a"] = time.perf_counter() - ta
+        free_card()
+        tb = time.perf_counter()
+        launches["cost_step"] = cost_step(seed, smi, stash["cost_step"],
+                                          device)
+        t["b"] = time.perf_counter() - tb
+        free_card()
+        tc = time.perf_counter()
+        dry_runs_finish(procs, t0, smi)
+        t["c_wait"] = time.perf_counter() - tc
+    finally:
+        for p, out in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            out.close()
+    log("phase 13 by part (s): " + json.dumps(t))
+    return launches
+
+
 def input_groups(inputs):
     """Group recorded inputs as 'path shapes kw=...': the decode steps'
     positions (``q_offset``) fold into one group, shown as a range.
@@ -3256,7 +3738,7 @@ def input_groups(inputs):
 def kernel_checks(stash, launches):
     """Each kernel against its plain version at every input each path gave
     it (``stash[path][kernel]``, recorded in phases 3, 4b, 4c, 4d, 7, 8, 9,
-    6, 10, 12 and 11: one per geometry for #1-#3 and #7, every call for
+    6, 10, 13, 12 and 11: one per geometry for #1-#3 and #7, every call for
     #4-#6 and the tablet gather; a decode step's position is part of #7's
     geometry; ``stash[path]["tablet_read"]`` the 4c reads).
     ``launches[path]`` are the paths' launch counts. Every time is the
@@ -3451,23 +3933,6 @@ def kernel_checks(stash, launches):
         return (4 * (cols.numel() + nnz + x.numel() + cols.shape[0]),
                 2 * nnz)
 
-    # attention: q read and o written once, and of K and V only the keys
-    # some row may see (the causal limit of the last row); four flops per
-    # (row, key, dim) pair kept by the mask (q.k and p.v, multiply + add)
-    def attn_cost(args, kw):
-        q, k, _ = args
-        b, sq, h, hd = q.shape
-        sk, kvh = k.shape[1], k.shape[2]
-        off = kw.get("q_offset", 0)
-        if kw.get("causal", True):
-            pairs = int(np.minimum(sk, off + np.arange(sq) + 1).sum())
-            keys = min(sk, off + sq)
-        else:
-            pairs, keys = sq * sk, sk
-        es = q.element_size()
-        return (es * (2 * b * sq * h * hd + 2 * b * keys * kvh * hd),
-                4 * b * h * hd * pairs)
-
     # CSR SpMV: indptr, cols and vals read once, x read and y written once;
     # a multiply and an add per entry whose column is in x
     def csr_cost(args, kw):
@@ -3644,8 +4109,8 @@ def kernel_checks(stash, launches):
          check_close, PEAK_F32_PER_S, True, "src/repro_torch/csrc/spmv_csr.cu",
          "src/repro/kernels/spmv/kernel.py:34", None),
         # bf16 inputs run on the tensor cores, float32 on the CUDA cores
-        ("flash_attention", flash_attention, flash_attention_ref, attn_cost,
-         attn_lib, (5, 1), check_attn,
+        ("flash_attention", flash_attention, flash_attention_ref,
+         attention_work, attn_lib, (5, 1), check_attn,
          lambda args: (PEAK_BF16_PER_S if args[0].dtype == torch.bfloat16
                        else PEAK_F32_PER_S), False,
          "src/repro_torch/csrc/flash_attention.cu",
@@ -3855,11 +4320,12 @@ def main(argv=None):
     ap.add_argument("--tablet-child", metavar="DIR", type=Path,
                     help="run only phase 8a's writer into DIR, which then "
                          "dies without closing anything (phase 8a starts it)")
-    ap.add_argument("--mesh-child", metavar="DIR", type=Path,
-                    help="run only one rank of phase 9's mesh, with the "
-                         "inputs in DIR (phase 9 starts the ranks)")
-    ap.add_argument("--mesh-rank", type=int, default=0,
-                    help="the rank of --mesh-child")
+    ap.add_argument("--rank-child", metavar="DIR", type=Path,
+                    help="run only one rank of phase 9's or phase 13a's "
+                         "mesh, with the config and inputs in DIR (the "
+                         "phase starts the ranks)")
+    ap.add_argument("--rank", type=int, default=0,
+                    help="the rank of --rank-child")
     args = ap.parse_args(argv)
 
     import torch
@@ -3878,8 +4344,8 @@ def main(argv=None):
         crash_child(args.crash_child, args.scale, args.seed)
     if args.tablet_child is not None:
         tablet_child(args.tablet_child, args.seed)
-    if args.mesh_child is not None:
-        return mesh_child(args.mesh_child, args.mesh_rank)
+    if args.rank_child is not None:
+        return rank_child(args.rank_child, args.rank)
     t_start = time.perf_counter()
 
     # 1. device
@@ -3913,7 +4379,7 @@ def main(argv=None):
                              "train_families_check", "whisper",
                              "internvl2", "train_whisper", "train_prefix",
                              "whisper_check", "internvl2_check",
-                             "train_prefix_check")}
+                             "train_prefix_check", "cost_step")}
     launches = {}
     reads, stats, times, launches["listing1"] = listing1(
         graph, True, cap, stash["listing1"])
@@ -4036,6 +4502,13 @@ def main(argv=None):
     train_stats, launches["train"] = training(args.seed, smi, stash["train"])
     log(f"phase 10 ({smi}): " + json.dumps(train_stats))
     log(f"phase 10: {time.perf_counter() - t10:.3f} s")
+
+    # 13. the launch and mesh tools: MoE expert parallelism over 4 ranks,
+    # the op-level cost counter on phase 10's step, the dry runs. It runs
+    # here, while the card holds little of the recorded inputs
+    t13 = time.perf_counter()
+    launches.update(launch_tools(args.seed, smi, stash))
+    log(f"phase 13: {time.perf_counter() - t13:.3f} s")
 
     # 12. the enc-dec and VLM families: serving and training. It runs
     # before phase 11: 12c's AdamW step at internvl2's width and the

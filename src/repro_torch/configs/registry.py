@@ -38,3 +38,25 @@ def get_config(arch: str) -> ModelConfig:
 
 def get_reduced(arch: str) -> ModelConfig:
     return _MODULES[arch].REDUCED
+
+
+def shapes_for(arch: str) -> List[str]:
+    """long_500k only runs for sub-quadratic archs."""
+    cfg = get_config(arch)
+    out = ["train_4k", "prefill_32k", "decode_32k"]
+    if cfg.supports_long:
+        out.append("long_500k")
+    return out
+
+
+def all_cells():
+    """All 40 (arch, shape) cells; skipped ones flagged with a reason."""
+    cells = []
+    for a in ARCH_IDS:
+        cfg = get_config(a)
+        for s in SHAPES:
+            skip = None
+            if s == "long_500k" and not cfg.supports_long:
+                skip = "full attention is O(S^2) at 524k; arch defines no sub-quadratic path"
+            cells.append((a, s, skip))
+    return cells

@@ -25,16 +25,16 @@ _FAMILIES = {"dense": (transformer, transformer.cache_specs),
 class Model:
     cfg: ModelConfig
     param_specs: Any
-    train_loss: Callable          # (params, batch, remat) -> loss
-    prefill: Callable             # (params, batch) -> (logits, cache[, cross])
-    decode: Callable              # (params, batch) -> (logits, cache)
+    train_loss: Callable          # (params, batch, remat, sh) -> loss
+    prefill: Callable             # (params, batch, sh) -> (logits, cache[, cross])
+    decode: Callable              # (params, batch, sh) -> (logits, cache)
     train_input_specs: Callable   # (gb, seq) -> PSpec dict
     prefill_input_specs: Callable  # (gb, seq) -> PSpec dict
     decode_input_specs: Callable  # (gb, seq) -> PSpec dict (incl cache, pos)
 
 
 def _tok_spec(gb: int, s: int) -> PSpec:
-    return PSpec((gb, s), torch.int32, "zeros")
+    return PSpec((gb, s), torch.int32, "zeros", axes=("batch", None))
 
 
 def prefix_input(cfg: ModelConfig):
@@ -52,34 +52,38 @@ def build(cfg: ModelConfig) -> Model:
     state does not grow with the length, so it ignores ``max_len``.
     Decode takes ``{"token", "cache", "pos"}`` (no ``pos`` for an SSM;
     enc-dec also ``"cross"``, the cross-attention keys and values its
-    prefill returns after the self cache)."""
+    prefill returns after the self cache). Each step takes the
+    activation-sharding hook ``sh`` last (``spec.make_sharder``; None is
+    the identity)."""
     f = cfg.family
     if f not in _FAMILIES:
         raise ValueError(f"unknown family {f!r}")
     m, state_specs = _FAMILIES[f]
     prefix = prefix_input(cfg)
 
-    def train(p, b, remat="dots_no_batch"):
-        return m.train_loss(cfg, p, b, remat)
+    def train(p, b, remat="dots_no_batch", sh=None):
+        return m.train_loss(cfg, p, b, remat, sh=sh)
 
-    def prefill(p, b):
+    def prefill(p, b, sh=None):
         if prefix is not None:
             return m.prefill(cfg, p, b[prefix[0]], b["tokens"],
-                             b.get("max_len"))
-        return m.prefill(cfg, p, b["tokens"], b.get("max_len"))
+                             b.get("max_len"), sh=sh)
+        return m.prefill(cfg, p, b["tokens"], b.get("max_len"), sh=sh)
 
-    def decode(p, b):
+    def decode(p, b, sh=None):
         if f == "encdec":
             return m.decode_step(cfg, p, b["token"], b["cache"], b["cross"],
-                                 b["pos"])
-        return m.decode_step(cfg, p, b["token"], b["cache"], b.get("pos"))
+                                 b["pos"], sh=sh)
+        return m.decode_step(cfg, p, b["token"], b["cache"], b.get("pos"),
+                             sh=sh)
 
     def tok_in(gb, s):
         if prefix is None:
             return {"tokens": _tok_spec(gb, s)}
         name, n = prefix  # a VLM's image prefix takes n of the s positions
         return {"tokens": _tok_spec(gb, s - n if f == "vlm" else s),
-                name: PSpec((gb, n, cfg.d_model), cfg.dtype)}
+                name: PSpec((gb, n, cfg.d_model), cfg.dtype,
+                            axes=("batch", None, None))}
 
     def decode_in(gb, s):
         specs = {"token": _tok_spec(gb, 1)}

@@ -78,3 +78,45 @@ class ModelConfig:
     def dtype(self):
         return (torch.bfloat16 if self.param_dtype == "bfloat16"
                 else torch.float32)
+
+    def n_params_analytic(self) -> int:
+        """Total parameter count (for 6·N·D roofline bookkeeping)."""
+        d, hd = self.d_model, self.hd
+        emb = self.vocab_padded * d * (1 if self.tie_embeddings else 2)
+        attn = d * (self.n_heads * hd) + 2 * d * (self.n_kv_heads * hd) \
+            + (self.n_heads * hd) * d
+        if self.mlp == "swiglu":
+            mlp = 3 * d * self.d_ff
+        else:
+            mlp = 2 * d * self.d_ff
+        if self.family == "moe":
+            mlp = self.n_experts * 3 * d * self.d_ff + d * self.n_experts \
+                + self.n_shared_experts * 3 * d * self.d_ff
+        if self.family == "ssm":
+            attn = 0
+            mlp = self._mamba_params()
+        if self.family == "hybrid":
+            n_shared = max(self.n_layers // max(self.shared_attn_every, 1), 1)
+            shared = attn + 3 * d * self.d_ff
+            return emb + self.n_layers * self._mamba_params() + shared \
+                + n_shared * 2 * d  # per-invocation norms
+        layers = self.n_layers if self.family != "encdec" \
+            else self.n_enc_layers + self.n_layers
+        if self.family == "encdec":
+            attn = attn * 2  # self + cross in decoder (approx; enc has one)
+        return emb + layers * (attn + mlp)
+
+    def _mamba_params(self) -> int:
+        d, di, ns = self.d_model, self.d_inner, self.ssm_state
+        h = self.ssm_heads
+        in_proj = d * (2 * di + 2 * ns + h)
+        return in_proj + (di + 2 * ns) * self.ssm_conv + di * d + 3 * h + di
+
+    def n_params_active(self) -> int:
+        """Active params per token (MoE: routed top-k + shared)."""
+        if self.family != "moe":
+            return self.n_params_analytic()
+        d = self.d_model
+        routed_inactive = self.n_layers * \
+            (self.n_experts - self.experts_per_token) * 3 * d * self.d_ff
+        return self.n_params_analytic() - routed_inactive

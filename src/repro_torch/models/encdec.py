@@ -66,17 +66,17 @@ def _layer(blocks, i: int):
     return tree_map(lambda w: w[i], blocks)
 
 
-def _enc_block(cfg: ModelConfig, blk, x, positions):
+def _enc_block(cfg: ModelConfig, blk, x, positions, sh=None):
     h, _ = layers.attention(cfg, blk["attn"],
                             layers.apply_norm(cfg, blk["ln1"], x), positions,
-                            causal=False, use_rope=False)
+                            causal=False, use_rope=False, sh=sh)
     x = x + h
     return x + layers.apply_mlp(cfg, blk["mlp"],
-                                layers.apply_norm(cfg, blk["ln2"], x))
+                                layers.apply_norm(cfg, blk["ln2"], x), sh)
 
 
 def encode(cfg: ModelConfig, params, frames: torch.Tensor,
-           remat: str = "dots_no_batch") -> torch.Tensor:
+           remat: str = "dots_no_batch", sh=None) -> torch.Tensor:
     """frames: [B, F, D] precomputed frontend embeddings -> the encoder's
     output [B, F, D], each layer one checkpoint under ``remat``."""
     run = layers.remat_runner(remat)
@@ -84,28 +84,29 @@ def encode(cfg: ModelConfig, params, frames: torch.Tensor,
     x = frames + sinusoidal(f, cfg.d_model, frames.device).to(frames.dtype)
     positions = torch.arange(f, dtype=torch.int32, device=frames.device)
     for i in range(cfg.n_enc_layers):
-        x = run(lambda blk, y: _enc_block(cfg, blk, y, positions),
+        x = run(lambda blk, y: _enc_block(cfg, blk, y, positions, sh),
                 _layer(params["enc_blocks"], i), x)
     return layers.apply_norm(cfg, params["enc_final"], x)
 
 
 def _dec_block(cfg: ModelConfig, blk, x, positions, enc_out=None,
-               cache=None, cache_pos: int = 0, cross: Optional[Tuple] = None):
+               cache=None, cache_pos: int = 0, cross: Optional[Tuple] = None,
+               sh=None):
     """One decoder block: causal self-attention (over ``cache`` when
     given), cross-attention over ``cross`` (or over ``enc_out``'s keys and
     values, computed here), the MLP. Returns (x, cache, cross)."""
     h, kv = layers.attention(cfg, blk["attn"],
                              layers.apply_norm(cfg, blk["ln1"], x), positions,
                              causal=True, use_rope=False, cache=cache,
-                             cache_pos=cache_pos)
+                             cache_pos=cache_pos, sh=sh)
     x = x + h
     if cross is None:
         cross = layers.cross_kv(cfg, blk["xattn"], enc_out)
     x = x + layers.cross_attention(cfg, blk["xattn"],
                                    layers.apply_norm(cfg, blk["lnx"], x),
-                                   cross)
+                                   cross, sh)
     x = x + layers.apply_mlp(cfg, blk["mlp"],
-                             layers.apply_norm(cfg, blk["ln2"], x))
+                             layers.apply_norm(cfg, blk["ln2"], x), sh)
     return x, kv, cross
 
 
@@ -116,34 +117,36 @@ def _embed(cfg: ModelConfig, params, tokens: torch.Tensor,
 
 
 def logits(cfg: ModelConfig, params, frames: torch.Tensor,
-           tokens: torch.Tensor, remat: str = "none") -> torch.Tensor:
+           tokens: torch.Tensor, remat: str = "none",
+           sh=None) -> torch.Tensor:
     """The logits [B, S, vocab_padded] of one forward over ``frames``
     [B, F, D] and ``tokens`` [B, S] (the train path's), each layer of
     both stacks one checkpoint under ``remat``."""
     run = layers.remat_runner(remat)
-    enc_out = encode(cfg, params, frames, remat)
+    enc_out = encode(cfg, params, frames, remat, sh)
     positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                              device=tokens.device)
     x = _embed(cfg, params, tokens, positions)
     for i in range(cfg.n_layers):
-        x = run(lambda blk, y, e: _dec_block(cfg, blk, y, positions, e)[0],
+        x = run(lambda blk, y, e: _dec_block(cfg, blk, y, positions, e,
+                                             sh=sh)[0],
                 _layer(params["dec_blocks"], i), x, enc_out)
     x = layers.apply_norm(cfg, params["final_norm"], x)
-    return layers.unembed(cfg, params["embed"], x)
+    return layers.unembed(cfg, params["embed"], x, sh)
 
 
 def train_loss(cfg: ModelConfig, params, batch: Dict,
-               remat: str = "dots_no_batch") -> torch.Tensor:
+               remat: str = "dots_no_batch", sh=None) -> torch.Tensor:
     """Mean next-token cross-entropy of ``batch["tokens"]`` [B, S] (the
     last position masked) given ``batch["frames"]`` [B, F, D]."""
     tokens = batch["tokens"]
     return layers.next_token_loss(
-        cfg, logits(cfg, params, batch["frames"], tokens, remat), tokens)
+        cfg, logits(cfg, params, batch["frames"], tokens, remat, sh), tokens)
 
 
 @torch.no_grad()
 def prefill(cfg: ModelConfig, params, frames: torch.Tensor,
-            tokens: torch.Tensor, max_len: Optional[int] = None):
+            tokens: torch.Tensor, max_len: Optional[int] = None, sh=None):
     """Encode ``frames`` [B, F, D] and prefill the decoder over ``tokens``
     [B, S]. Returns (last-position logits [B, 1, vocab_padded] float32,
     the self-attention cache (k, v) [L, B, max_len, KV, hd], the
@@ -151,22 +154,22 @@ def prefill(cfg: ModelConfig, params, frames: torch.Tensor,
     ``max_len`` defaults to S."""
     b, s = tokens.shape
     cache = kv_zeros(cfg, b, max_len or s, tokens.device)
-    enc_out = encode(cfg, params, frames, remat="none")
+    enc_out = encode(cfg, params, frames, remat="none", sh=sh)
     cross = kv_zeros(cfg, b, frames.shape[1], tokens.device)
     positions = torch.arange(s, dtype=torch.int32, device=tokens.device)
     x = _embed(cfg, params, tokens, positions)
     for i in range(cfg.n_layers):
         x, _, (xk, xv) = _dec_block(cfg, _layer(params["dec_blocks"], i), x,
                                     positions, enc_out,
-                                    cache=(cache[0][i], cache[1][i]))
+                                    cache=(cache[0][i], cache[1][i]), sh=sh)
         cross[0][i], cross[1][i] = xk, xv
     x = layers.apply_norm(cfg, params["final_norm"], x)
-    return layers.unembed(cfg, params["embed"], x[:, -1:]), cache, cross
+    return layers.unembed(cfg, params["embed"], x[:, -1:], sh), cache, cross
 
 
 @torch.no_grad()
 def decode_step(cfg: ModelConfig, params, token: torch.Tensor, cache: KV,
-                cross: KV, pos: int):
+                cross: KV, pos: int, sh=None):
     """One decode step. token: [B, 1]; ``pos`` (an int) is the new token's
     position; ``cache`` and ``cross`` as ``prefill`` returns them. The
     cache is updated in place and returned with the logits [B, 1,
@@ -176,18 +179,21 @@ def decode_step(cfg: ModelConfig, params, token: torch.Tensor, cache: KV,
     for i in range(cfg.n_layers):
         x, _, _ = _dec_block(cfg, _layer(params["dec_blocks"], i), x,
                              positions, cache=(cache[0][i], cache[1][i]),
-                             cache_pos=pos, cross=(cross[0][i], cross[1][i]))
+                             cache_pos=pos, cross=(cross[0][i], cross[1][i]),
+                             sh=sh)
     x = layers.apply_norm(cfg, params["final_norm"], x)
-    return layers.unembed(cfg, params["embed"], x), cache
+    return layers.unembed(cfg, params["embed"], x, sh), cache
 
 
 def cache_specs(cfg: ModelConfig, batch: int, max_len: int):
     """PSpecs of the decode state: ((k, v) of the self-attention cache,
     (k, v) of the cross-attention over ``cfg.n_frames`` frames)."""
     self_kv = PSpec((cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd),
-                    cfg.dtype, "zeros")
+                    cfg.dtype, "zeros",
+                    axes=(None, "batch", "kv_seq", None, None))
     cross = PSpec((cfg.n_layers, batch, cfg.n_frames, cfg.n_kv_heads,
-                   cfg.hd), cfg.dtype, "zeros")
+                   cfg.hd), cfg.dtype, "zeros",
+                  axes=(None, "batch", None, None, None))
     return (self_kv, self_kv), (cross, cross)
 
 

@@ -48,13 +48,14 @@ def param_specs(cfg: ModelConfig) -> Dict:
 
 
 def _shared_block(cfg: ModelConfig, params, p_ln1, p_ln2, x, positions,
-                  cache=None, cache_pos: int = 0):
+                  cache=None, cache_pos: int = 0, sh=None):
     h, kv = layers.attention(cfg, params["shared"]["attn"],
                              layers.apply_norm(cfg, p_ln1, x), positions,
-                             causal=True, cache=cache, cache_pos=cache_pos)
+                             causal=True, cache=cache, cache_pos=cache_pos,
+                             sh=sh)
     x = x + h
     h = layers.apply_mlp(cfg, params["shared"]["mlp"],
-                         layers.apply_norm(cfg, p_ln2, x))
+                         layers.apply_norm(cfg, p_ln2, x), sh)
     return x + h, kv
 
 
@@ -66,7 +67,7 @@ def _group(params, gi: int):
 
 
 def logits(cfg: ModelConfig, params, tokens: torch.Tensor,
-           remat: str = "none") -> torch.Tensor:
+           remat: str = "none", sh=None) -> torch.Tensor:
     """The logits [B, S, vocab_padded] of one causal forward over
     ``tokens`` [B, S], each group one checkpoint under ``remat``."""
     g, per = _groups(cfg)
@@ -77,27 +78,28 @@ def logits(cfg: ModelConfig, params, tokens: torch.Tensor,
 
     def group_body(mblk, ln1, ln2, y):
         for j in range(per):
-            y = mamba2.residual_block(cfg, tree_map(lambda w: w[j], mblk), y)
-        return _shared_block(cfg, params, ln1, ln2, y, positions)[0]
+            y = mamba2.residual_block(cfg, tree_map(lambda w: w[j], mblk), y,
+                                      sh)
+        return _shared_block(cfg, params, ln1, ln2, y, positions, sh=sh)[0]
 
     for gi in range(g):
         x = run(group_body, *_group(params, gi), x)
     x = layers.apply_norm(cfg, params["final_norm"], x)
-    return layers.unembed(cfg, params["embed"], x)
+    return layers.unembed(cfg, params["embed"], x, sh)
 
 
 def train_loss(cfg: ModelConfig, params, batch: Dict,
-               remat: str = "dots_no_batch") -> torch.Tensor:
+               remat: str = "dots_no_batch", sh=None) -> torch.Tensor:
     """Mean next-token cross-entropy of ``batch["tokens"]`` [B, S] (the
     last position masked), each group one checkpoint under ``remat``."""
     tokens = batch["tokens"]
-    return layers.next_token_loss(cfg, logits(cfg, params, tokens, remat),
+    return layers.next_token_loss(cfg, logits(cfg, params, tokens, remat, sh),
                                   tokens)
 
 
 @torch.no_grad()
 def prefill(cfg: ModelConfig, params, tokens: torch.Tensor,
-            max_len: Optional[int] = None):
+            max_len: Optional[int] = None, sh=None):
     """Forward over ``tokens`` [B, S] that builds the decode state, the KV
     caches ``max_len`` (default S) slots long. Returns (last-position
     logits [B, 1, vocab_padded] float32, ((ssm, conv), (k, v)))."""
@@ -113,19 +115,19 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor,
             blk = tree_map(lambda w: w[j], mblk)
             h, (ss, cs) = mamba2.apply_mamba(
                 cfg, blk["mamba"], layers.apply_norm(cfg, blk["ln"], x),
-                return_state=True)
+                return_state=True, sh=sh)
             x = x + h
             ssm[gi, j] = ss
             conv[gi, j] = cs
         x, _ = _shared_block(cfg, params, ln1, ln2, x, positions,
-                             cache=(ck[gi], cv[gi]), cache_pos=0)
+                             cache=(ck[gi], cv[gi]), cache_pos=0, sh=sh)
     x = layers.apply_norm(cfg, params["final_norm"], x)
-    return layers.unembed(cfg, params["embed"], x[:, -1:]), states
+    return layers.unembed(cfg, params["embed"], x[:, -1:], sh), states
 
 
 @torch.no_grad()
 def decode_step(cfg: ModelConfig, params, token: torch.Tensor, states,
-                pos: int):
+                pos: int, sh=None):
     """One decode step. token: [B, 1]; ``pos`` (an int) is the new token's
     position; ``states`` as ``prefill`` returns them, updated in place and
     returned with the logits [B, 1, vocab_padded] float32."""
@@ -139,26 +141,27 @@ def decode_step(cfg: ModelConfig, params, token: torch.Tensor, states,
             blk = tree_map(lambda w: w[j], mblk)
             xn = layers.apply_norm(cfg, blk["ln"], x[:, None, :])[:, 0, :]
             h, ss, cs = mamba2.mamba_decode(cfg, blk["mamba"], xn,
-                                            ssm[gi, j], conv[gi, j])
+                                            ssm[gi, j], conv[gi, j], sh)
             x = x + h
             ssm[gi, j] = ss
             conv[gi, j] = cs
         y, _ = _shared_block(cfg, params, ln1, ln2, x[:, None, :], positions,
-                             cache=(ck[gi], cv[gi]), cache_pos=pos)
+                             cache=(ck[gi], cv[gi]), cache_pos=pos, sh=sh)
         x = y[:, 0, :]
     x = layers.apply_norm(cfg, params["final_norm"], x[:, None, :])
-    return layers.unembed(cfg, params["embed"], x), states
+    return layers.unembed(cfg, params["embed"], x, sh), states
 
 
 def state_specs(cfg: ModelConfig, batch: int, max_len: int):
     g, per = _groups(cfg)
     di, n = cfg.d_inner, cfg.ssm_state
     ssm = PSpec((g, per, batch, cfg.ssm_heads, cfg.ssm_headdim, n),
-                torch.float32, "zeros")
+                torch.float32, "zeros",
+                axes=(None, None, "batch", None, None, None))
     conv = PSpec((g, per, batch, cfg.ssm_conv - 1, di + 2 * n), cfg.dtype,
-                 "zeros")
+                 "zeros", axes=(None, None, "batch", None, "d_inner"))
     kv = PSpec((g, batch, max_len, cfg.n_kv_heads, cfg.hd), cfg.dtype,
-               "zeros")
+               "zeros", axes=(None, "batch", "kv_seq", None, None))
     return ((ssm, conv), (kv, kv))
 
 

@@ -11,6 +11,11 @@ cross, is ``kernels.flash_attention`` on every path: the JAX ``_sdpa`` and
 they round scores and weights to the activation dtype where the kernel
 keeps float32. On the card its gradient is the plain version's, by
 recompute (``kernels.flash_attention``).
+
+Every forward takes the activation-sharding hook ``sh`` (``spec.
+make_sharder``; None is the identity) and calls it where the JAX module
+does, except inside ``_blocked_sdpa``, which the port does not have: its
+two sites (the query blocks' ``attn_q`` sharding) have no counterpart.
 """
 from __future__ import annotations
 
@@ -24,7 +29,7 @@ from torch.utils.checkpoint import (checkpoint,
 
 from ..kernels.flash_attention import flash_attention
 from .config import ModelConfig
-from .spec import PSpec
+from .spec import PSpec, no_sharding
 
 
 # ------------------------------------------------------------------- norms
@@ -71,24 +76,32 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
 def attn_specs(cfg: ModelConfig, L=()) -> Dict:
     h, kv, d, hd = cfg.n_heads, cfg.n_kv_heads, cfg.d_model, cfg.hd
     dt = cfg.dtype
+    lax_ = (None,) * len(L)
     p = {
-        "wq": PSpec(L + (d, h * hd), dt),
-        "wk": PSpec(L + (d, kv * hd), dt),
-        "wv": PSpec(L + (d, kv * hd), dt),
-        "wo": PSpec(L + (h * hd, d), dt),
+        "wq": PSpec(L + (d, h * hd), dt, axes=lax_ + ("embed", "heads")),
+        "wk": PSpec(L + (d, kv * hd), dt, axes=lax_ + ("embed", "kv_heads")),
+        "wv": PSpec(L + (d, kv * hd), dt, axes=lax_ + ("embed", "kv_heads")),
+        "wo": PSpec(L + (h * hd, d), dt, axes=lax_ + ("heads", "embed")),
     }
     if cfg.qkv_bias:
-        for name, width in (("bq", h * hd), ("bk", kv * hd), ("bv", kv * hd)):
-            p[name] = PSpec(L + (width,), torch.float32, "zeros")
+        for name, width, ax in (("bq", h * hd, "heads"),
+                                ("bk", kv * hd, "kv_heads"),
+                                ("bv", kv * hd, "kv_heads")):
+            p[name] = PSpec(L + (width,), torch.float32, "zeros",
+                            axes=lax_ + (ax,))
     return p
 
 
-def _project_qkv(cfg: ModelConfig, p, x: torch.Tensor):
+def _project_qkv(cfg: ModelConfig, p, x: torch.Tensor, sh=None):
+    sh = sh or no_sharding
     q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
     if cfg.qkv_bias:  # f32 biases cast to the activation dtype first
         q = q + p["bq"].to(q.dtype)
         k = k + p["bk"].to(k.dtype)
         v = v + p["bv"].to(v.dtype)
+    q = sh(q, "batch", "seq_inner", "heads")
+    k = sh(k, "batch", "seq_inner", "kv_heads")
+    v = sh(v, "batch", "seq_inner", "kv_heads")
     b, s = x.shape[:2]
     return (q.reshape(b, s, cfg.n_heads, cfg.hd),
             k.reshape(b, s, cfg.n_kv_heads, cfg.hd),
@@ -98,7 +111,7 @@ def _project_qkv(cfg: ModelConfig, p, x: torch.Tensor):
 def attention(cfg: ModelConfig, p, x: torch.Tensor, positions: torch.Tensor,
               *, causal: bool = True, use_rope: bool = True,
               cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-              cache_pos: int = 0):
+              cache_pos: int = 0, sh=None):
     """Self-attention; returns (out, cache). ``cache=(k, v)`` of shape
     [B, Smax, KV, hd] takes the new keys and values at ``cache_pos`` (in
     place; the JAX function returns a new array of the same values) and
@@ -106,7 +119,8 @@ def attention(cfg: ModelConfig, p, x: torch.Tensor, positions: torch.Tensor,
     ones past each query's position. ``use_rope=False`` leaves q and k
     unrotated (the enc-dec family's sinusoidal positions are added to the
     activations instead)."""
-    q, k, v = _project_qkv(cfg, p, x)
+    sh = sh or no_sharding
+    q, k, v = _project_qkv(cfg, p, x, sh)
     if use_rope:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
@@ -118,20 +132,24 @@ def attention(cfg: ModelConfig, p, x: torch.Tensor, positions: torch.Tensor,
                              f" past the cache's {ck.shape[1]} slots")
         ck[:, cache_pos:cache_pos + s] = k.to(ck.dtype)
         cv[:, cache_pos:cache_pos + s] = v.to(cv.dtype)
-        att = flash_attention(q, ck, cv, causal=causal, q_offset=cache_pos)
+        att = flash_attention(q, sh(ck, "batch", "kv_seq", None, None),
+                              sh(cv, "batch", "kv_seq", None, None),
+                              causal=causal, q_offset=cache_pos)
     else:
         att = flash_attention(q, k, v, causal=causal)
     b, sq = x.shape[:2]
-    out = att.reshape(b, sq, cfg.n_heads * cfg.hd) @ p["wo"]
-    return out, cache
+    att = sh(att.reshape(b, sq, cfg.n_heads * cfg.hd), "batch", "seq_inner",
+             "heads")
+    return sh(att @ p["wo"], "batch", "seq", "model_dim_act"), cache
 
 
 def cross_attention(cfg: ModelConfig, p, x: torch.Tensor,
-                    kv: Tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+                    kv: Tuple[torch.Tensor, torch.Tensor],
+                    sh=None) -> torch.Tensor:
     """The decoder's attention over encoder keys and values ``kv`` (each
     [B, Senc, KV, hd], from ``cross_kv``): ``x @ wq``, every query over
     every key (``flash_attention``, ``causal=False``), ``@ wo``; no bias,
-    as in the JAX package."""
+    as in the JAX package (which calls no ``sh`` here either)."""
     b, s = x.shape[:2]
     q = (x @ p["wq"]).reshape(b, s, cfg.n_heads, cfg.hd)
     att = flash_attention(q, kv[0], kv[1], causal=False)
@@ -150,30 +168,40 @@ def cross_kv(cfg: ModelConfig, p, enc_out: torch.Tensor):
 def mlp_specs(cfg: ModelConfig, L=()) -> Dict:
     d, f = cfg.d_model, cfg.d_ff
     dt = cfg.dtype
+    up = (None,) * len(L) + ("embed", "ff")
+    down = (None,) * len(L) + ("ff", "embed")
     if cfg.mlp == "swiglu":
         return {
-            "w_gate": PSpec(L + (d, f), dt),
-            "w_up": PSpec(L + (d, f), dt),
-            "w_down": PSpec(L + (f, d), dt),
+            "w_gate": PSpec(L + (d, f), dt, axes=up),
+            "w_up": PSpec(L + (d, f), dt, axes=up),
+            "w_down": PSpec(L + (f, d), dt, axes=down),
         }
     return {
-        "w_in": PSpec(L + (d, f), dt),
-        "w_out": PSpec(L + (f, d), dt),
+        "w_in": PSpec(L + (d, f), dt, axes=up),
+        "w_out": PSpec(L + (f, d), dt, axes=down),
     }
 
 
-def apply_mlp(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
+def apply_mlp(cfg: ModelConfig, p, x: torch.Tensor, sh=None) -> torch.Tensor:
+    sh = sh or no_sharding
     if cfg.mlp == "swiglu":
-        return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
-    # jax.nn.gelu defaults to the tanh approximation
-    return F.gelu(x @ p["w_in"], approximate="tanh") @ p["w_out"]
+        h = sh(F.silu(x @ p["w_gate"]) * (x @ p["w_up"]), "batch",
+               "seq_inner", "ff")
+        out = h @ p["w_down"]
+    else:  # jax.nn.gelu defaults to the tanh approximation
+        h = sh(F.gelu(x @ p["w_in"], approximate="tanh"), "batch",
+               "seq_inner", "ff")
+        out = h @ p["w_out"]
+    return sh(out, "batch", "seq", "model_dim_act")
 
 
 # ------------------------------------------------------------------- embed
 def embed_specs(cfg: ModelConfig) -> Dict:
-    d = {"embedding": PSpec((cfg.vocab_padded, cfg.d_model), cfg.dtype)}
+    d = {"embedding": PSpec((cfg.vocab_padded, cfg.d_model), cfg.dtype,
+                            axes=("vocab", "embed"))}
     if not cfg.tie_embeddings:
-        d["lm_head"] = PSpec((cfg.d_model, cfg.vocab_padded), cfg.dtype)
+        d["lm_head"] = PSpec((cfg.d_model, cfg.vocab_padded), cfg.dtype,
+                             axes=("embed", "vocab"))
     return d
 
 
@@ -181,12 +209,12 @@ def embed_tokens(p, tokens: torch.Tensor) -> torch.Tensor:
     return p["embedding"][tokens]
 
 
-def unembed(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
+def unembed(cfg: ModelConfig, p, x: torch.Tensor, sh=None) -> torch.Tensor:
     """Logits over ``vocab_padded`` (the pad rows included, as in the JAX
     package), computed in the parameter dtype and returned as float32."""
-    if cfg.tie_embeddings:
-        return (x @ p["embedding"].T).float()
-    return (x @ p["lm_head"]).float()
+    sh = sh or no_sharding
+    w = p["embedding"].T if cfg.tie_embeddings else p["lm_head"]
+    return sh((x @ w).float(), "batch", "seq_unembed", "vocab")
 
 
 def softmax_xent(cfg: ModelConfig, logits: torch.Tensor, labels: torch.Tensor,

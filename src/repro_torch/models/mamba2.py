@@ -29,7 +29,7 @@ import torch.nn.functional as F
 
 from . import layers
 from .config import ModelConfig
-from .spec import PSpec, tree_map
+from .spec import PSpec, no_sharding, tree_map
 
 States = Tuple[torch.Tensor, torch.Tensor]  # (ssm [L,B,H,P,N], conv [L,B,K-1,C])
 
@@ -40,15 +40,18 @@ def mamba_specs(cfg: ModelConfig, L=()) -> Dict:
     conv_dim = di + 2 * n
     dt = cfg.dtype
     f32 = torch.float32
+    lax_ = (None,) * len(L)
+    inner = lax_ + ("d_inner",)
     return {
-        "in_proj": PSpec(L + (d, 2 * di + 2 * n + h), dt),
-        "conv_w": PSpec(L + (conv_dim, k), dt),
-        "conv_b": PSpec(L + (conv_dim,), f32, "zeros"),
+        "in_proj": PSpec(L + (d, 2 * di + 2 * n + h), dt,
+                         axes=lax_ + ("embed", "d_inner")),
+        "conv_w": PSpec(L + (conv_dim, k), dt, axes=inner + (None,)),
+        "conv_b": PSpec(L + (conv_dim,), f32, "zeros", axes=inner),
         "A_log": PSpec(L + (h,), f32, "ones"),
         "D": PSpec(L + (h,), f32, "ones"),
         "dt_bias": PSpec(L + (h,), f32, "zeros"),
-        "norm": PSpec(L + (di,), f32, "ones"),
-        "out_proj": PSpec(L + (di, d), dt),
+        "norm": PSpec(L + (di,), f32, "ones", axes=inner),
+        "out_proj": PSpec(L + (di, d), dt, axes=inner + ("embed",)),
     }
 
 
@@ -143,15 +146,18 @@ def _gated_norm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
 
 def apply_mamba(cfg: ModelConfig, p, x: torch.Tensor,
                 init_state: Optional[torch.Tensor] = None,
-                return_state: bool = False):
+                return_state: bool = False, sh=None):
     """The mixer: in_proj -> conv -> SSD -> gated norm -> out_proj. x:
     [B, S, D] -> (out, None), or with ``return_state`` (out, (final ssm
     state [B, H, P, N] float32, conv state [B, K-1, C]: the last K-1
     pre-conv inputs))."""
+    sh = sh or no_sharding
     bsz, s, _ = x.shape
     di, n, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
     z, xbc_raw, dtr = _split_proj(cfg, x @ p["in_proj"])
-    xbc = _causal_conv(xbc_raw, p["conv_w"], p["conv_b"])
+    z = sh(z, "batch", "seq", "d_inner")
+    xbc = sh(_causal_conv(xbc_raw, p["conv_w"], p["conv_b"]), "batch", "seq",
+             "d_inner")
     xs = xbc[..., :di].reshape(bsz, s, h, cfg.ssm_headdim)
     b_ = xbc[..., di:di + n]
     c_ = xbc[..., di + n:]
@@ -160,7 +166,7 @@ def apply_mamba(cfg: ModelConfig, p, x: torch.Tensor,
                                   init_state)
     y = y + p["D"].to(y.dtype)[None, None, :, None] * xs
     g = _gated_norm(y.reshape(bsz, s, di), z, p["norm"], x.dtype)
-    out = g @ p["out_proj"]
+    out = sh(g @ p["out_proj"], "batch", "seq", "model_dim_act")
     if return_state:
         k = cfg.ssm_conv
         conv_state = F.pad(xbc_raw[:, max(s - (k - 1), 0):, :],
@@ -170,10 +176,11 @@ def apply_mamba(cfg: ModelConfig, p, x: torch.Tensor,
 
 
 def mamba_decode(cfg: ModelConfig, p, xt: torch.Tensor,
-                 ssm_state: torch.Tensor, conv_state: torch.Tensor):
+                 ssm_state: torch.Tensor, conv_state: torch.Tensor, sh=None):
     """One-token step. xt: [B, D]; ssm_state: [B, H, P, N]; conv_state:
     [B, K-1, C] (pre-activation conv inputs). Returns (out [B, D], new ssm
-    state, new conv state)."""
+    state, new conv state). ``sh`` is taken and not called, as in the JAX
+    package."""
     bsz = xt.shape[0]
     di, n, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
     z, xbc_new, dtr = _split_proj(cfg, xt @ p["in_proj"])
@@ -206,38 +213,41 @@ def param_specs(cfg: ModelConfig) -> Dict:
     }
 
 
-def residual_block(cfg: ModelConfig, blk, x: torch.Tensor) -> torch.Tensor:
+def residual_block(cfg: ModelConfig, blk, x: torch.Tensor,
+                   sh=None) -> torch.Tensor:
     h, _ = apply_mamba(cfg, blk["mamba"],
-                       layers.apply_norm(cfg, blk["ln"], x))
+                       layers.apply_norm(cfg, blk["ln"], x), sh=sh)
     return x + h
 
 
 def logits(cfg: ModelConfig, params, tokens: torch.Tensor,
-           remat: str = "none") -> torch.Tensor:
+           remat: str = "none", sh=None) -> torch.Tensor:
     """The logits [B, S, vocab_padded] of one causal forward over
     ``tokens`` [B, S], each layer one checkpoint under ``remat``."""
+    sh = sh or no_sharding
     run = layers.remat_runner(remat)
-    x = layers.embed_tokens(params["embed"], tokens)
+    x = sh(layers.embed_tokens(params["embed"], tokens), "batch", "seq",
+           "model_dim_act")
     blocks = params["blocks"]
     for i in range(cfg.n_layers):  # layer i's parameters: views of the stack
-        x = run(lambda blk, y: residual_block(cfg, blk, y),
+        x = run(lambda blk, y: residual_block(cfg, blk, y, sh),
                 tree_map(lambda w: w[i], blocks), x)
     x = layers.apply_norm(cfg, params["final_norm"], x)
-    return layers.unembed(cfg, params["embed"], x)
+    return layers.unembed(cfg, params["embed"], x, sh)
 
 
 def train_loss(cfg: ModelConfig, params, batch: Dict,
-               remat: str = "dots_no_batch") -> torch.Tensor:
+               remat: str = "dots_no_batch", sh=None) -> torch.Tensor:
     """Mean next-token cross-entropy of ``batch["tokens"]`` [B, S] (the
     last position masked), each layer one checkpoint under ``remat``."""
     tokens = batch["tokens"]
-    return layers.next_token_loss(cfg, logits(cfg, params, tokens, remat),
+    return layers.next_token_loss(cfg, logits(cfg, params, tokens, remat, sh),
                                   tokens)
 
 
 @torch.no_grad()
 def prefill(cfg: ModelConfig, params, tokens: torch.Tensor,
-            max_len: Optional[int] = None):
+            max_len: Optional[int] = None, sh=None):
     """Returns (last-position logits [B, 1, vocab_padded] float32,
     (ssm states [L, B, H, P, N] float32, conv states [L, B, K-1, C])).
     The state does not grow with the length: ``max_len`` is ignored."""
@@ -248,17 +258,17 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor,
         blk = tree_map(lambda w: w[i], blocks)
         h, (ss, cs) = apply_mamba(cfg, blk["mamba"],
                                   layers.apply_norm(cfg, blk["ln"], x),
-                                  return_state=True)
+                                  return_state=True, sh=sh)
         x = x + h
         states[0][i] = ss
         states[1][i] = cs
     x = layers.apply_norm(cfg, params["final_norm"], x)
-    return layers.unembed(cfg, params["embed"], x[:, -1:]), states
+    return layers.unembed(cfg, params["embed"], x[:, -1:], sh), states
 
 
 @torch.no_grad()
 def decode_step(cfg: ModelConfig, params, token: torch.Tensor,
-                states: States, pos: Optional[int] = None):
+                states: States, pos: Optional[int] = None, sh=None):
     """token: [B, 1]; states as ``prefill`` returns them, updated in place
     and returned with the logits [B, 1, vocab_padded] float32. The step
     does not depend on the position: ``pos`` is ignored."""
@@ -268,12 +278,12 @@ def decode_step(cfg: ModelConfig, params, token: torch.Tensor,
     for i in range(cfg.n_layers):
         blk = tree_map(lambda w: w[i], blocks)
         xn = layers.apply_norm(cfg, blk["ln"], x[:, None, :])[:, 0, :]
-        h, ss, cs = mamba_decode(cfg, blk["mamba"], xn, ssm[i], conv[i])
+        h, ss, cs = mamba_decode(cfg, blk["mamba"], xn, ssm[i], conv[i], sh)
         x = x + h
         ssm[i] = ss
         conv[i] = cs
     x = layers.apply_norm(cfg, params["final_norm"], x[:, None, :])
-    return layers.unembed(cfg, params["embed"], x), states
+    return layers.unembed(cfg, params["embed"], x, sh), states
 
 
 def state_specs(cfg: ModelConfig, batch: int,
@@ -282,9 +292,10 @@ def state_specs(cfg: ModelConfig, batch: int,
     di, n = cfg.d_inner, cfg.ssm_state
     return (
         PSpec((cfg.n_layers, batch, cfg.ssm_heads, cfg.ssm_headdim, n),
-              torch.float32, "zeros"),
+              torch.float32, "zeros",
+              axes=(None, "batch", None, None, None)),
         PSpec((cfg.n_layers, batch, cfg.ssm_conv - 1, di + 2 * n),
-              cfg.dtype, "zeros"),
+              cfg.dtype, "zeros", axes=(None, "batch", None, "d_inner")),
     )
 
 

@@ -1,5 +1,5 @@
 """Mixture-of-Experts layer: top-k router + sort-based scatter dispatch (the
-JAX package's ``models/moe.py``, local path).
+JAX package's ``models/moe.py``).
 
 Tokens are flat-sorted by expert id, positioned within their expert by rank
 arithmetic, and scattered into a dense [E, C, d] buffer; overflow beyond the
@@ -7,35 +7,44 @@ capacity C = ceil8(T * k / E * capacity_factor + 1) is dropped (the aux
 loss tracks the balance). The experts are batched matrix products outside
 any hand kernel.
 
-Only the local path is here: the expert-parallel ``_apply_moe_spmd`` and
-its int8 weight gather ``gather_w_int8`` need a mesh and come with ROADMAP
-Queue 1 item 11i. Three choices keep the port's routing and sums the JAX
-package's: the top k is the first k of a stable descending sort (on ties
-the lower expert first, as ``lax.top_k``), the dispatch sort is stable, and
-a token's contributions are added in ascending expert order in the
-activation dtype (XLA's scatter-add order on the CPU; ``index_add_`` is
-atomic on the card, its order unspecified)."""
+Two paths, chosen as the JAX package chooses them: the local path, and
+with a sharding hook that carries rules and a mesh, the expert-parallel
+``apply_moe_spmd``: tokens stay on their (data x sequence) shard, the
+dispatch sort is local, and only the dense [E, C, d] buffers cross the
+expert axis, one ``all_to_all_single`` each way; ``gather_w_int8`` is its
+FSDP expert-weight gather with an int8 wire format.
+
+Three choices keep the port's routing and sums the JAX package's: the top
+k is the first k of a stable descending sort (on ties the lower expert
+first, as ``lax.top_k``), the dispatch sort is stable, and a token's
+contributions are added in ascending expert order in the activation dtype
+(XLA's scatter-add order on the CPU; ``index_add_`` is atomic on the card,
+its order unspecified)."""
 from __future__ import annotations
 
 import dataclasses
 from typing import Dict, NamedTuple, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from . import layers
 from .config import ModelConfig
-from .spec import PSpec
+from .spec import PSpec, axis_sizes, local_block, no_sharding, placements
 
 
 def moe_specs(cfg: ModelConfig, L=()) -> Dict:
     d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
     dt = cfg.dtype
+    lax_ = (None,) * len(L)
+    up = lax_ + ("experts", "embed", None)
     specs = {
-        "router": PSpec(L + (d, e), torch.float32),
-        "w_gate": PSpec(L + (e, d, f), dt),
-        "w_up": PSpec(L + (e, d, f), dt),
-        "w_down": PSpec(L + (e, f, d), dt),
+        "router": PSpec(L + (d, e), torch.float32, axes=lax_ + ("embed", None)),
+        "w_gate": PSpec(L + (e, d, f), dt, axes=up),
+        "w_up": PSpec(L + (e, d, f), dt, axes=up),
+        "w_down": PSpec(L + (e, f, d), dt,
+                        axes=lax_ + ("experts", None, "embed")),
     }
     if cfg.n_shared_experts:
         specs["shared"] = layers.mlp_specs(_shared_cfg(cfg), L)
@@ -118,9 +127,21 @@ def combine(r: Routing, out: torch.Tensor, dtype: torch.dtype
     return y
 
 
-def apply_moe(cfg: ModelConfig, p, x: torch.Tensor
+def apply_moe(cfg: ModelConfig, p, x: torch.Tensor, sh=None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: [B, S, D] -> (y [B, S, D], aux loss, 0-d float32)."""
+    """x: [B, S, D] -> (y [B, S, D], aux loss, 0-d float32). With a hook
+    ``sh`` that carries rules and a mesh, and a sequence that the expert
+    axis divides (so not a decode step), the expert-parallel path."""
+    rules = getattr(sh, "rules", None)
+    mesh = getattr(sh, "mesh", None)
+    if (rules is not None and mesh is not None and x.shape[1] > 1
+            and x.shape[1] % axis_sizes(mesh)[rules.model] == 0):
+        return apply_moe_spmd(cfg, p, x, sh, rules, mesh)
+    return _apply_moe_local(cfg, p, x, sh or no_sharding)
+
+
+def _apply_moe_local(cfg: ModelConfig, p, x: torch.Tensor, sh
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     b, s, d = x.shape
     e = cfg.n_experts
     xt = x.reshape(b * s, d)
@@ -130,20 +151,339 @@ def apply_moe(cfg: ModelConfig, p, x: torch.Tensor
     # dispatch: row e * cap takes every dropped pair and is cut off (JAX's
     # scatter with mode="drop")
     buf = xt.new_zeros(e * cap + 1, d).index_copy(0, r.slot, xt[r.stok])
-    buf = buf[:e * cap].reshape(e, cap, d)
+    buf = sh(buf[:e * cap].reshape(e, cap, d), "experts", None, None)
 
     # expert FFN (swiglu)
     g = torch.bmm(buf, p["w_gate"])
     u = torch.bmm(buf, p["w_up"])
-    out = torch.bmm(F.silu(g) * u, p["w_down"]).reshape(e * cap, d)
+    h = sh(F.silu(g) * u, "experts", None, None)
+    out = sh(torch.bmm(h, p["w_down"]), "experts", None, None)
+    out = out.reshape(e * cap, d)
 
-    y = combine(r, out, x.dtype).reshape(b, s, d)
+    y = sh(combine(r, out, x.dtype).reshape(b, s, d), "batch", "seq",
+           "model_dim_act")
 
     if cfg.n_shared_experts:
-        y = y + layers.apply_mlp(_shared_cfg(cfg), p["shared"], x)
+        y = y + layers.apply_mlp(_shared_cfg(cfg), p["shared"], x, sh)
 
     # load-balance aux loss (Switch-style)
     me = r.probs.mean(0)
     ce = F.one_hot(r.eidx, e).float().sum(1).mean(0)
     aux = e * torch.sum(me * ce)
     return y, aux
+
+
+# ------------------------------------------------------ expert parallelism
+def _staged(group, t: torch.Tensor) -> bool:
+    """gloo moves host tensors: a CUDA tensor on a gloo group goes through
+    pinned host buffers (as ``db.spmd.exchange_route`` decides)."""
+    return t.device.type == "cuda" and str(dist.get_backend(group)) == "gloo"
+
+
+def _wire(t: torch.Tensor) -> torch.Tensor:
+    """A bf16 tensor moves as its bytes (a data move needs no bf16 support
+    from the backend; gloo has no 16-bit integers)."""
+    return t.view(torch.uint8) if t.dtype == torch.bfloat16 else t
+
+
+def _collective(op, out: torch.Tensor, inp: torch.Tensor, group) -> None:
+    """``op(out, inp, group=group)``, through pinned host buffers when the
+    group cannot take ``inp``'s device."""
+    if not _staged(group, inp):
+        op(out, inp, group=group)
+        return
+    host_in = torch.empty(inp.shape, dtype=inp.dtype, pin_memory=True)
+    host_in.copy_(inp)
+    host_out = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+    op(host_out, host_in, group=group)
+    out.copy_(host_out)
+
+
+def _all_to_all(x: torch.Tensor, group, split_axis: int,
+                 concat_axis: int) -> torch.Tensor:
+    """``jax.lax.all_to_all(x, axis, split_axis, concat_axis, tiled=True)``
+    over ``group``: ``x`` split in n blocks along ``split_axis``, block j
+    sent to rank j, the blocks received put side by side along
+    ``concat_axis`` in source-rank order."""
+    n = group.size()
+    send = x.unflatten(split_axis, (n, -1)).movedim(split_axis, 0)
+    send = send.contiguous()
+    recv = torch.empty_like(send)
+    _collective(dist.all_to_all_single, _wire(recv), _wire(send), group)
+    return recv.movedim(0, concat_axis).flatten(concat_axis, concat_axis + 1)
+
+
+def _all_gather(t: torch.Tensor, group, axis: int) -> torch.Tensor:
+    """The group's shards of ``t`` side by side along ``axis`` in rank
+    order (``all_gather(..., tiled=True)``)."""
+    n = group.size()
+    src = t.movedim(axis, 0).contiguous()
+    out = src.new_empty((n * src.shape[0],) + tuple(src.shape[1:]))
+    _collective(dist.all_gather_into_tensor, _wire(out), _wire(src), group)
+    return out.movedim(0, axis)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, split_axis, concat_axis):
+        ctx.args = (group, split_axis, concat_axis)
+        return _all_to_all(x, group, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, split_axis, concat_axis = ctx.args
+        return _all_to_all(g, group, concat_axis, split_axis), None, None, None
+
+
+class _GatherReplicated(torch.autograd.Function):
+    """Forward: the shards gathered along ``axis``, the same on every rank
+    of the group. Each rank then goes on with the same replicated value,
+    and so gets the same gradient of it, whose slice is the gradient of
+    its own shard: no exchange."""
+
+    @staticmethod
+    def forward(ctx, t, group, axis, index):
+        ctx.args = (axis, index, t.shape[axis])
+        return _all_gather(t, group, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        axis, index, n = ctx.args
+        return g.narrow(axis, index * n, n), None, None, None
+
+
+def _all_reduce(t: torch.Tensor, groups) -> torch.Tensor:
+    """A copy of ``t`` summed over the ranks of ``groups`` (in turn)."""
+    out = t.detach().clone()
+    for group in groups:
+        if _staged(group, out):
+            host = out.cpu()
+            dist.all_reduce(host, group=group)
+            out.copy_(host)
+        else:
+            dist.all_reduce(out, group=group)
+    return out
+
+
+class _MeanReplicated(torch.autograd.Function):
+    """The mean of a value over the ranks of ``groups``, the same on every
+    rank; the gradient of each rank's value is 1 / n of the mean's."""
+
+    @staticmethod
+    def forward(ctx, t, groups):
+        ctx.n = 1
+        for group in groups:
+            ctx.n *= group.size()
+        return _all_reduce(t, groups) / ctx.n
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.n, None
+
+
+def _int8_codes(w: torch.Tensor, axis: int):
+    """int8 codes and float32 scales of ``w`` per slice along ``axis``:
+    scale = max|w| / 127 + 1e-12, code = clip(round(w / scale), -127, 127)
+    (``torch.round`` rounds half to even, as ``jnp.round`` does)."""
+    wf = w.float()
+    scale = wf.abs().amax(dim=axis, keepdim=True) / 127.0 + 1e-12
+    q = torch.clamp(torch.round(wf / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def _dequantize(q: torch.Tensor, s: torch.Tensor, axis: int,
+                dtype) -> torch.Tensor:
+    """Codes ``q`` of n slices along ``axis`` times their scales ``s`` (n
+    along ``axis``), cast to ``dtype``."""
+    n = s.shape[axis]
+    shape = q.shape
+    qr = q.reshape(shape[:axis] + (n, shape[axis] // n) + shape[axis + 1:])
+    return (qr.float() * s.unsqueeze(axis + 1)).reshape(shape).to(dtype)
+
+
+class _GatherWInt8(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, w_local, group, gather_axis):
+        ctx.args = (group, gather_axis)
+        q, scale = _int8_codes(w_local, gather_axis)
+        qg = _all_gather(q, group, gather_axis)
+        sg = _all_gather(scale, group, gather_axis)
+        return _dequantize(qg, sg, gather_axis, w_local.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        # the transpose of the gather: a reduce-scatter, in the gradient's
+        # own dtype
+        group, axis = ctx.args
+        src = g.movedim(axis, 0).contiguous()
+        out = src.new_empty((src.shape[0] // group.size(),)
+                            + tuple(src.shape[1:]))
+        _collective(dist.reduce_scatter_tensor, out, src, group)
+        return out.movedim(0, axis), None, None
+
+
+def gather_w_int8(w_local: torch.Tensor, group, gather_axis: int
+                  ) -> torch.Tensor:
+    """FSDP weight gather with an int8 wire format (+ per-slice float32
+    scales) over the process group ``group``: the shards gathered along
+    ``gather_axis`` in rank order, each dequantised from its own codes.
+
+    Halves the dominant collective term of giant-MoE training (the expert
+    weight gathers) at the cost of int8-quantized weights in the forward
+    and recompute passes. The backward is exact: the gradient's
+    reduce-scatter (the transpose of the gather) stays in its dtype."""
+    return _GatherWInt8.apply(w_local, group, gather_axis)
+
+
+def gather_w_int8_ref(shards, gather_axis: int) -> torch.Tensor:
+    """Plain version of ``gather_w_int8`` given every rank's shard (in rank
+    order): each quantised, the codes and scales concatenated, then
+    dequantised."""
+    codes = [_int8_codes(w, gather_axis) for w in shards]
+    q = torch.cat([c[0] for c in codes], dim=gather_axis)
+    s = torch.cat([c[1] for c in codes], dim=gather_axis)
+    return _dequantize(q, s, gather_axis, shards[0].dtype)
+
+
+class _SumGrads(torch.autograd.Function):
+    """The identity, whose backward sums the gradient over the ranks of
+    ``groups``."""
+
+    @staticmethod
+    def forward(ctx, t, groups):
+        ctx.groups = groups
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.groups), None
+
+
+class _Local:
+    """This rank's block of a tensor under a pspec on ``mesh``, and back
+    (``shard_map``'s in and out specs, for x's spec ``x_spec``).
+
+    The tokens differ across the mesh dims that ``x_spec`` names, so the
+    gradient of a block that is replicated over one of those dims is this
+    rank's part of a sum over it; over the other dims every rank computes
+    the same thing. A DTensor is redistributed to the spec and its local
+    tensor taken, its gradient marked ``Partial`` on the former dims (the
+    sum that JAX's ``shard_map`` transpose adds). A plain tensor (the full
+    value, the same on every rank) is sliced at the rank's coordinate, its
+    gradient summed over the former dims and over the dims it is sliced
+    on, so that every rank holds the whole gradient as it does of the
+    replicated rest of the model; a result is gathered back to the full
+    value on every rank."""
+
+    def __init__(self, mesh, x_spec):
+        from torch.distributed.tensor import Shard
+        self.mesh = mesh
+        self.names = list(mesh.mesh_dim_names)
+        self.coord = dict(zip(self.names, mesh.get_coordinate()))
+        self.sizes = axis_sizes(mesh)
+        self.data_dims = {i for i, q in enumerate(placements(x_spec, mesh))
+                          if isinstance(q, Shard)}
+
+    @staticmethod
+    def _axes(entry):
+        if entry is None:
+            return ()
+        return (entry,) if isinstance(entry, str) else tuple(entry)
+
+    def enter(self, t: torch.Tensor, spec) -> torch.Tensor:
+        from torch.distributed.tensor import DTensor, Partial, Shard
+        pl = placements(spec, self.mesh)
+        if isinstance(t, DTensor):
+            grad = [q if isinstance(q, Shard) or i not in self.data_dims
+                    else Partial() for i, q in enumerate(pl)]
+            return t.redistribute(self.mesh, pl).to_local(
+                grad_placements=grad)
+        groups = [self.mesh.get_group(n) for i, n in enumerate(self.names)
+                  if self.mesh.shape[i] > 1
+                  and (isinstance(pl[i], Shard) or i in self.data_dims)]
+        if groups and t.requires_grad:
+            t = _SumGrads.apply(t, groups)
+        return local_block(t, pl, self.mesh)
+
+    def leave(self, t: torch.Tensor, spec, like: torch.Tensor):
+        from torch.distributed.tensor import DTensor
+        if isinstance(like, DTensor):
+            return DTensor.from_local(t, self.mesh,
+                                      placements(spec, self.mesh),
+                                      run_check=False, shape=like.shape,
+                                      stride=like.stride())
+        for d, entry in enumerate(spec):
+            for name in reversed(self._axes(entry)):  # the inner axis first
+                if self.sizes[name] > 1:
+                    t = _GatherReplicated.apply(
+                        t, self.mesh.get_group(name), d, self.coord[name])
+        return t
+
+    def replicated(self, t: torch.Tensor, like: torch.Tensor):
+        from torch.distributed.tensor import DTensor, Replicate
+        if isinstance(like, DTensor):
+            return DTensor.from_local(t, self.mesh,
+                                      [Replicate()] * len(self.names),
+                                      run_check=False)
+        return t
+
+
+def apply_moe_spmd(cfg: ModelConfig, p, x: torch.Tensor, sh, rules, mesh
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Expert parallelism the way real MoE frameworks run it (JAX
+    ``_apply_moe_spmd``): tokens stay local to their (data x sequence)
+    shard, the dispatch is a local sort, and only the dense [E, C, d]
+    buffers cross the expert axis, by ``all_to_all_single``.
+
+    Per rank: x [b/|batch|, s/|model|, d]; w_gate / w_up / w_down
+    [E/|model|, ...] (the expert weights; with ``moe_gather="int8"`` also
+    fsdp-sharded on d_model and gathered by ``gather_w_int8``);
+    buf [E, C_loc, d] --all_to_all--> [E/|model|, |model| * C_loc, d].
+    ``x`` and the parameters are DTensors (a dry run) or the full values,
+    the same on every rank (then y and the gradients come back whole on
+    every rank). The aux loss is averaged over every mesh axis."""
+    sizes = axis_sizes(mesh)
+    ep = rules.model
+    batch = tuple(rules.batch)
+    e = cfg.n_experts
+    f_ax = rules.fsdp
+    use_int8 = (rules.moe_gather == "int8" and f_ax is not None
+                and cfg.d_model % sizes[f_ax] == 0)
+    if use_int8:  # weights enter still fsdp-sharded
+        w_specs = ((ep, f_ax, None), (ep, f_ax, None), (ep, None, f_ax))
+    else:         # the fsdp dim gathered (in the weights' dtype) on entry
+        w_specs = ((ep, None, None),) * 3
+    x_spec = (batch, ep, None)
+    loc = _Local(mesh, x_spec)
+    xl = loc.enter(x, x_spec)
+    router = loc.enter(p["router"], (None, None))
+    wg, wu, wd = (loc.enter(p[k], s) for k, s in
+                  zip(("w_gate", "w_up", "w_down"), w_specs))
+    if use_int8:
+        fsdp = mesh.get_group(f_ax)
+        wg = gather_w_int8(wg, fsdp, 1)
+        wu = gather_w_int8(wu, fsdp, 1)
+        wd = gather_w_int8(wd, fsdp, 2)
+    ep_group = mesh.get_group(ep)
+
+    b_l, s_l, d = xl.shape
+    xt = xl.reshape(b_l * s_l, d)
+    r = route(cfg, router, xt)  # the local sort, at capacity(cfg, t_local)
+    cap = r.cap
+    buf = xt.new_zeros(e * cap + 1, d).index_copy(0, r.slot, xt[r.stok])
+    # the exchange: experts to their owning rank, tokens from every rank
+    buf = _AllToAll.apply(buf[:e * cap].reshape(e, cap, d), ep_group, 0, 1)
+    g = torch.bmm(buf, wg)
+    u = torch.bmm(buf, wu)
+    out = torch.bmm(F.silu(g) * u, wd)
+    out = _AllToAll.apply(out, ep_group, 1, 0).reshape(e * cap, d)
+    y = combine(r, out, xl.dtype).reshape(b_l, s_l, d)
+
+    me = r.probs.mean(0)
+    ce = F.one_hot(r.eidx, e).float().sum(1).mean(0)
+    aux = _MeanReplicated.apply(e * torch.sum(me * ce),
+                                [mesh.get_group(a) for a in batch + (ep,)])
+    y = sh(loc.leave(y, x_spec, x), "batch", "seq", "model_dim_act")
+    if cfg.n_shared_experts:
+        y = y + layers.apply_mlp(_shared_cfg(cfg), p["shared"], x, sh)
+    return y, loc.replicated(aux, x)

@@ -1,10 +1,17 @@
-"""Parameter specs: one declaration drives initialisation and the shapes of
-the serving inputs. A parameter tree is a nested dict of tensors with the
-JAX package's structure (stacked ``[L, ...]`` block leaves)."""
+"""Parameter specs: one declaration drives initialisation, the dry run's
+fake tensors and the mesh placements (logical axis -> mesh axis rules). A
+parameter tree is a nested dict of tensors with the JAX package's structure
+(stacked ``[L, ...]`` block leaves).
+
+A "pspec" here is a tuple with one entry per tensor dim: a mesh axis name,
+a tuple of names (the dim sharded over several mesh axes, outer first), or
+``None`` (replicated): the JAX ``PartitionSpec`` as a tuple. ``placements``
+turns one into DTensor placements on a ``DeviceMesh``.
+"""
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Tuple
+from typing import Any, Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -12,11 +19,153 @@ import torch
 
 @dataclasses.dataclass(frozen=True)
 class PSpec:
-    """Shape, dtype and initialiser of one parameter leaf (the JAX spec's
-    logical axis names come with the mesh item)."""
+    """Shape, dtype, initialiser and logical axis names (one per dim, None
+    = replicated; all None when not given) of one parameter leaf."""
     shape: Tuple[int, ...]
     dtype: Any = torch.bfloat16
     init: str = "normal"              # normal | zeros | ones
+    axes: Optional[Tuple[Optional[str], ...]] = None
+
+    def __post_init__(self):
+        if self.axes is None:
+            object.__setattr__(self, "axes", (None,) * len(self.shape))
+        if len(self.axes) != len(self.shape):
+            raise ValueError(f"PSpec axes {self.axes} do not match shape "
+                             f"{self.shape}")
+
+
+def axis_sizes(mesh) -> dict:
+    """{mesh axis name: size} of a ``DeviceMesh`` (or of any object with a
+    ``shape`` dict, as a JAX mesh has)."""
+    names = getattr(mesh, "mesh_dim_names", None)
+    if names is None:
+        return dict(mesh.shape)
+    return dict(zip(names, mesh.shape))
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardingRules:
+    """Logical axis -> mesh axis mapping (a copy of the JAX package's)."""
+    batch: Tuple[str, ...] = ("data",)       # data-parallel axes
+    model: str = "model"                     # tensor-parallel axis
+    fsdp: Optional[str] = None               # axis for ZeRO-3 param sharding
+    seq: Optional[str] = None                # sequence parallelism (acts)
+    kv_seq: Optional[str] = None             # decode KV-cache sequence axis
+    expert: Optional[str] = "model"          # expert parallelism
+    tp_enabled: bool = True                  # False: replicate weights, use
+                                             # the model axis for seq/attn_q
+    vocab_mode: str = "tp"                   # "tp" | "replicated"
+    moe_gather: str = "bf16"                 # "bf16" | "int8": wire format of
+                                             # the FSDP expert-weight gather
+
+    def of(self, logical: Optional[str]):
+        if logical is None:
+            return None
+        tp = self.model if self.tp_enabled else None
+        vocab_m = self.model if self.vocab_mode == "tp" else None
+        seq_in = None if self.tp_enabled else self.seq
+        table = {
+            "batch": self.batch,
+            "vocab": vocab_m,
+            "heads": tp,           # flattened n_heads*head_dim dim
+            "kv_heads": tp,
+            "ff": tp,
+            "d_inner": tp,
+            "experts": self.expert,
+            "attn_q": self.model,   # context-parallel blocked attention
+            "embed": self.fsdp,    # d_model dim of weights (ZeRO-3 slot)
+            "seq": self.seq,
+            # inside TP regions (projections/logits) the model axis is busy
+            # with heads/ff/vocab: Megatron-SP gathers seq there. Without TP
+            # the model axis is free for seq everywhere.
+            "seq_inner": seq_in,
+            # unembed: vocab sharding wins the model axis over seq sharding
+            "seq_unembed": None if vocab_m else seq_in,
+            "kv_seq": self.kv_seq,
+            "model_dim_act": None,  # activations' d_model dim
+        }
+        return table.get(logical, None)
+
+    def pspec(self, axes: Tuple[Optional[str], ...]) -> tuple:
+        """The pspec of ``axes``; a one-name tuple becomes the name (as a
+        JAX ``PartitionSpec`` normalises it)."""
+        out = []
+        for a in axes:
+            m = self.of(a)
+            out.append(m[0] if isinstance(m, tuple) and len(m) == 1 else m)
+        return tuple(out)
+
+    def pspec_for_shape(self, shape, axes, mesh) -> tuple:
+        """Divisibility- and uniqueness-aware spec: drop mesh axes that do
+        not divide the dim (batch=1 long-context cells) or that an earlier
+        dim already claimed (e.g. vocab=model + 2D fsdp=(data, model))."""
+        sizes = axis_sizes(mesh)
+        out = []
+        used = set()
+        for dim, logical in zip(shape, axes):
+            m = self.of(logical)
+            if m is None:
+                out.append(None)
+                continue
+            names = [n for n in ((m,) if isinstance(m, str) else tuple(m))
+                     if n not in used]
+            prod = 1
+            for nm in names:
+                prod *= sizes[nm]
+            if not names or dim % prod != 0:
+                out.append(None)
+                continue
+            used.update(names)
+            out.append(names[0] if len(names) == 1 else tuple(names))
+        return tuple(out)
+
+
+def placements(spec: tuple, mesh) -> tuple:
+    """DTensor placements of the pspec ``spec`` on ``mesh``: ``Shard(d)`` on
+    each mesh dim that ``spec`` names for tensor dim ``d``, ``Replicate()``
+    on the others. A dim sharded over several mesh axes must name them in
+    mesh order (DTensor shards a dim over its mesh dims outer first, as the
+    JAX ``("pod", "data")`` batch does); another order raises."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = list(mesh.mesh_dim_names)
+    out = [Replicate()] * len(names)
+    for d, entry in enumerate(spec):
+        if entry is None:
+            continue
+        group = (entry,) if isinstance(entry, str) else tuple(entry)
+        idx = [names.index(n) for n in group]
+        if idx != sorted(idx):
+            raise ValueError(f"pspec {spec}: dim {d} names mesh axes "
+                             f"{group} out of the mesh's order {names}")
+        for i in idx:
+            out[i] = Shard(d)
+    return tuple(out)
+
+
+def local_shape(shape, pl, mesh) -> tuple:
+    """One rank's shard shape of ``shape`` under the placements ``pl``
+    (every sharded dim divisible, as ``pspec_for_shape`` makes it)."""
+    from torch.distributed.tensor import Shard
+    loc = list(shape)
+    for i, p in enumerate(pl):
+        if isinstance(p, Shard):
+            loc[p.dim] //= mesh.shape[i]
+    return tuple(loc)
+
+
+def local_block(full: torch.Tensor, pl, mesh) -> torch.Tensor:
+    """This rank's block of ``full`` under the placements ``pl``: each
+    ``Shard(d)`` mesh dim, outer first, cuts dim d into as many equal
+    parts as it has ranks and keeps the one at this rank's coordinate (a
+    view)."""
+    from torch.distributed.tensor import Shard
+    coord = mesh.get_coordinate()
+    t = full
+    for i, p in enumerate(pl):
+        if isinstance(p, Shard):
+            size = t.shape[p.dim] // mesh.shape[i]
+            t = t.narrow(p.dim, coord[i] * size, size)
+    return t
 
 
 def tree_map(fn: Callable, tree):
@@ -115,7 +264,55 @@ def _sliced_normal(s: PSpec, std: float, generator: torch.Generator, dev):
 
 
 def param_count(specs) -> int:
-    shapes = []
-    tree_map(lambda s: shapes.append(s.shape), specs)
-    return sum(int(np.prod(shape)) for shape in shapes)
+    return sum(int(np.prod(s.shape)) for s in tree_leaves(specs))
+
+
+def sds_tree(specs):
+    """Fake tensors of the specs' shapes and dtypes, made under a new
+    ``FakeTensorMode``: stand-ins that allocate nothing."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode():
+        return tree_map(lambda s: torch.empty(s.shape, dtype=s.dtype),
+                        specs)
+
+
+def pspec_tree(specs, rules: ShardingRules):
+    """The rules' pspec of every leaf (divisibility not checked)."""
+    return tree_map(lambda s: rules.pspec(s.axes), specs)
+
+
+def sharding_tree(specs, rules: ShardingRules, mesh):
+    """The DTensor placements of every leaf on ``mesh``: the
+    divisibility-aware ``pspec_for_shape``, through ``placements``."""
+    return tree_map(lambda s: placements(
+        rules.pspec_for_shape(s.shape, s.axes, mesh), mesh), specs)
+
+
+def no_sharding(x, *axes):
+    """The identity sharding hook (``sh=None`` in the model code)."""
+    return x
+
+
+def make_sharder(rules: Optional[ShardingRules], mesh=None):
+    """Activation-sharding hook threaded through the model code.
+
+    ``sh(x, "batch", None, "heads")`` redistributes a DTensor ``x`` to the
+    placements the rules give its shape on ``mesh`` (the DTensor's own mesh
+    when None) and returns a plain tensor as it is; with ``rules`` None it
+    is the identity. It carries ``.rules`` and ``.mesh`` (the MoE layer's
+    expert-parallel path reads them)."""
+    if rules is None:
+        return no_sharding
+
+    def sh(x, *axes):
+        from torch.distributed.tensor import DTensor
+        if not isinstance(x, DTensor):
+            return x
+        m = mesh if mesh is not None else x.device_mesh
+        spec = rules.pspec_for_shape(x.shape, axes, m)
+        return x.redistribute(m, placements(spec, m))
+
+    sh.rules = rules
+    sh.mesh = mesh
+    return sh
 

@@ -16,6 +16,7 @@ import torch
 
 from . import layers, transformer
 from .config import ModelConfig
+from .spec import no_sharding
 
 param_specs = transformer.param_specs
 decode_step = transformer.decode_step
@@ -33,22 +34,24 @@ def _prefix(cfg: ModelConfig, params, img: torch.Tensor,
 
 
 def train_loss(cfg: ModelConfig, params, batch: Dict,
-               remat: str = "dots_no_batch") -> torch.Tensor:
+               remat: str = "dots_no_batch", sh=None) -> torch.Tensor:
     """Mean next-token cross-entropy of ``batch["tokens"]`` [B, S] (the
     last position masked) after the prefix ``batch["img_embeds"]`` [B,
     n_img, D], plus 0.01 x the blocks' aux loss (0 for dense blocks)."""
+    sh = sh or no_sharding
     img, tokens = batch["img_embeds"], batch["tokens"]
     x, positions = _prefix(cfg, params, img, tokens)
+    x = sh(x, "batch", "seq", "model_dim_act")
     x, aux = transformer.apply_stack(cfg, params["blocks"], x, positions,
-                                     remat)
+                                     remat, sh)
     x = layers.apply_norm(cfg, params["final_norm"], x)
-    logits = layers.unembed(cfg, params["embed"], x[:, img.shape[1]:])
+    logits = layers.unembed(cfg, params["embed"], x[:, img.shape[1]:], sh)
     return layers.next_token_loss(cfg, logits, tokens) + 0.01 * aux
 
 
 @torch.no_grad()
 def prefill(cfg: ModelConfig, params, img_embeds: torch.Tensor,
-            tokens: torch.Tensor, max_len: Optional[int] = None):
+            tokens: torch.Tensor, max_len: Optional[int] = None, sh=None):
     """Forward over the image prefix and the prompt that builds the KV
     cache (k, v), each [L, B, max_len, KV, hd] over the combined sequence
     (``max_len`` defaults to n_img + S). Returns (last-position logits
@@ -56,5 +59,5 @@ def prefill(cfg: ModelConfig, params, img_embeds: torch.Tensor,
     ``pos = n_img + S``."""
     x, positions = _prefix(cfg, params, img_embeds, tokens)
     cache = cache_zeros(cfg, x.shape[0], max_len or x.shape[1], x.device)
-    x = transformer._run_layers(cfg, params, x, positions, cache, 0)
-    return layers.unembed(cfg, params["embed"], x[:, -1:]), cache
+    x = transformer._run_layers(cfg, params, x, positions, cache, 0, sh)
+    return layers.unembed(cfg, params["embed"], x[:, -1:], sh), cache

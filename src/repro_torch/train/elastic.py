@@ -3,24 +3,42 @@
 
 The failure model is Accumulo-style at the data plane (re-route a dead
 ingestor's key range, pull-based batches) and checkpoint-elastic at the
-training plane. The data-plane pieces are numpy and copied here;
-``elastic_restore`` re-shards onto a JAX mesh under ``ShardingRules`` and
-waits for the launch and mesh tools (ROADMAP Queue 1 item 11i).
+training plane: checkpoints hold global host arrays, so a run restarts on
+any mesh whose axes divide the shapes, of another width than the one that
+saved them (``elastic_restore``).
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import numpy as np
+import torch
+
+from ..models.spec import (ShardingRules, flatten_up_to, local_block,
+                           placements, tree_leaves, tree_unflatten)
+from . import checkpoint
 
 
-def elastic_restore(ckpt_dir: str, param_specs, mesh, rules,
-                    step: Optional[int] = None):
-    """Restore a checkpoint onto a resized mesh: not ported yet."""
-    raise NotImplementedError(
-        "elastic_restore needs a mesh and ShardingRules: ROADMAP Queue 1 "
-        "item 11i (launch and mesh tools); checkpoint.restore restores "
-        "onto one device")
+def elastic_restore(ckpt_dir: str, param_specs, mesh,
+                    rules: ShardingRules, step: Optional[int] = None):
+    """Restore a checkpoint onto an arbitrary (possibly resized) mesh:
+    every rank reads the checkpoint's host arrays and keeps its block of
+    each leaf as a DTensor placed as ``sharding_tree(param_specs, rules,
+    mesh)`` places it, on the mesh's device type.
+    Returns (tree, manifest), as ``checkpoint.restore`` does."""
+    from torch.distributed.tensor import DTensor
+    tree, manifest = checkpoint.restore(ckpt_dir, param_specs, step=step,
+                                        device="cpu")
+    dev = torch.device(mesh.device_type)
+    out = []
+    for s, full in zip(tree_leaves(param_specs),
+                       flatten_up_to(param_specs, tree)):
+        pl = placements(rules.pspec_for_shape(s.shape, s.axes, mesh), mesh)
+        local = local_block(full, pl, mesh).contiguous().to(dev)
+        out.append(DTensor.from_local(local, mesh, pl, run_check=False,
+                                      shape=full.shape,
+                                      stride=full.stride()))
+    return tree_unflatten(param_specs, out), manifest
 
 
 def reassign_dead_ingestor(split_points: np.ndarray, dead: int) -> np.ndarray:

@@ -128,9 +128,10 @@ def opt_state_specs(param_specs, cfg: AdamWConfig):
 
     def mom(s: PSpec):
         if cfg.quantized_state and _quantizable(s.shape):
-            return {"q": PSpec(s.shape, torch.int8, "zeros"),
-                    "s": PSpec(s.shape[:-1] + (1,), torch.float32, "zeros")}
-        return PSpec(s.shape, torch.float32, "zeros")
+            return {"q": PSpec(s.shape, torch.int8, "zeros", axes=s.axes),
+                    "s": PSpec(s.shape[:-1] + (1,), torch.float32, "zeros",
+                               axes=s.axes[:-1] + (None,))}
+        return PSpec(s.shape, torch.float32, "zeros", axes=s.axes)
 
     return {"m": tree_map(mom, param_specs),
             "v": tree_map(mom, param_specs),

@@ -8,13 +8,16 @@ from ..models.spec import tree_leaves, tree_unflatten
 from .optimizer import AdamWConfig, adamw_update
 
 
-def loss_and_grads(model: Model, params, batch, remat: str = "dots_no_batch"):
+def loss_and_grads(model: Model, params, batch, remat: str = "dots_no_batch",
+                   sh=None):
     """(loss, grads): the loss of ``batch`` at ``params`` and its gradient
     against every leaf, a tree of ``params``' structure and dtypes (zeros
-    where the loss does not depend on a leaf, as ``jax.grad`` gives)."""
+    where the loss does not depend on a leaf, as ``jax.grad`` gives).
+    ``sh`` is the activation-sharding hook (None: the identity)."""
     leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
     with torch.enable_grad():
-        loss = model.train_loss(tree_unflatten(params, leaves), batch, remat)
+        loss = model.train_loss(tree_unflatten(params, leaves), batch, remat,
+                                sh)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(leaves, grads)]
@@ -22,7 +25,8 @@ def loss_and_grads(model: Model, params, batch, remat: str = "dots_no_batch"):
 
 
 def make_train_step(model: Model, opt_cfg: AdamWConfig,
-                    remat: str = "dots_no_batch", microbatches: int = 1):
+                    remat: str = "dots_no_batch", microbatches: int = 1,
+                    sh=None):
     """Returns step(params, opt_state, batch) -> (params, opt_state, loss),
     the loss a 0-d tensor.
 
@@ -32,7 +36,7 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig,
 
     def step(params, opt_state, batch):
         if microbatches == 1:
-            loss, grads = loss_and_grads(model, params, batch, remat)
+            loss, grads = loss_and_grads(model, params, batch, remat, sh)
         else:
             def split(x):
                 return x.reshape((microbatches, x.shape[0] // microbatches)
@@ -44,7 +48,8 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig,
             losses = []
             for i in range(microbatches):
                 loss_i, g = loss_and_grads(
-                    model, params, {k: x[i] for k, x in mb.items()}, remat)
+                    model, params, {k: x[i] for k, x in mb.items()}, remat,
+                    sh)
                 acc = [a + gg.float() / microbatches
                        for a, gg in zip(acc, tree_leaves(g))]
                 losses.append(loss_i)

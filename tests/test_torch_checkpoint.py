@@ -13,13 +13,21 @@ against the JAX package's, on the CPU:
   index; fuzzed with many tied magnitudes), int8 codes and scales and the
   error-feedback residuals are bit-equal, ``wire_bytes`` equal;
 - the counterparts of ``tests/test_fault.py``'s checkpoint, restart,
-  dead-ingestor, work-queue, compression and wire-bytes tests.
+  dead-ingestor, work-queue, compression and wire-bytes tests;
+- ``elastic_restore`` of one checkpoint onto meshes of 4 and then 2 gloo
+  ranks gives each rank the block that JAX's ``elastic_restore`` gives
+  the device at the same mesh coordinate (4 fake XLA devices, in a
+  subprocess).
 """
 import dataclasses
 import filecmp
 import functools
 import json
 import os
+import subprocess
+import sys
+import time
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -264,9 +272,100 @@ def test_work_stealing_survives_dead_worker():
     assert bid0 in q.done and j.complete()
 
 
-def test_elastic_restore_waits_for_the_mesh_item():
-    with pytest.raises(NotImplementedError, match="item 11i"):
-        elastic.elastic_restore("/nonexistent", None, None, None)
+ELASTIC_JAX = r'''
+import os
+import sys
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+import jax
+import jax.numpy as jnp
+import numpy as np
+from repro.compat import make_mesh_auto
+from repro.configs import get_reduced
+from repro.models import build
+from repro.models.spec import ShardingRules
+from repro.train import elastic
+
+specs = build(get_reduced("smollm-135m")).param_specs
+rules = ShardingRules(batch=("data",), model="model", fsdp="data")
+out = {}
+for shape in ((2, 2), (1, 2)):
+    n = shape[0] * shape[1]
+    mesh = make_mesh_auto(shape, ("data", "model"), devices=jax.devices()[:n])
+    tree, _ = elastic.elastic_restore(sys.argv[1], specs, mesh, rules)
+    for i, leaf in enumerate(jax.tree.leaves(tree)):
+        for sh in leaf.addressable_shards:
+            d, m = np.argwhere(mesh.devices == sh.device)[0]
+            out[f"{n}/{i}/{d}{m}"] = np.asarray(sh.data.astype(jnp.float32))
+np.savez(sys.argv[2], **out)
+'''
+
+
+def _elastic_rank(rank, world, rdv, ckpt, out_path):
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.models import ShardingRules
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{rdv}",
+                            world_size=world, rank=rank)
+    try:
+        mesh = init_device_mesh("cpu", (world // 2, 2),
+                                mesh_dim_names=("data", "model"))
+        specs = build(get_reduced("smollm-135m")).param_specs
+        rules = ShardingRules(batch=("data",), model="model", fsdp="data")
+        tree, _ = elastic.elastic_restore(ckpt, specs, mesh, rules)
+        d, m = mesh.get_coordinate()
+        mine = {f"{world}/{i}/{d}{m}": t.to_local().float().numpy()
+                for i, t in enumerate(tree_leaves(tree))}
+        got = [None] * world if rank == 0 else None
+        dist.gather_object(mine, got, dst=0)
+        if rank == 0:
+            np.savez(out_path, **{k: v for g in got for k, v in g.items()})
+    finally:
+        dist.destroy_process_group()
+
+
+def _spawn(fn, args, n_ranks, timeout=120):
+    """Spawn ``n_ranks`` ranks of ``fn(rank, *args)``, joined under
+    ``timeout`` seconds (a hung collective fails the test)."""
+    import torch.multiprocessing as tmp
+    ctx = tmp.start_processes(fn, args=args, nprocs=n_ranks, join=False,
+                              start_method="spawn")
+    deadline = time.monotonic() + timeout
+    try:
+        while not ctx.join(timeout=max(0.1, deadline - time.monotonic())):
+            if time.monotonic() > deadline:
+                raise AssertionError(f"ranks still running after {timeout} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+
+
+def test_elastic_restore_waits_for_the_mesh_item(tmp_path):
+    """``elastic_restore`` onto 4 gloo ranks (2, 2) and then 2 (1, 2):
+    each rank's DTensor block equals JAX's shard at its coordinate."""
+    params = init_params(build(get_reduced("smollm-135m")).param_specs,
+                         torch.Generator().manual_seed(5), device="cpu")
+    ckpt = str(tmp_path / "ckpt")
+    checkpoint.save(ckpt, 3, params)
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(
+        Path(__file__).resolve().parents[1] / "src"))
+    env.pop("XLA_FLAGS", None)
+    jax_out = tmp_path / "jax.npz"
+    res = subprocess.run([sys.executable, "-c", ELASTIC_JAX, ckpt,
+                          str(jax_out)], env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    want = dict(np.load(jax_out))
+    got = {}
+    for world in (4, 2):
+        out = tmp_path / f"port{world}.npz"
+        _spawn(_elastic_rank, (world, str(tmp_path / f"rdv{world}"), ckpt,
+                               str(out)), world)
+        got.update(dict(np.load(out)))
+    assert sorted(got) == sorted(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
 @pytest.mark.parametrize("scheme", ["int8", "topk"])

@@ -28,7 +28,9 @@ def test_port_imports_without_jax_or_repro():
             "repro_torch.train, repro_torch.train.optimizer, "
             "repro_torch.train.train_step, repro_torch.train.checkpoint, "
             "repro_torch.train.compress, repro_torch.train.elastic, "
-            "repro_torch.launch.train\n"
+            "repro_torch.launch.train, repro_torch.launch.mesh, "
+            "repro_torch.launch.analysis, repro_torch.launch.op_cost, "
+            "repro_torch.launch.dryrun, repro_torch.launch.ingest\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
             "m.startswith('repro.') or m == 'ml_dtypes')\n"
