@@ -148,12 +148,22 @@ Phases (each raises on failure):
      the int8 FSDP gather, ``gather_w_int8`` equal to its plain version
      and ``elastic_restore`` of a layer's checkpoint equal to each rank's
      block of the full arrays; #7's launches counted (path ``moe_ep``);
-     (b) phase 10's train step once under ``launch.op_cost.OpCost`` (#7's
-     forward added by its formula), then timed: counted flops and bytes,
-     the roofline terms, the measured step and its model-FLOPs share
-     (path ``cost_step``); (c) the smollm-135m decode_32k dry runs on
-     both production meshes and the ingest dry run, each a process of
-     its own on the host's CPU, started before (a);
+     (b) phase 10's train step once under ``launch.op_cost.OpCost`` (#7
+     the registered op, counted by its causal triangle), then timed:
+     counted flops and bytes, the roofline terms, the measured step and
+     its model-FLOPs share (path ``cost_step``); (c) the smollm-135m
+     decode_32k dry runs on both production meshes and the ingest dry
+     run, each a process of its own on the host's CPU, started before
+     (a); (d) smollm-135m at full width and depth on 4 rank processes
+     (mesh (1, 4), ``model`` / ``attn_q`` / ``kv_seq`` on the 4-wide
+     axis, the full values on every rank): a context-parallel prefill of
+     1 x 4,096 tokens (one #7 launch a 512-row block a rank) into 8,192
+     slots and 32 decode steps over each rank's 2,048 slots, merged by
+     (o, lse), the logits within 1e-4 (float32) and 2e-2 (bf16) of rank
+     0's unsharded path, every rank's #7 launches counted (paths ``cp``
+     and the float32 ``cp_check``); (e) #7 at the reduced configs' head
+     dims 8 and 16 on the card, the logits against the CPU's (path
+     ``small``);
   12. (run before 11, which leaves its recorded inputs on the card) the
      enc-dec and VLM families at full width (sizes and cuts in ``P12``), weights drawn on the card, frames and image embeddings
      seeded (the frontends are stubs), served greedily through
@@ -205,7 +215,8 @@ Phases (each raises on failure):
      SpMV within rtol=1e-5, attention within about one bf16 ulp (rtol
      8e-3, atol 1e-3; float32 2e-5) and an error norm within 1e-2 of the
      output's, a limit that two planted faults at run b's inputs must
-     fail, with kernel / plain / library-call times per launch (CUDA
+     fail, and at every input the rows' lse within 1e-5 (float32) or
+     1e-2 (bf16), with kernel / plain / library-call times per launch (CUDA
      graphs and CUDA events; SDPA in the faster of its masked and
      mask-free forms), averaged over all the paths' launches.
 
@@ -3004,8 +3015,8 @@ def torch_int(x, dev):
 
 
 def rank_child(out_dir, rank):
-    """Rank ``rank`` of phase 9's mesh or of phase 13a's expert-parallel
-    mesh (``"phase"`` in ``out_dir``'s config.json names which), a process
+    """Rank ``rank`` of phase 9's mesh or of phase 13a's or 13d's mesh
+    (``"phase"`` in ``out_dir``'s config.json names which), a process
     of its own: loads the kernel library phase 2 built (and refuses to
     build one), joins the mesh (the backend the parent chose: NCCL with a
     card a rank, else gloo with every rank on ``cuda:0``), runs the
@@ -3015,7 +3026,8 @@ def rank_child(out_dir, rank):
     import torch.distributed as dist
     from repro_torch.kernels import common
     cfg = json.loads((out_dir / "config.json").read_text())
-    body = {"phase 9": mesh_rank, "phase 13a": ep_rank}[cfg["phase"]]
+    body = {"phase 9": mesh_rank, "phase 13a": ep_rank,
+            "phase 13d": cp_rank}[cfg["phase"]]
     if cfg["device"] == "cuda":
         if not (common.BUILD_DIR / common.source_hash()
                 / "libreprotorch.so").exists():
@@ -3256,8 +3268,15 @@ def single_rank(arrays, cfg, stash, device="cuda"):
 # ------------------------------------------------------------------ phase 5
 # ------------------------------------------------------------------ phase 13
 P13 = dict(reduced=False, moe="olmoe-1b-7b", layers=2, ranks=4, batch=4,
-           seq=512, rtol=1e-5, timed_steps=5)
+           seq=512, rtol=1e-5, timed_steps=5,
+           # 13d: context parallelism and the kv_seq-sharded decode
+           cp_arch="smollm-135m", cp_prompt=4096, cp_max_len=8192,
+           cp_decode=32, cp_rtol={"float32": 1e-4, "bfloat16": 2e-2},
+           # 13e: the reduced configs' head dims on the card
+           small=(("smollm-135m", 16), ("yi-34b", 8)), small_prompt=64,
+           small_decode=8)
 EP_DIR = ROOT / "build" / "phase13"
+CP_DIR = ROOT / "build" / "phase13d"
 
 
 def p13_config(**kw):
@@ -3501,33 +3520,249 @@ def moe_expert_parallel(seed, smi, stash, device="cuda"):
     return {"moe_ep": launches}
 
 
-def attention_work(args, kw):
-    """(bytes, flops) of one #7 forward call on ``args`` / ``kw``: q read
-    and o written once, and of K and V only the keys some row may see (the
-    causal limit of the last row); four flops per (row, key, dim) pair
-    kept by the mask (q.k and p.v, multiply + add)."""
+def cp_config(dtype):
+    import dataclasses
+    from repro_torch.configs import get_config, get_reduced
+    cfg = (get_reduced if P13["reduced"] else get_config)(P13["cp_arch"])
+    return dataclasses.replace(cfg, param_dtype=dtype)
+
+
+def cp_rank(conf, rank, dev, out_dir):
+    """Phase 13d on one rank: smollm-135m (full width and depth) on mesh
+    (1, 4) with ``model``, ``attn_q`` and ``kv_seq`` on the 4-wide axis;
+    the full weights, tokens and cache on every rank (``sharded_
+    attention``'s full-value mode). A prefill of ``cp_prompt`` tokens into
+    a ``cp_max_len``-slot cache (context parallelism: this rank's rows of
+    every 512-row block, one #7 launch a block), then ``cp_decode`` steps
+    (this rank's quarter of the slots, merged by (o, lse)); in bf16 (path
+    ``cp``) and float32 (``cp_check``). Rank 0 runs the unsharded path too.
+    Returns (result dict, {file: this rank's #7 inputs per geometry})."""
     import numpy as np
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import (ShardingRules, build, init_params,
+                                    make_sharder, sharded_attention)
+    n = conf["ranks"]
+    mesh = init_device_mesh("cpu", (1, n), mesh_dim_names=("data", "model"))
+    rules = ShardingRules(batch=("data",), model="model", kv_seq="model")
+    sh = make_sharder(rules, mesh)
+    s, m, steps = P13["cp_prompt"], P13["cp_max_len"], P13["cp_decode"]
+    rng = np.random.default_rng(conf["seed"])
+    toks = torch.as_tensor(rng.integers(1, cp_config("float32").vocab,
+                                        (1, s + steps)).astype(np.int32),
+                           device=dev)
+
+    def run(model, params, hook, tag):
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(params, {"tokens": toks[:, :s],
+                                               "max_len": m}, hook)
+        out = [logits.float()]
+        t1 = time.perf_counter()
+        for t in range(steps):
+            logits, cache = model.decode(params, {
+                "token": toks[:, s + t:s + t + 1], "cache": cache,
+                "pos": s + t}, hook)
+            out.append(logits.float())
+        out = torch.cat(out, 1)
+        res["seconds_" + tag] = [t1 - t0, time.perf_counter() - t1]
+        return out
+
+    res, files, calls = {"rank": rank, "launches": {}}, {}, {}
+    t0 = time.perf_counter()
+    for dtype, path in (("bfloat16", "cp"), ("float32", "cp_check")):
+        cfg = cp_config(dtype)
+        model = build(cfg)
+        gen = torch.Generator(device=dev).manual_seed(conf["seed"])
+        params = init_params(model.param_specs, gen, device=dev)
+        with Recorder(sharded_attention, "flash_attention") as rec:
+            reset_launches()
+            got = run(model, params, sh, path)
+            res["launches"][path] = dict(LAUNCHES)
+        res[f"finite_{dtype}"] = bool(torch.isfinite(got).all())
+        res[f"logits_{dtype}"] = got[0, :, :256].cpu().numpy().tolist()
+        if rank == 0:
+            want = run(model, params, None, path + "_unsharded")
+            res[f"rel_{dtype}"] = rel_err(got, want)
+        calls[path] = [[[list(map(list, g[0])), [list(kv) for kv in g[1]],
+                         list(g[2])], c]
+                       for g, (c, _) in rec.calls.items()]
+        for j, (_, (args, _)) in enumerate(rec.calls.values()):
+            tensors_to_npz(f"{path}_g{j}", args, files)
+        del params, model
+    res["calls"] = calls
+    res["seconds"] = time.perf_counter() - t0
+    return res, {f"inputs{rank}.npz": files}
+
+
+def context_parallel(seed, smi, stash, device="cuda"):
+    """13d: ``cp_rank`` on 4 rank processes on ``cuda:0`` over gloo (their
+    collectives staged through pinned host buffers). Checks each rank's
+    logits against rank 0's unsharded path (float32 within ``cp_rtol``
+    1e-4, the merge reorders sums; bf16 2e-2), every rank's logits equal,
+    and the #7 launches per rank: a launch a 512-row block a layer in the
+    prefill, and a decode step's launch on the ranks whose slots hold a
+    position up to it. Fills ``stash["cp"]`` and ``stash["cp_check"]``
+    with every rank's #7 inputs; returns the paths' launches."""
+    import shutil
+    import numpy as np
+    n = P13["ranks"]
+    shutil.rmtree(CP_DIR, ignore_errors=True)
+    CP_DIR.mkdir(parents=True)
+    cfg = cp_config("bfloat16")
+    s, m, steps = P13["cp_prompt"], P13["cp_max_len"], P13["cp_decode"]
+    log(f"phase 13d: {describe(cfg)}; {n} ranks on mesh (1, {n}), model / "
+        f"attn_q / kv_seq on the {n}-wide axis; a prefill of 1 x {s} "
+        f"tokens into {m} slots, {steps} decode steps")
+    (CP_DIR / "config.json").write_text(json.dumps(
+        dict(phase="phase 13d", backend="gloo", seed=seed, device=device,
+             ranks=n, dir=str(CP_DIR))))
+    t_ranks = run_ranks(n, CP_DIR, timeout=300)
+    res = [json.loads((CP_DIR / f"rank{r}.json").read_text())
+           for r in range(n)]
+    for dtype in ("float32", "bfloat16"):
+        rel = res[0][f"rel_{dtype}"]
+        if not rel <= P13["cp_rtol"][dtype]:
+            raise AssertionError(f"phase 13d: {dtype} sharded logits vs the "
+                                 f"unsharded path's: {rel}")
+        first = np.asarray(res[0][f"logits_{dtype}"])
+        for x in res:  # every rank holds the same full values
+            d = np.abs(np.asarray(x[f"logits_{dtype}"]) - first).max()
+            if not x[f"finite_{dtype}"] or not d <= 1e-6 * np.abs(
+                    first).max():
+                raise AssertionError(f"phase 13d rank {x['rank']}: {dtype} "
+                                     f"logits non-finite or {d} off rank "
+                                     f"0's")
+    slots = m // n
+    want = [cfg.n_layers * (s // 512 + sum(
+        1 for t in range(steps) if s + t >= r * slots)) for r in range(n)]
+    launches = {}
+    for path in ("cp", "cp_check"):
+        got = [x["launches"][path] for x in res]
+        for r, x in enumerate(got):
+            others = {k: v for k, v in x.items()
+                      if v and k != "flash_attention"}
+            if device == "cuda" and (others
+                                     or x["flash_attention"] != want[r]):
+                raise AssertionError(f"phase 13d rank {r} {path}: launches "
+                                     f"{x}, want {want[r]} of #7 only")
+        launches[path] = {k: sum(x[k] for x in got) for k in got[0]}
+        recs = {name: Recorded() for name in wrapper_sites()}
+        recs["probe_stack"], recs["combine_rows"] = Recorded(), Recorded()
+        for x in res:
+            arrays = dict(np.load(CP_DIR / f"inputs{x['rank']}.npz"))
+            for j, (g, c) in enumerate(x["calls"][path]):
+                key = (tuple(tuple(d) for d in g[0]),
+                       tuple(tuple(kv) for kv in g[1]), tuple(g[2]))
+                if key in recs["flash_attention"].calls:
+                    recs["flash_attention"].calls[key][0] += c
+                    continue
+                args = tensors_from_npz(f"{path}_g{j}", arrays, device)
+                recs["flash_attention"].calls[key] = [c, (args,
+                                                          dict(key[1]))]
+        stash[path] = recs
+    log(f"phase 13d ({smi}): {n} ranks on {device} over gloo, {t_ranks:.3f}"
+        f" s from start to exit; logits ({1 + steps} positions) vs rank 0's "
+        f"unsharded path: float32 relative error norm "
+        f"{res[0]['rel_float32']:.3g} (limit {P13['cp_rtol']['float32']:g}),"
+        f" bf16 {res[0]['rel_bfloat16']:.3g} (limit "
+        f"{P13['cp_rtol']['bfloat16']:g}); every rank's logits equal; #7 "
+        f"launches by rank (bf16, then float32) "
+        + json.dumps([x["launches"]["cp"]["flash_attention"] for x in res])
+        + " " + json.dumps([x["launches"]["cp_check"]["flash_attention"]
+                            for x in res])
+        + f" (want {want}: {s // 512} blocks a layer in the prefill, a "
+        f"decode launch where the rank's slots reach the position); geometries"
+        f" {len(stash['cp']['flash_attention'].calls)}; seconds by rank "
+        + json.dumps([round(x["seconds"], 3) for x in res])
+        + "; rank 0's (prefill, decode) seconds by run "
+        + json.dumps({k[8:]: [round(t, 3) for t in v] for k, v in
+                      res[0].items() if k.startswith("seconds_")}))
+    shutil.rmtree(CP_DIR, ignore_errors=True)
+    return launches
+
+
+def small_heads(seed, smi, stash, device="cuda"):
+    """13e: #7 at the reduced configs' head dims (16: smollm-135m, 8:
+    yi-34b) on the card, bf16 and float32: a prefill of 2 x
+    ``small_prompt`` tokens and ``small_decode`` steps, the logits against
+    the CPU's plain route (float32 within 1e-4, bf16 2e-2). Fills
+    ``stash["small"]``; returns its launches."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import build, init_params
+    from repro_torch.models.spec import tree_map
+    s, steps = P13["small_prompt"], P13["small_decode"]
+    rng = np.random.default_rng(seed)
+
+    def run(model, params, toks, dev):
+        p = tree_map(lambda w: w.to(dev), params)
+        t = toks.to(dev)
+        logits, cache = model.prefill(p, {"tokens": t[:, :s],
+                                          "max_len": s + steps})
+        seq = [logits]
+        for i in range(steps):
+            logits, cache = model.decode(p, {
+                "token": t[:, s + i:s + i + 1], "cache": cache,
+                "pos": s + i})
+            seq.append(logits)
+        return torch.cat(seq, 1).cpu()
+
+    runs = []  # (name, model, params, tokens, the CPU's logits)
+    for arch, hd in P13["small"]:
+        for dtype in ("bfloat16", "float32"):
+            cfg = dataclasses.replace(get_reduced(arch), param_dtype=dtype)
+            if cfg.hd != hd:
+                raise AssertionError(f"phase 13e: {arch} hd {cfg.hd}")
+            model = build(cfg)
+            params = init_params(model.param_specs,
+                                 torch.Generator().manual_seed(seed))
+            toks = torch.as_tensor(rng.integers(
+                1, cfg.vocab, (2, s + steps)).astype(np.int32))
+            runs.append((f"{arch} hd {hd} {dtype}", model, params, toks,
+                         run(model, params, toks, "cpu")))
+    out, want_launches = {}, 0
+    with kernel_run(stash) as launches:  # the card's runs only
+        for name, model, params, toks, want in runs:
+            rel = rel_err(run(model, params, toks, device), want)
+            if not rel <= (1e-4 if "float32" in name else 2e-2):
+                raise AssertionError(f"phase 13e: {name} logits vs the "
+                                     f"CPU's: {rel}")
+            out[name] = rel
+            want_launches += model.cfg.n_layers * (1 + steps)
+    if device == "cuda" and (launches["flash_attention"] != want_launches
+                             or sum(launches.values()) != want_launches):
+        raise AssertionError(f"phase 13e: launches {launches}, want "
+                             f"{want_launches} of #7")
+    log(f"phase 13e ({smi}): the reduced configs on the card, logits vs the "
+        f"CPU's, relative error norms " + json.dumps(out)
+        + f"; #7 launches {launches['flash_attention']}")
+    return launches
+
+
+def attention_work(args, kw):
+    """(bytes, flops) of one #7 forward call on ``args`` / ``kw``
+    (``kernels.flash_attention.attention_cost``, the formula ``OpCost``
+    counts the op by): q read and o written once (and lse when asked
+    for), of K and V only the keys some row may see (the causal limit of
+    the last row); four flops per (row, key, dim) pair kept by the mask
+    (q.k and p.v, multiply + add)."""
+    from repro_torch.kernels.flash_attention import attention_cost
     q, k = args[:2]
-    b, sq, h, hd = q.shape
-    sk, kvh = k.shape[1], k.shape[2]
-    off = kw.get("q_offset", 0)
-    if kw.get("causal", True):
-        pairs = int(np.minimum(sk, off + np.arange(sq) + 1).sum())
-        keys = min(sk, off + sq)
-    else:
-        pairs, keys = sq * sk, sk
-    es = q.element_size()
-    return (es * (2 * b * sq * h * hd + 2 * b * keys * kvh * hd),
-            4 * b * h * hd * pairs)
+    return attention_cost(q.shape, k.shape, kw.get("causal", True),
+                          kw.get("q_offset", 0), q.element_size(),
+                          kw.get("return_lse", False))
 
 
 def cost_step(seed, smi, stash, device="cuda"):
     """13b: phase 10's smollm-135m train step (``P10``'s batch, full width)
-    once under ``launch.op_cost.OpCost`` (#7's forward, which the counter
-    cannot see, added by ``attention_work`` from the recorded inputs: the
-    causal triangle, not the square), then timed
-    uncounted; the counted roofline against the measured step, and the
-    step's model-FLOPs share. Returns the counted run's launches."""
+    once under ``launch.op_cost.OpCost`` (#7's forward is a registered op
+    the counter sees and counts by its causal triangle; its backward is
+    plain ops), then timed uncounted; the counted roofline against the
+    measured step, and the step's model-FLOPs share. Returns the counted
+    run's launches."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config, get_reduced
@@ -3560,14 +3795,11 @@ def cost_step(seed, smi, stash, device="cuda"):
         raise AssertionError(f"phase 13b: launches {launches}, want "
                              f"{2 * cfg.n_layers} of flash_attention only")
     cost = counter.cost
-    attn_flops = attn_bytes = 0
-    for count, (args, kw) in stash["flash_attention"].calls.values():
-        nbytes, flops = attention_work(args, kw)
-        attn_flops += count * flops
-        attn_bytes += count * nbytes
-    cost.flops += attn_flops
-    cost.bytes += attn_bytes
-    cost.bytes_ideal += attn_bytes
+    calls, attn_flops, _ = counter.by_op.get("repro_torch.flash_attention",
+                                             (0, 0, 0.0))
+    if device == "cuda" and calls != launches["flash_attention"]:
+        raise AssertionError(f"phase 13b: OpCost saw {calls} #7 calls, "
+                             f"{launches['flash_attention']} launched")
     peak = (torch.cuda.max_memory_allocated() - held if device == "cuda"
             else 0)
     mflops = analysis.model_flops_for(cfg, "train", s, b)
@@ -3586,7 +3818,8 @@ def cost_step(seed, smi, stash, device="cuda"):
     share = mflops / (t * analysis.PEAK_FLOPS)
     log(f"phase 13b ({smi}): {cfg.name} train step, {b} x {s} tokens, remat "
         f"dots_no_batch, counted by op_cost: "
-        + json.dumps({"flops": cost.flops, "attention_flops": attn_flops,
+        + json.dumps({"flops": cost.flops, "attention_calls": calls,
+                      "attention_flops": attn_flops,
                       "bytes": cost.bytes, "bytes_ideal": cost.bytes_ideal,
                       "roofline_bytes": roof.bytes_per_device,
                       "compute_ms": roof.compute_s * 1e3,
@@ -3696,6 +3929,13 @@ def launch_tools(seed, smi, stash, device="cuda"):
         launches["cost_step"] = cost_step(seed, smi, stash["cost_step"],
                                           device)
         t["b"] = time.perf_counter() - tb
+        free_card()
+        td = time.perf_counter()
+        launches.update(context_parallel(seed, smi, stash, device))
+        t["d"] = time.perf_counter() - td
+        te = time.perf_counter()
+        launches["small"] = small_heads(seed, smi, stash["small"], device)
+        t["e"] = time.perf_counter() - te
         free_card()
         tc = time.perf_counter()
         dry_runs_finish(procs, t0, smi)
@@ -3812,7 +4052,24 @@ def kernel_checks(stash, launches):
         ok = bool((d <= tol[1] + tol[0] * w.abs()).all()) and rel <= 1e-2
         return float(d.max()), rel, ok
 
+    attn_lse = [0.0]  # the largest |lse - plain's| #7's checks saw
+
     def check_attn(name, got, want):
+        """o as ``attn_err`` holds it; with (o, lse) pairs also lse, the
+        row's float32 log-sum-exp, within 1e-5 (float32 inputs) or 1e-2
+        (bf16: the kernel's exp2 and its sums in another order), relative
+        above 1."""
+        if isinstance(got, tuple):
+            (got, lse), (want, want_lse) = got, want
+            tol = 1e-2 if got.dtype == torch.bfloat16 else 1e-5
+            d = (lse - want_lse).abs()
+            same_inf = torch.isinf(want_lse) & (lse == want_lse)
+            bad = ~same_inf & ~(d <= tol * want_lse.abs().clamp_min(1.0))
+            if lse.shape != want_lse.shape or bool(bad.any()):
+                raise AssertionError(f"{name}: lse {tuple(lse.shape)} "
+                                     f"{int(bad.sum())} rows past {tol:g}")
+            attn_lse[0] = max(attn_lse[0], float(d[~same_inf].max())
+                              if bool((~same_inf).any()) else 0.0)
         err, rel, ok = attn_err(got, want)
         if not ok:
             raise AssertionError(f"{name}: max |diff| {err:.3g}, relative "
@@ -3950,6 +4207,7 @@ def kernel_checks(stash, launches):
         SDPA take its fused flash backend. Each form's output is first
         held against the plain version (the CPU tests' 2e-2)."""
         sdpa = torch.nn.functional.scaled_dot_product_attention
+        kw = {k: x for k, x in kw.items() if k != "return_lse"}  # o only
         q, k, v = (x.transpose(1, 2).contiguous() for x in args)
         sq, sk = q.shape[2], k.shape[2]
         off, causal = kw.get("q_offset", 0), kw.get("causal", True)
@@ -4192,6 +4450,9 @@ def kernel_checks(stash, launches):
         for _, _, cnt, (args, kw) in inputs:
             want, t_plain = timed_once(lambda: ref(*args, **kw))
             err = max(err, chk(name, fn(*args, **kw), want))
+            if name == "flash_attention" and not kw.get("return_lse"):
+                lkw = dict(kw, return_lse=True)  # and the row's lse
+                chk(name, fn(*args, **lkw), ref(*args, **lkw))
             t = {"ms": graph_ms(lambda: fn(*args, **kw), 50),
                  "eager": cuda_ms(lambda: fn(*args, **kw), 50),
                  "plain": (cuda_ms(lambda: ref(*args, **kw), p_reps,
@@ -4218,6 +4479,8 @@ def kernel_checks(stash, launches):
             per.append(t)
 
         for _, _, _, (args, kw) in check_inputs:
+            if name == "flash_attention":  # o and the row's lse
+                kw = dict(kw, return_lse=True)
             err = max(err, chk(name, fn(*args, **kw), ref(*args, **kw)))
 
         def mean(idx, k):  # launch-weighted mean over some inputs
@@ -4283,8 +4546,10 @@ def kernel_checks(stash, launches):
             log("flash_attention by head dim: "
                 + json.dumps(out[-1]["by_head_dim"]))
             out[-1]["rel_err"] = attn_rel[0]
+            out[-1]["lse_max_abs_err"] = attn_lse[0]
             out[-1]["planted_faults"] = attn_faults()
             log(f"flash_attention: largest relative error norm {attn_rel[0]:.3g}"
+                f", largest |lse - plain| {attn_lse[0]:.3g}"
                 f"; planted faults, each failing the check: "
                 + json.dumps(out[-1]["planted_faults"]))
 
@@ -4379,7 +4644,7 @@ def main(argv=None):
                              "train_families_check", "whisper",
                              "internvl2", "train_whisper", "train_prefix",
                              "whisper_check", "internvl2_check",
-                             "train_prefix_check", "cost_step")}
+                             "train_prefix_check", "cost_step", "small")}
     launches = {}
     reads, stats, times, launches["listing1"] = listing1(
         graph, True, cap, stash["listing1"])

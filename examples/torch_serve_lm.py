@@ -3,9 +3,9 @@ prefill+decode engine).
 
   PYTHONPATH=src python examples/torch_serve_lm.py [--device cpu]
 
-On the card it serves smollm-135m at full width (head dim 64, which the
-attention kernel takes). With ``--device cpu`` it serves the reduced
-config, whose head dim of 16 the card's kernel does not take.
+On the card it serves smollm-135m at full width (head dim 64). With
+``--device cpu`` it serves the reduced config (head dim 16), a size the
+CPU runs in seconds.
 """
 import argparse
 

@@ -4,9 +4,9 @@ restart from the checkpoint halfway through.
 
   PYTHONPATH=src python examples/torch_train_lm.py [--steps 200] [--device cpu]
 
-On the card it trains smollm-135m at full width (head dim 64, which the
-attention kernel takes). With ``--device cpu`` it trains the reduced
-config, whose head dim of 16 the card's kernel does not take.
+On the card it trains smollm-135m at full width (head dim 64). With
+``--device cpu`` it trains the reduced config (head dim 16), a size the
+CPU runs in seconds.
 """
 import argparse
 import shutil

@@ -10,7 +10,11 @@
 //
 // all in float32 with the online softmax (running max m, running sum l,
 // rescaled accumulator) and o = acc / max(l, 1e-30), as the TPU kernel
-// does. The TPU kernel walks the kv blocks as its sequential innermost grid
+// does. Like the TPU kernel, which returns m and l beside o, each body
+// can also write the row's log-sum-exp lse = m + log l (float32, natural
+// log of the kept scaled scores; -inf where no key is kept), by which
+// attention over shards of the keys merges across ranks
+// (models/sharded_attention.py); without it nothing else changes. The TPU kernel walks the kv blocks as its sequential innermost grid
 // axis and keeps m, l and acc in its output blocks; here the walk over keys
 // is a loop inside a block (or, in decode, spread over blocks and merged),
 // and the state lives in registers. GQA reads the KV head in place; key
@@ -52,10 +56,13 @@
 //    l = sum l_s e^(m_s - m), o = sum acc_s e^(m_s - m) / max(l, 1e-30).
 //    Both kernels launch from the one entry point below.
 // 3. float32 prefill (Sq >= 16) on the CUDA cores (TF32 would be another
-//    result): a block of 8 warps owns one (batch, head) and 8 query rows;
-//    32-key tiles of K (transposed) and V staged as float32, lane j scores
-//    key j, lanes own ceil(hd / 32) output dims each (guarded).
-// Head dims 64, 80, 112 and 128 are built. At 80 and 112 the tensor-core
+//    result), and bf16 prefill at head dims below the tensor-core tiles: a
+//    block of 8 warps owns one (batch, head) and 8 query rows; 32-key
+//    tiles of K (transposed) and V staged as float32 from 16-byte loads,
+//    lane j scores key j, lanes own ceil(hd / 32) output dims each
+//    (guarded).
+// Head dims 8, 16, 64, 80, 112 and 128 are built; 8 and 16 (the reduced
+// configs) run bodies 2 and 3 only. At 80 and 112 the tensor-core
 // body needs no change (5 and 7 k-steps of 16; padded rows of 176 and 240
 // bytes keep cp.async and ldmatrix 16-byte aligned and the 8 rows of an
 // ldmatrix on 8 different bank groups); the CUDA-core bodies stage a tile in
@@ -177,6 +184,14 @@ __device__ __forceinline__ float ex2(float x) {  // 2^x; 2^-inf = 0
   return y;
 }
 
+// the row's log-sum-exp from its running max and sum: m2 = the max in
+// log2 units (log2) or natural ones, l = sum of e^(s - max); -inf where
+// the row kept no key (l = 0)
+__device__ __forceinline__ float row_lse(float m2, float l, bool log2) {
+  if (!(l > 0.0f)) return -INFINITY;
+  return log2 ? (m2 + log2f(l)) * 0.69314718055994531f : m2 + logf(l);
+}
+
 template <int HD>  // bf16 elements of one smem row, padded by 16 bytes
 __host__ __device__ constexpr int tc_ld() { return HD + 8; }
 template <int HD>  // Q [64], K [2][64] and V [2][64] padded rows of bf16
@@ -187,9 +202,9 @@ __host__ __device__ constexpr int tc_smem_bytes() {
 template <int HD>
 __global__ void __launch_bounds__(kTcThreads)
     flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, bf16* __restrict__ o, int sq,
-                    int sk, int n_heads, int n_kv, int causal, int q_offset,
-                    float scale_log2) {
+                    const bf16* __restrict__ v, bf16* __restrict__ o,
+                    float* __restrict__ lse, int sq, int sk, int n_heads,
+                    int n_kv, int causal, int q_offset, float scale_log2) {
   constexpr int kLd = tc_ld<HD>();
   constexpr int kChunks = HD / 8;  // 16-byte chunks of a row
   constexpr int kD = HD / 16;      // k-steps of Q K^T, and dim pairs of P V
@@ -365,6 +380,9 @@ __global__ void __launch_bounds__(kTcThreads)
     const float inv = 1.0f / fmaxf(lh, 1e-30f);
     const int rho = w0 + (lane >> 2) + 8 * h;
     if (rho >= n_rows) continue;
+    if (lse != nullptr && (lane & 3) == 0)  // m is in raw q.k units
+      lse[(static_cast<size_t>(b) * n_heads + g * rep + rho % rep) * sq +
+          rho / rep] = row_lse(m[h] * scale_log2, lh, true);
     bf16* orow = o + (static_cast<size_t>(b) * sq + rho / rep) * n_heads * HD +
                  static_cast<size_t>(g * rep + rho % rep) * HD + 2 * (lane & 3);
 #pragma unroll
@@ -395,9 +413,9 @@ template <typename T, int HD>
 __global__ void __launch_bounds__(kDecThreads)
     flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, T* __restrict__ o,
-                        float* __restrict__ ws, int sq, int sk, int n_heads,
-                        int n_kv, int causal, int q_offset, float scale,
-                        int key_end, int per) {
+                        float* __restrict__ ws, float* __restrict__ lse,
+                        int sq, int sk, int n_heads, int n_kv, int causal,
+                        int q_offset, float scale, int key_end, int per) {
   constexpr int kPer = (HD + 31) / 32;  // output dims per lane (guarded)
   constexpr int kLdk = kDecKeys + 1;  // odd: a column of K^T spans the banks
   constexpr int kVec = 16 / sizeof(T);
@@ -536,6 +554,9 @@ __global__ void __launch_bounds__(kDecThreads)
     const int rho = rho0 + warp + kDecWarps * u;
     if (splits == 1) {
       const float inv = 1.0f / fmaxf(l[u], 1e-30f);
+      if (lse != nullptr && lane == 0)
+        lse[(static_cast<size_t>(b) * n_heads + g * rep + rho % rep) * sq +
+            rho / rep] = row_lse(m[u], l[u], false);
       T* orow = o + (static_cast<size_t>(b) * sq + rho / rep) * n_heads * HD +
                 static_cast<size_t>(g * rep + rho % rep) * HD;
 #pragma unroll
@@ -570,7 +591,8 @@ __host__ __device__ constexpr int combine_threads() {
 template <typename T, int HD>
 __global__ void __launch_bounds__(combine_threads<HD>())
     flash_combine_kernel(const float* __restrict__ ws, T* __restrict__ o,
-                         int sq, int n_heads, int n_kv, int splits) {
+                         float* __restrict__ lse, int sq, int n_heads,
+                         int n_kv, int splits) {
   constexpr int kChunk = 32;
   constexpr int kThreads = combine_threads<HD>();
   constexpr int kWarps = kThreads / 32;
@@ -611,6 +633,9 @@ __global__ void __launch_bounds__(combine_threads<HD>())
   l = 0.0f;
 #pragma unroll
   for (int w = 0; w < kWarps; ++w) l += red[1][w];
+  if (lse != nullptr && d == 0)
+    lse[(static_cast<size_t>(b) * n_heads + g * rep + rho % rep) * sq +
+        rho / rep] = row_lse(mx, l, false);
   if (!dim) return;  // past the reductions' barriers
   float acc = 0.0f;
   for (int s0 = 0; s0 < splits; s0 += kChunk) {
@@ -628,7 +653,7 @@ __global__ void __launch_bounds__(combine_threads<HD>())
       from_f32<T>(acc / fmaxf(l, 1e-30f));
 }
 
-// ------------------------------------ 3. float32 prefill, CUDA cores
+// -------------------- 3. float32 prefill (and hd < 64 in bf16), CUDA cores
 constexpr int kF32Warps = 8;  // one query row each
 constexpr int kF32Threads = kF32Warps * 32;
 constexpr int kF32Keys = 32;  // keys per staged tile: one per lane
@@ -638,16 +663,18 @@ constexpr int f32_smem_words(int hd) {
   return kF32Warps * hd + hd * (kF32Keys + 1) + kF32Keys * hd;
 }
 
-template <int HD>
+template <typename T, int HD>
 __global__ void __launch_bounds__(kF32Threads)
-    flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, float* __restrict__ o,
-                     int sq, int sk, int n_heads, int n_kv, int causal,
-                     int q_offset, float scale) {
+    flash_cc_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, T* __restrict__ o,
+                    float* __restrict__ lse, int sq, int sk, int n_heads,
+                    int n_kv, int causal, int q_offset, float scale) {
   constexpr int kPer = (HD + 31) / 32;  // output dims per lane (guarded)
   constexpr int kLdk = kF32Keys + 1;  // odd: a column of K^T spans the banks
-  static_assert(HD % 4 == 0, "a row is whole 16-byte loads");
-  constexpr int kRowVecs = HD / 4;
+  constexpr int kVec = 16 / sizeof(T);
+  static_assert(HD % kVec == 0 && HD % 4 == 0,
+                "a row is whole 16-byte loads");
+  constexpr int kRowVecs = HD / kVec;
   constexpr int kTileVecs = kF32Keys * kRowVecs;
   constexpr int kLoads = (kTileVecs + kF32Threads - 1) / kF32Threads;
   extern __shared__ float4 smem_f32[];
@@ -666,16 +693,17 @@ __global__ void __launch_bounds__(kF32Threads)
 
   for (int e = threadIdx.x; e < kF32Warps * HD; e += kF32Threads) {
     const int ii = i0 + e / HD;
-    qs[e] = ii < sq ? q[(static_cast<size_t>(b) * sq + ii) * n_heads * HD +
-                        static_cast<size_t>(h) * HD + e % HD]
+    qs[e] = ii < sq ? to_f32(q[(static_cast<size_t>(b) * sq + ii) * n_heads *
+                                   HD +
+                               static_cast<size_t>(h) * HD + e % HD])
                     : 0.0f;
   }
   // keys any row of the block can see
   const int k_end =
       causal ? min(sk, q_offset + min(i0 + kF32Warps, sq)) : sk;
   const size_t kv_row = static_cast<size_t>(n_kv) * HD;  // stride of a key
-  const float* kb = k + static_cast<size_t>(b) * sk * kv_row + g * HD;
-  const float* vb = v + static_cast<size_t>(b) * sk * kv_row + g * HD;
+  const T* kb = k + static_cast<size_t>(b) * sk * kv_row + g * HD;
+  const T* vb = v + static_cast<size_t>(b) * sk * kv_row + g * HD;
   const float4* q4 = reinterpret_cast<const float4*>(qs + warp * HD);
 
   float m = -INFINITY, l = 0.0f, acc[kPer];
@@ -684,29 +712,33 @@ __global__ void __launch_bounds__(kF32Threads)
 
   // k_end is uniform over the block, so every thread reaches each barrier
   for (int k0 = 0; k0 < k_end; k0 += kF32Keys) {
-    float4 kr[kLoads], vr[kLoads];  // all issued before any is used
+    uint4 kr[kLoads], vr[kLoads];  // all issued before any is used
 #pragma unroll
     for (int c = 0; c < kLoads; ++c) {
       const int e = threadIdx.x + c * kF32Threads;
       const int key = k0 + e / kRowVecs;
-      const size_t off = key * kv_row + (e % kRowVecs) * 4;
+      const size_t off = key * kv_row + (e % kRowVecs) * kVec;
       const bool in = key < sk && e < kTileVecs;
-      kr[c] = in ? __ldg(reinterpret_cast<const float4*>(kb + off))
-                 : make_float4(0, 0, 0, 0);
-      vr[c] = in ? __ldg(reinterpret_cast<const float4*>(vb + off))
-                 : make_float4(0, 0, 0, 0);
+      kr[c] = in ? __ldg(reinterpret_cast<const uint4*>(kb + off))
+                 : make_uint4(0, 0, 0, 0);
+      vr[c] = in ? __ldg(reinterpret_cast<const uint4*>(vb + off))
+                 : make_uint4(0, 0, 0, 0);
     }
     __syncthreads();  // the previous tile is consumed
 #pragma unroll
     for (int c = 0; c < kLoads; ++c) {
       const int e = threadIdx.x + c * kF32Threads;
       if (kTileVecs % kF32Threads != 0 && e >= kTileVecs) break;
-      const int j = e / kRowVecs, d0 = (e % kRowVecs) * 4;
-      kt[d0 * kLdk + j] = kr[c].x;
-      kt[(d0 + 1) * kLdk + j] = kr[c].y;
-      kt[(d0 + 2) * kLdk + j] = kr[c].z;
-      kt[(d0 + 3) * kLdk + j] = kr[c].w;
-      *reinterpret_cast<float4*>(vs + j * HD + d0) = vr[c];
+      const int j = e / kRowVecs, d0 = (e % kRowVecs) * kVec;
+      float f[kVec];
+      unpack(kr[c], f, T());
+#pragma unroll
+      for (int x = 0; x < kVec; ++x) kt[(d0 + x) * kLdk + j] = f[x];
+      unpack(vr[c], f, T());
+#pragma unroll
+      for (int x = 0; x < kVec; x += 4)
+        *reinterpret_cast<float4*>(vs + j * HD + d0 + x) =
+            make_float4(f[x], f[x + 1], f[x + 2], f[x + 3]);
     }
     __syncthreads();
     // warp-uniform: a whole tile past the row's causal limit, or the keys
@@ -743,18 +775,22 @@ __global__ void __launch_bounds__(kF32Threads)
   }
   if (!active) return;
   const float inv = 1.0f / fmaxf(l, 1e-30f);
-  float* orow = o + (static_cast<size_t>(b) * sq + i) * n_heads * HD +
-                static_cast<size_t>(h) * HD;
+  if (lse != nullptr && lane == 0)
+    lse[(static_cast<size_t>(b) * n_heads + h) * sq + i] =
+        row_lse(m, l, false);
+  T* orow = o + (static_cast<size_t>(b) * sq + i) * n_heads * HD +
+            static_cast<size_t>(h) * HD;
 #pragma unroll
   for (int t = 0; t < kPer; ++t)
-    if (HD % 32 == 0 || lane + 32 * t < HD) orow[lane + 32 * t] = acc[t] * inv;
+    if (HD % 32 == 0 || lane + 32 * t < HD)
+      orow[lane + 32 * t] = from_f32<T>(acc[t] * inv);
 }
 
 // ------------------------------------------------------------- launches
 template <typename T, int HD>
 void launch_decode(const void* q, const void* k, const void* v, void* o,
-                   float* ws, int b, int sq, int sk, int n_heads, int n_kv,
-                   int causal, int q_offset, int splits, float scale,
+                   float* ws, float* lse, int b, int sq, int sk, int n_heads,
+                   int n_kv, int causal, int q_offset, int splits, float scale,
                    cudaStream_t stream) {
   constexpr int kSmem = dec_smem_words(HD) * 4;
   allow_smem(flash_decode_kernel<T, HD>, kSmem);
@@ -765,62 +801,66 @@ void launch_decode(const void* q, const void* k, const void* v, void* o,
   const dim3 grid(b * n_kv * ((n_rows + kDecRows - 1) / kDecRows), splits);
   flash_decode_kernel<T, HD><<<grid, kDecThreads, kSmem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), ws, sq, sk, n_heads, n_kv,
-      causal, q_offset, scale, key_end, per);
+      static_cast<const T*>(v), static_cast<T*>(o), ws, lse, sq, sk, n_heads,
+      n_kv, causal, q_offset, scale, key_end, per);
   if (splits > 1)
     flash_combine_kernel<T, HD>
         <<<dim3(b * n_kv, n_rows), combine_threads<HD>(),
            splits * sizeof(float), stream>>>(
-            ws, static_cast<T*>(o), sq, n_heads, n_kv, splits);
+            ws, static_cast<T*>(o), lse, sq, n_heads, n_kv, splits);
 }
 
 template <int HD>
-void launch_tc(const void* q, const void* k, const void* v, void* o, int b,
-               int sq, int sk, int n_heads, int n_kv, int causal,
-               int q_offset, float scale, cudaStream_t stream) {
+void launch_tc(const void* q, const void* k, const void* v, void* o,
+               float* lse, int b, int sq, int sk, int n_heads, int n_kv,
+               int causal, int q_offset, float scale, cudaStream_t stream) {
   constexpr int kSmem = tc_smem_bytes<HD>();
   allow_smem(flash_tc_kernel<HD>, kSmem);
   const int n_rows = sq * (n_heads / n_kv);
   const dim3 grid((n_rows + kTcRows - 1) / kTcRows, b * n_kv);
   flash_tc_kernel<HD><<<grid, kTcThreads, kSmem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), sq, sk, n_heads,
-      n_kv, causal, q_offset, scale * 1.4426950408889634f);
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, sq, sk,
+      n_heads, n_kv, causal, q_offset, scale * 1.4426950408889634f);
 }
 
-template <int HD>
-void launch_f32(const void* q, const void* k, const void* v, void* o, int b,
-                int sq, int sk, int n_heads, int n_kv, int causal,
-                int q_offset, float scale, cudaStream_t stream) {
+template <typename T, int HD>
+void launch_cc(const void* q, const void* k, const void* v, void* o,
+               float* lse, int b, int sq, int sk, int n_heads, int n_kv,
+               int causal, int q_offset, float scale, cudaStream_t stream) {
   constexpr int kSmem = f32_smem_words(HD) * 4;
-  allow_smem(flash_f32_kernel<HD>, kSmem);
+  allow_smem(flash_cc_kernel<T, HD>, kSmem);
   const dim3 grid(b * n_heads, (sq + kF32Warps - 1) / kF32Warps);
-  flash_f32_kernel<HD><<<grid, kF32Threads, kSmem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), sq, sk, n_heads,
+  flash_cc_kernel<T, HD><<<grid, kF32Threads, kSmem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), lse, sq, sk, n_heads,
       n_kv, causal, q_offset, scale);
 }
 
 template <int HD>
 int launch(const void* q, const void* k, const void* v, void* o, float* ws,
-           int b, int sq, int sk, int n_heads, int n_kv, int causal,
-           int q_offset, int is_bf16, int splits, cudaStream_t stream) {
+           float* lse, int b, int sq, int sk, int n_heads, int n_kv,
+           int causal, int q_offset, int is_bf16, int splits,
+           cudaStream_t stream) {
   const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(HD)));
   if (sq < kDecRows) {
     if (splits < 1 || (splits > 1 && ws == nullptr))
       return static_cast<int>(cudaErrorInvalidValue);
     if (is_bf16)
-      launch_decode<bf16, HD>(q, k, v, o, ws, b, sq, sk, n_heads, n_kv,
+      launch_decode<bf16, HD>(q, k, v, o, ws, lse, b, sq, sk, n_heads, n_kv,
                               causal, q_offset, splits, scale, stream);
     else
-      launch_decode<float, HD>(q, k, v, o, ws, b, sq, sk, n_heads, n_kv,
+      launch_decode<float, HD>(q, k, v, o, ws, lse, b, sq, sk, n_heads, n_kv,
                                causal, q_offset, splits, scale, stream);
-  } else if (is_bf16) {
-    launch_tc<HD>(q, k, v, o, b, sq, sk, n_heads, n_kv, causal, q_offset,
-                  scale, stream);
-  } else {
-    launch_f32<HD>(q, k, v, o, b, sq, sk, n_heads, n_kv, causal, q_offset,
-                   scale, stream);
+  } else if (!is_bf16) {
+    launch_cc<float, HD>(q, k, v, o, lse, b, sq, sk, n_heads, n_kv, causal,
+                         q_offset, scale, stream);
+  } else if constexpr (HD >= 64) {
+    launch_tc<HD>(q, k, v, o, lse, b, sq, sk, n_heads, n_kv, causal,
+                  q_offset, scale, stream);
+  } else {  // a head narrower than the tensor-core tiles: CUDA cores
+    launch_cc<bf16, HD>(q, k, v, o, lse, b, sq, sk, n_heads, n_kv, causal,
+                        q_offset, scale, stream);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -828,28 +868,40 @@ int launch(const void* q, const void* k, const void* v, void* o, float* ws,
 }  // namespace
 
 // q [b, sq, n_heads, hd], k and v [b, sk, n_kv, hd], o like q; contiguous,
-// 16-byte aligned, one dtype: bf16 (is_bf16 = 1) or float32. hd is 64, 80,
-// 112 or 128 (anything else returns cudaErrorInvalidValue; the wrapper
-// refuses it first). sq < 16 runs the split-K decode: `splits` >= 1 key splits and,
-// for more than one, `ws` a float32 scratch of b * n_kv * splits * sq *
-// (n_heads / n_kv) * (hd + 2) words; otherwise both are unused.
+// 16-byte aligned, one dtype: bf16 (is_bf16 = 1) or float32. hd is 8, 16,
+// 64, 80, 112 or 128 (anything else returns cudaErrorInvalidValue; the
+// wrapper refuses it first; 8 and 16 run on the CUDA cores at every sq).
+// sq < 16 runs the split-K decode: `splits` >= 1 key splits and, for more
+// than one, `ws` a float32 scratch of b * n_kv * splits * sq *
+// (n_heads / n_kv) * (hd + 2) words; otherwise both are unused. `lse`, when
+// not null, takes each row's float32 log-sum-exp of its kept scaled scores,
+// [b, n_heads, sq] (-inf for a row that keeps no key).
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
-                               void* o, float* ws, int b, int sq, int sk,
-                               int n_heads, int n_kv, int hd, int causal,
-                               int q_offset, int is_bf16, int splits,
-                               cudaStream_t stream) {
+                               void* o, float* ws, float* lse, int b, int sq,
+                               int sk, int n_heads, int n_kv, int hd,
+                               int causal, int q_offset, int is_bf16,
+                               int splits, cudaStream_t stream) {
   if (b == 0 || sq == 0) return static_cast<int>(cudaGetLastError());
-  if (hd == 64)
-    return launch<64>(q, k, v, o, ws, b, sq, sk, n_heads, n_kv, causal,
-                      q_offset, is_bf16, splits, stream);
-  if (hd == 80)
-    return launch<80>(q, k, v, o, ws, b, sq, sk, n_heads, n_kv, causal,
-                      q_offset, is_bf16, splits, stream);
-  if (hd == 112)
-    return launch<112>(q, k, v, o, ws, b, sq, sk, n_heads, n_kv, causal,
+  switch (hd) {
+    case 8:
+      return launch<8>(q, k, v, o, ws, lse, b, sq, sk, n_heads, n_kv, causal,
                        q_offset, is_bf16, splits, stream);
-  if (hd == 128)
-    return launch<128>(q, k, v, o, ws, b, sq, sk, n_heads, n_kv, causal,
-                       q_offset, is_bf16, splits, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
+    case 16:
+      return launch<16>(q, k, v, o, ws, lse, b, sq, sk, n_heads, n_kv,
+                        causal, q_offset, is_bf16, splits, stream);
+    case 64:
+      return launch<64>(q, k, v, o, ws, lse, b, sq, sk, n_heads, n_kv,
+                        causal, q_offset, is_bf16, splits, stream);
+    case 80:
+      return launch<80>(q, k, v, o, ws, lse, b, sq, sk, n_heads, n_kv,
+                        causal, q_offset, is_bf16, splits, stream);
+    case 112:
+      return launch<112>(q, k, v, o, ws, lse, b, sq, sk, n_heads, n_kv,
+                         causal, q_offset, is_bf16, splits, stream);
+    case 128:
+      return launch<128>(q, k, v, o, ws, lse, b, sq, sk, n_heads, n_kv,
+                         causal, q_offset, is_bf16, splits, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -152,9 +152,9 @@ _SIGNATURES = {
     "spmv_ell": (_P, _P, _I, _I, _P, _I, _P, _P),
     # indptr, R, cols, vals, nnz, x, C, y, carry, cross, stream
     "spmv_csr": (_P, _I, _P, _P, _I, _P, _I, _P, _P, _P, _P),
-    # q, k, v, o, ws, B, Sq, Sk, H, KV, hd, causal, q_offset, is_bf16,
+    # q, k, v, o, ws, lse, B, Sq, Sk, H, KV, hd, causal, q_offset, is_bf16,
     # splits, stream
-    "flash_attention": (_P,) * 5 + (_I,) * 10 + (_P,),
+    "flash_attention": (_P,) * 6 + (_I,) * 10 + (_P,),
     # stream: an empty kernel, the launch floor (timed, never counted)
     "launch_floor": (_P,),
 }

@@ -7,12 +7,15 @@ package's ``launch/dryrun.py``, with the same CLI and record keys).
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch yi-34b \\
       --shape train_4k --mesh multi
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh both \\
-      --out experiments/dryrun_torch
+      --out experiments/dryrun_torch --jobs 6
 
 A cell places the parameters, the optimizer state and the batch as
 DTensors by ``sharding_tree`` (each rank's shard a fake tensor of the
 local shape), runs the step (a train step with AdamW and remat, a
-prefill, or a decode) with ``sh = make_sharder(rules, mesh)``, and reads:
+prefill, or a decode) with ``sh = make_sharder(rules, mesh)``: attention
+goes to ``models.sharded_attention`` (#7's fake implementation on each
+rank's shards, as JAX places ``_blocked_sdpa`` and the sequence-sharded
+cache; no scores are held), and it reads:
 
   flops, bytes, collectives — ``op_cost.OpCost`` over this rank's ops;
   arg_bytes   — the exact sum of this rank's shard bytes of every input;
@@ -25,11 +28,18 @@ dry run lifts plain tensors to replicated DTensors and, on a refusal,
 replicates the operands' placements on the inner mesh dims (the model
 axis first) and tries again; an op DTensor has no rule for at all
 (``searchsorted``) runs on the replicated operands' local tensors, its
-results replicated. The record's ``fallbacks`` counts these per op. ``gather`` over a sharded dim runs that way from the start: DTensor
+results replicated. The record's ``fallbacks`` counts these per op, and
+the attention that ran replicated on an axis for want of a placement
+(``repro_torch.flash_attention``). ``gather`` over a sharded dim runs
+that way from the start: DTensor
 runs it, but the masked partial result it returns fails at its reduction
 (an ``IndexError`` in the mask's buffer). DTensor computes a strided
 shard's indices with ``torch.arange(...).tolist()``, which a fake tensor
-cannot answer: the dry run runs that host arithmetic outside the modes. A cell that raises is recorded with its error and the sweep goes on.
+cannot answer: the dry run runs that host arithmetic outside the modes.
+Under a fake mode DTensor skips its caches (``planned_once`` restores
+them for the dry run's concrete shapes), and a refusal is planned once
+(``ReshardOnRefusal``). A cell that raises is recorded with its error and
+the sweep goes on; ``--jobs N`` runs N cells at once, each in a process.
 ``compile_s`` of the JAX records is ``trace_s`` here: eager PyTorch
 compiles nothing.
 """
@@ -74,13 +84,33 @@ class ReshardOnRefusal(TorchDispatchMode):
     DTensor operands are replicated on mesh dims k.. (k from the last
     down) until the op runs; an op with no sharding rule runs on the
     fully replicated operands' local tensors. ``fallbacks`` counts the
-    refused ops (and the ``gather`` calls, which start replicated)."""
+    refused ops (and the ``gather`` calls, which start replicated).
+
+    Each refusal is planned once: the replication that let an op run is
+    remembered for its (op, operand placements, shapes and arguments),
+    and a later call of the same kind goes to it directly, with none of
+    the refused attempts (each a full sharding propagation) before it."""
 
     REPLICATE_FIRST = (torch.ops.aten.gather.default,)
+    WHOLE = -1  # a remembered plan: no sharding rule, the whole value
 
     def __init__(self):
         super().__init__()
         self.fallbacks: dict = {}
+        self._plans: dict = {}  # refused call's key -> k, or WHOLE
+
+    @staticmethod
+    def _key(func, args, kwargs):
+        from torch.distributed.tensor import DTensor
+
+        def one(x):
+            if isinstance(x, DTensor):
+                return ("D", tuple(x.placements), tuple(x.shape), x.dtype)
+            if isinstance(x, torch.Tensor):
+                return ("T", tuple(x.shape), x.dtype)
+            return x if isinstance(x, (int, float, bool, str, type(None),
+                                       torch.dtype)) else repr(x)
+        return (func, tuple(map(one, pytree_leaves((args, kwargs)))))
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         from torch.distributed.tensor import DTensor, Replicate
@@ -97,28 +127,33 @@ class ReshardOnRefusal(TorchDispatchMode):
                                       run_check=False)
 
         args, kwargs = tree_map_only(torch.Tensor, lift, (args, kwargs))
+        key = self._key(func, args, kwargs)
+        plan = self._plans.get(key)
+        name = str(func.overloadpacket)
         err = None
-        if func not in self.REPLICATE_FIRST:
+        if plan is None and func not in self.REPLICATE_FIRST:
             try:
                 return func(*args, **kwargs)
             except (RuntimeError, NotImplementedError) as e:
                 err = e
-        for k in reversed(range(mesh.ndim)):
-            def replicate(t, k=k):
-                pl = list(t.placements)
-                pl[k:] = [Replicate()] * (mesh.ndim - k)
-                return t.redistribute(t.device_mesh, pl)
-            try:
-                out = func(*tree_map_only(DTensor, replicate, args),
-                           **tree_map_only(DTensor, replicate, kwargs))
-            except (RuntimeError, NotImplementedError) as e:
-                err = e
-                continue
-            name = str(func.overloadpacket)
-            self.fallbacks[name] = self.fallbacks.get(name, 0) + 1
-            return out
-        if not isinstance(err, NotImplementedError):
-            raise err
+        if plan != self.WHOLE:
+            for k in ([plan] if plan is not None
+                      else reversed(range(mesh.ndim))):
+                def replicate(t, k=k):
+                    pl = list(t.placements)
+                    pl[k:] = [Replicate()] * (mesh.ndim - k)
+                    return t.redistribute(t.device_mesh, pl)
+                try:
+                    out = func(*tree_map_only(DTensor, replicate, args),
+                               **tree_map_only(DTensor, replicate, kwargs))
+                except (RuntimeError, NotImplementedError) as e:
+                    err = e
+                    continue
+                self._plans[key] = k
+                self.fallbacks[name] = self.fallbacks.get(name, 0) + 1
+                return out
+            if not isinstance(err, NotImplementedError):
+                raise err
         # no sharding rule: every rank computes the op on the whole value
 
         def whole(t):
@@ -127,7 +162,7 @@ class ReshardOnRefusal(TorchDispatchMode):
 
         out = func(*tree_map_only(DTensor, whole, args),
                    **tree_map_only(DTensor, whole, kwargs))
-        name = str(func.overloadpacket)
+        self._plans[key] = self.WHOLE
         self.fallbacks[name] = self.fallbacks.get(name, 0) + 1
         return tree_map_only(torch.Tensor, lift, out)
 
@@ -159,6 +194,42 @@ def strided_index_math_on_host():
         yield
     finally:
         cls.local_shard_size_and_offset = orig
+
+
+@contextlib.contextmanager
+def planned_once():
+    """Each sharding propagation and each redistribution plan made once.
+    Under a fake mode DTensor takes itself to be tracing, where shapes may
+    be symbolic, and skips its caches: every op is propagated and every
+    redistribution planned anew, which on the 3-D mesh (a graph search
+    over placements) took most of a cell's time. The dry run's shapes are
+    concrete, so each (op schema) and each (source, target) spec pair is
+    remembered for the block, as DTensor remembers them outside tracing."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor import _redistribute
+    prop = DTensor._op_dispatcher.sharding_propagator
+    propagate = prop.propagate_op_sharding_non_cached
+    plan = _redistribute._gen_transform_infos_non_cached
+    shardings, plans = {}, {}
+
+    def propagate_once(op_schema):
+        if op_schema not in shardings:
+            shardings[op_schema] = propagate(op_schema)
+        return shardings[op_schema]
+
+    def plan_once(src, dst, use_graph_based_transform=None):
+        key = (src, dst, use_graph_based_transform)
+        if key not in plans:
+            plans[key] = plan(src, dst, use_graph_based_transform)
+        return plans[key]
+
+    prop.propagate_op_sharding_non_cached = propagate_once
+    _redistribute._gen_transform_infos_non_cached = plan_once
+    try:
+        yield
+    finally:
+        del prop.propagate_op_sharding_non_cached
+        _redistribute._gen_transform_infos_non_cached = plan
 
 
 def shard_bytes(specs, rules: ShardingRules, mesh) -> int:
@@ -194,10 +265,12 @@ def place(specs, rules: ShardingRules, mesh, fake_mode, device="cpu",
 
 
 def build_step(model, mesh, rules, shape_kind, seq, gb, remat="dots_no_batch",
-               opt_cfg: AdamWConfig | None = None, microbatches: int = 1):
+               opt_cfg: AdamWConfig | None = None, microbatches: int = 1,
+               sh=None):
     """Returns (step, arg specs): ``step(args)`` runs the cell's step on
-    the placed ``args`` (a tuple of spec trees' DTensors)."""
-    sh = make_sharder(rules, mesh)
+    the placed ``args`` (a tuple of spec trees' DTensors) with the
+    sharding hook ``sh`` (default ``make_sharder(rules, mesh)``)."""
+    sh = sh or make_sharder(rules, mesh)
     opt_cfg = opt_cfg or AdamWConfig()
 
     if shape_kind == "train":
@@ -237,8 +310,9 @@ def run_cell(arch: str, shape: str, multi_pod: bool, remat: str = "dots_no_batch
     mesh = make_production_mesh(multi_pod, fake=True)
     n_chips = mesh.size()
     rules = rules_for(multi_pod, rules_overrides)
+    sh = make_sharder(rules, mesh)
     step, specs = build_step(model, mesh, rules, kind, seq, gb, remat,
-                             opt_cfg, microbatches)
+                             opt_cfg, microbatches, sh)
     fake = FakeTensorMode(allow_non_fake_inputs=True)
     args = tuple(place(s, rules, mesh, fake, device,
                        grad=(kind == "train" and i == 0))
@@ -247,9 +321,12 @@ def run_cell(arch: str, shape: str, multi_pod: bool, remat: str = "dots_no_batch
     t0 = time.time()
     mem = MemTracker()
     with fake, OpCost() as counter, mem, ReshardOnRefusal() as reshard, \
-            strided_index_math_on_host():
+            strided_index_math_on_host(), planned_once():
         step(*args)
     trace_s = time.time() - t0
+    fallbacks = dict(reshard.fallbacks)
+    for name, calls in sh.fallbacks.items():
+        fallbacks[name] = fallbacks.get(name, 0) + calls
     peak = mem.get_tracker_snapshot("peak")
     temp_bytes = max((v["Total"] for v in peak.values()), default=0)
     mflops = analysis.model_flops_for(cfg, kind, seq, gb)
@@ -271,7 +348,11 @@ def run_cell(arch: str, shape: str, multi_pod: bool, remat: str = "dots_no_batch
         "temp_bytes": temp_bytes,
         "collective_counts": roof.collectives.counts,
         "collective_link_bytes": roof.collectives.bytes_by_kind,
-        "fallbacks": reshard.fallbacks,
+        "fallbacks": fallbacks,
+        # #7's forward: its causal triangle, where XLA's blocked scan
+        # computes every block (static trip counts)
+        "attention_flops": counter.by_op.get(
+            "repro_torch.flash_attention", [0, 0])[1],
         "remat": remat, "rules": dataclasses.asdict(rules),
         "microbatches": microbatches,
         "quantized_opt": bool(opt_cfg and opt_cfg.quantized_state),
@@ -288,8 +369,20 @@ def run_cell(arch: str, shape: str, multi_pod: bool, remat: str = "dots_no_batch
               f"collective={roof.collective_s*1e3:.2f}ms "
               f"useful={roof.useful_ratio:.2f} "
               f"colls={roof.collectives.counts} "
-              f"fallbacks={sum(reshard.fallbacks.values())}")
+              f"fallbacks={sum(fallbacks.values())}")
     return rec
+
+
+def _cell_record(cell):
+    """The record of one (arch, shape, multi_pod, remat) cell, or its
+    error: a sweep's unit of work (in a worker process with ``--jobs``)."""
+    arch, shape, mp, remat = cell
+    try:
+        return run_cell(arch, shape, mp, remat=remat)
+    except Exception as e:  # noqa: BLE001 — report, keep sweeping
+        traceback.print_exc()
+        return {"arch": arch, "shape": shape, "mesh": _mesh_tag(mp),
+                "error": f"{type(e).__name__}: {e}"}
 
 
 def main(argv=None):
@@ -301,6 +394,9 @@ def main(argv=None):
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--remat", default="dots_no_batch")
     ap.add_argument("--out", default=None)
+    ap.add_argument("--jobs", type=int, default=1,
+                    help="cells run at once, each in a worker process of "
+                         "its own (a fake world is process-wide)")
     args = ap.parse_args(argv)
 
     meshes = {"single": [False], "multi": [True], "both": [False, True]}[args.mesh]
@@ -309,21 +405,25 @@ def main(argv=None):
     else:
         cells = [(args.arch, args.shape, None)]
 
-    records = []
+    records, todo = [], []
     for arch, shape, skip in cells:
         for mp in meshes:
             if skip:
                 records.append({"arch": arch, "shape": shape,
                                 "mesh": _mesh_tag(mp), "skipped": skip})
                 print(f"[{arch} × {shape}] SKIP: {skip}")
-                continue
-            try:
-                records.append(run_cell(arch, shape, mp, remat=args.remat))
-            except Exception as e:  # noqa: BLE001 — report, keep sweeping
-                traceback.print_exc()
-                records.append({"arch": arch, "shape": shape,
-                                "mesh": _mesh_tag(mp),
-                                "error": f"{type(e).__name__}: {e}"})
+            else:
+                records.append(None)  # filled in order below
+                todo.append((arch, shape, mp, args.remat))
+    if args.jobs > 1:
+        import multiprocessing
+        ctx = multiprocessing.get_context("spawn")
+        with ctx.Pool(args.jobs, maxtasksperchild=1) as pool:
+            done = pool.map(_cell_record, todo, chunksize=1)
+    else:
+        done = map(_cell_record, todo)
+    done = iter(done)
+    records = [r if r is not None else next(done) for r in records]
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         tag = "all" if args.all else f"{args.arch}_{args.shape}"

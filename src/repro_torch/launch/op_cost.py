@@ -6,8 +6,12 @@ op one rank runs and adds up the JAX ``Cost`` fields, per device:
 
   flops        — the ``torch.utils.flop_counter`` formulas: 2·M·N·K per
                  mm / bmm / addmm / baddbmm, the convolution and SDPA
-                 formulas; elementwise flops are left out, as in the JAX
-                 counter (the memory term carries them).
+                 formulas; the hand attention op
+                 (``repro_torch.flash_attention``, #7) by its causal
+                 triangle (``kernels.flash_attention.attention_cost``; its
+                 backward is plain ops, counted as they run); elementwise
+                 flops are left out, as in the JAX counter (the memory
+                 term carries them).
   bytes        — operands plus outputs of every op that touches memory:
                  in eager PyTorch every op meets HBM. Views, allocations
                  and metadata ops move nothing.
@@ -41,6 +45,8 @@ from torch.utils._python_dispatch import (TorchDispatchMode,
                                           _disable_current_modes)
 from torch.utils._pytree import tree_leaves
 from torch.utils.flop_counter import flop_registry
+
+from ..kernels.flash_attention import attention_cost
 
 _aten = torch.ops.aten
 
@@ -183,8 +189,25 @@ class OpCost(TorchDispatchMode):
             c.bytes += 2.0 * s
             c.bytes_ideal += 2.0 * s
             return
-        if func.namespace != "aten" or packet in _FREE or func.is_view:
+        if func.namespace == "repro_torch":  # #7: one launch, by formula
+            q, k, _, causal, q_offset, return_lse = args[:6]
+            moved, flops = attention_cost(q.shape, k.shape, causal, q_offset,
+                                          q.element_size(), return_lse)
+            c.bytes_ideal += moved
+        elif func.namespace != "aten" or packet in _FREE or func.is_view:
             return
+        else:
+            moved, flops = self._aten_cost(packet, args, kwargs, out)
+        c.flops += flops
+        c.bytes += moved
+        rec = self.by_op.setdefault(str(packet), [0, 0, 0.0])
+        rec[0] += 1
+        rec[1] += flops
+        rec[2] += moved
+
+    def _aten_cost(self, packet, args, kwargs, out):
+        """(bytes, flops) of one aten op; adds its ideal bytes."""
+        c = self.cost
         moved = _nbytes((args, kwargs)) + _nbytes(out)
         flops = 0
         if packet in flop_registry:
@@ -194,9 +217,4 @@ class OpCost(TorchDispatchMode):
             c.bytes_ideal += 2.0 * _nbytes(out)
         elif packet in _SCATTERS:
             c.bytes_ideal += 2.0 * _nbytes(args[1:])
-        c.flops += flops
-        c.bytes += moved
-        rec = self.by_op.setdefault(str(packet), [0, 0, 0.0])
-        rec[0] += 1
-        rec[1] += flops
-        rec[2] += moved
+        return moved, flops

@@ -16,7 +16,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from . import layers
+from . import layers, spec
 from .config import ModelConfig
 from .spec import PSpec, tree_map
 
@@ -153,7 +153,8 @@ def prefill(cfg: ModelConfig, params, frames: torch.Tensor,
     cross-attention keys and values (k, v) [L, B, F, KV, hd]);
     ``max_len`` defaults to S."""
     b, s = tokens.shape
-    cache = kv_zeros(cfg, b, max_len or s, tokens.device)
+    cache = tuple(spec.zeros(kv, tokens.device, sh, tokens)
+                  for kv in cache_specs(cfg, b, max_len or s)[0])
     enc_out = encode(cfg, params, frames, remat="none", sh=sh)
     cross = kv_zeros(cfg, b, frames.shape[1], tokens.device)
     positions = torch.arange(s, dtype=torch.int32, device=tokens.device)

@@ -16,7 +16,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from . import layers, mamba2
+from . import layers, mamba2, spec
 from .config import ModelConfig
 from .spec import PSpec, tree_map
 
@@ -105,7 +105,7 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor,
     logits [B, 1, vocab_padded] float32, ((ssm, conv), (k, v)))."""
     b, s = tokens.shape
     g, per = _groups(cfg)
-    states = state_zeros(cfg, b, max_len or s, tokens.device)
+    states = state_zeros(cfg, b, max_len or s, tokens.device, sh, tokens)
     (ssm, conv), (ck, cv) = states
     x = layers.embed_tokens(params["embed"], tokens)
     positions = torch.arange(s, dtype=torch.int32, device=tokens.device)
@@ -165,7 +165,11 @@ def state_specs(cfg: ModelConfig, batch: int, max_len: int):
     return ((ssm, conv), (kv, kv))
 
 
-def state_zeros(cfg: ModelConfig, batch: int, max_len: int, device):
-    return tree_map(lambda s: torch.zeros(s.shape, dtype=s.dtype,
-                                          device=device),
-                    state_specs(cfg, batch, max_len))
+def state_zeros(cfg: ModelConfig, batch: int, max_len: int, device,
+                sh=None, like=None):
+    """The zero decode state; its KV caches placed by the rules of ``sh``
+    on the mesh of ``like`` where that is a DTensor (``spec.zeros``)."""
+    ssm_conv, kv = state_specs(cfg, batch, max_len)
+    return (tuple(torch.zeros(s.shape, dtype=s.dtype, device=device)
+                  for s in ssm_conv),
+            tuple(spec.zeros(s, device, sh, like) for s in kv))

@@ -14,8 +14,11 @@ recompute (``kernels.flash_attention``).
 
 Every forward takes the activation-sharding hook ``sh`` (``spec.
 make_sharder``; None is the identity) and calls it where the JAX module
-does, except inside ``_blocked_sdpa``, which the port does not have: its
-two sites (the query blocks' ``attn_q`` sharding) have no counterpart.
+does. On a mesh (DTensors, or a hook that carries one) attention goes to
+``sharded_attention``, which places #7's operands as the JAX rules place
+``_blocked_sdpa``'s query blocks (its two ``attn_q`` sites, taken where
+JAX takes the blocked form: causal and Sq >= ``BLOCKED_ATTN_MIN_SQ``) and
+``_sdpa``'s sequence-sharded cache.
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ from torch.utils.checkpoint import (checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..kernels.flash_attention import flash_attention
+from . import sharded_attention
 from .config import ModelConfig
 from .spec import PSpec, no_sharding
 
@@ -73,6 +77,9 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 # --------------------------------------------------------------- attention
+BLOCKED_ATTN_MIN_SQ = 4096  # JAX's blocked attention: causal, Sq at least this
+
+
 def attn_specs(cfg: ModelConfig, L=()) -> Dict:
     h, kv, d, hd = cfg.n_heads, cfg.n_kv_heads, cfg.d_model, cfg.hd
     dt = cfg.dtype
@@ -108,6 +115,23 @@ def _project_qkv(cfg: ModelConfig, p, x: torch.Tensor, sh=None):
             v.reshape(b, s, cfg.n_kv_heads, cfg.hd))
 
 
+def _attend(q, k, v, sh, *, causal: bool, q_offset=None,
+            kv_sharded: bool = False):
+    """#7 over q, k, v: ``sharded_attention`` on a mesh, else one
+    ``flash_attention`` call (without ``q_offset`` where None).
+    ``kv_sharded``: k and v are the cache (placed on ``kv_seq``)."""
+    blocked = causal and q.shape[1] >= BLOCKED_ATTN_MIN_SQ
+    if sharded_attention.plan(q, k, sh, blocked=blocked,
+                              kv_sharded=kv_sharded):
+        return sharded_attention.attend(q, k, v, sh, causal=causal,
+                                        q_offset=q_offset or 0,
+                                        blocked=blocked,
+                                        kv_sharded=kv_sharded)
+    if q_offset is None:
+        return flash_attention(q, k, v, causal=causal)
+    return flash_attention(q, k, v, causal=causal, q_offset=q_offset)
+
+
 def attention(cfg: ModelConfig, p, x: torch.Tensor, positions: torch.Tensor,
               *, causal: bool = True, use_rope: bool = True,
               cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
@@ -130,13 +154,15 @@ def attention(cfg: ModelConfig, p, x: torch.Tensor, positions: torch.Tensor,
         if cache_pos + s > ck.shape[1]:
             raise ValueError(f"attention: positions {cache_pos}..{cache_pos + s}"
                              f" past the cache's {ck.shape[1]} slots")
-        ck[:, cache_pos:cache_pos + s] = k.to(ck.dtype)
-        cv[:, cache_pos:cache_pos + s] = v.to(cv.dtype)
-        att = flash_attention(q, sh(ck, "batch", "kv_seq", None, None),
-                              sh(cv, "batch", "kv_seq", None, None),
-                              causal=causal, q_offset=cache_pos)
+        if not sharded_attention.write_cache(ck, k, cache_pos):
+            ck[:, cache_pos:cache_pos + s] = k.to(ck.dtype)
+        if not sharded_attention.write_cache(cv, v, cache_pos):
+            cv[:, cache_pos:cache_pos + s] = v.to(cv.dtype)
+        att = _attend(q, sh(ck, "batch", "kv_seq", None, None),
+                      sh(cv, "batch", "kv_seq", None, None), sh,
+                      causal=causal, q_offset=cache_pos, kv_sharded=True)
     else:
-        att = flash_attention(q, k, v, causal=causal)
+        att = _attend(q, k, v, sh, causal=causal)
     b, sq = x.shape[:2]
     att = sh(att.reshape(b, sq, cfg.n_heads * cfg.hd), "batch", "seq_inner",
              "heads")
@@ -149,10 +175,11 @@ def cross_attention(cfg: ModelConfig, p, x: torch.Tensor,
     """The decoder's attention over encoder keys and values ``kv`` (each
     [B, Senc, KV, hd], from ``cross_kv``): ``x @ wq``, every query over
     every key (``flash_attention``, ``causal=False``), ``@ wo``; no bias,
-    as in the JAX package (which calls no ``sh`` here either)."""
+    as in the JAX package (which calls no ``sh`` here either; on a mesh
+    the attention itself is ``sharded_attention``'s)."""
     b, s = x.shape[:2]
     q = (x @ p["wq"]).reshape(b, s, cfg.n_heads, cfg.hd)
-    att = flash_attention(q, kv[0], kv[1], causal=False)
+    att = _attend(q, kv[0], kv[1], sh, causal=False)
     return att.reshape(b, s, cfg.n_heads * cfg.hd) @ p["wo"]
 
 

@@ -263,6 +263,35 @@ def _sliced_normal(s: PSpec, std: float, generator: torch.Generator, dev):
     return out
 
 
+def zeros(s: PSpec, device, sh=None, like=None) -> torch.Tensor:
+    """Zeros of the spec ``s`` on ``device``; where ``like`` is a DTensor
+    and ``sh`` carries rules, a DTensor on ``like``'s mesh placed as the
+    rules place ``s``, each rank allocating only its shard (as XLA
+    allocates a sharded array): a decode state made inside a step."""
+    rules = getattr(sh, "rules", None)
+    if rules is None or like is None or type(like) in (torch.Tensor,
+                                                        torch.nn.Parameter):
+        return torch.zeros(s.shape, dtype=s.dtype, device=device)
+    from torch.distributed.tensor import DTensor
+    mesh = like.device_mesh
+    pl = placements(rules.pspec_for_shape(s.shape, s.axes, mesh), mesh)
+    local = torch.zeros(local_shape(s.shape, pl, mesh), dtype=s.dtype,
+                        device=device)
+    return DTensor.from_local(local, mesh, pl, run_check=False,
+                              shape=torch.Size(s.shape),
+                              stride=contiguous_stride(s.shape))
+
+
+def contiguous_stride(shape) -> tuple:
+    """The strides of a contiguous tensor of ``shape`` (computed: a meta
+    tensor would count its bytes in a memory tracker)."""
+    out, acc = [], 1
+    for n in reversed(tuple(shape)):
+        out.append(acc)
+        acc *= n
+    return tuple(reversed(out))
+
+
 def param_count(specs) -> int:
     return sum(int(np.prod(s.shape)) for s in tree_leaves(specs))
 
@@ -300,7 +329,9 @@ def make_sharder(rules: Optional[ShardingRules], mesh=None):
     placements the rules give its shape on ``mesh`` (the DTensor's own mesh
     when None) and returns a plain tensor as it is; with ``rules`` None it
     is the identity. It carries ``.rules`` and ``.mesh`` (the MoE layer's
-    expert-parallel path reads them)."""
+    expert-parallel path and ``sharded_attention`` read them) and
+    ``.fallbacks``, {op name: calls} of the attention that ran replicated
+    on an axis for want of a placement (a dry run reports them)."""
     if rules is None:
         return no_sharding
 
@@ -314,5 +345,6 @@ def make_sharder(rules: Optional[ShardingRules], mesh=None):
 
     sh.rules = rules
     sh.mesh = mesh
+    sh.fallbacks = {}
     return sh
 

@@ -13,7 +13,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from . import layers, moe
+from . import layers, moe, spec
 from .config import ModelConfig
 from .spec import PSpec, no_sharding, tree_map
 
@@ -115,7 +115,7 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor,
     As in the JAX package, attention runs over all ``max_len`` slots."""
     b, s = tokens.shape
     smax = max_len or s
-    cache = cache_zeros(cfg, b, smax, tokens.device)
+    cache = cache_zeros(cfg, b, smax, tokens.device, sh, tokens)
     x = layers.embed_tokens(params["embed"], tokens)
     positions = torch.arange(s, dtype=torch.int32, device=tokens.device)
     x = _run_layers(cfg, params, x, positions, cache, 0, sh)
@@ -142,7 +142,9 @@ def cache_specs(cfg: ModelConfig, batch: int, max_len: int):
             PSpec(shape, cfg.dtype, "zeros", axes=axes))
 
 
-def cache_zeros(cfg: ModelConfig, batch: int, max_len: int, device) -> Cache:
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
-    return (torch.zeros(shape, dtype=cfg.dtype, device=device),
-            torch.zeros(shape, dtype=cfg.dtype, device=device))
+def cache_zeros(cfg: ModelConfig, batch: int, max_len: int, device,
+                sh=None, like=None) -> Cache:
+    """A zero KV cache; placed by the rules of ``sh`` on the mesh of
+    ``like`` where that is a DTensor (``spec.zeros``)."""
+    return tuple(spec.zeros(s, device, sh, like)
+                 for s in cache_specs(cfg, batch, max_len))

@@ -58,6 +58,7 @@ def prefill(cfg: ModelConfig, params, img_embeds: torch.Tensor,
     [B, 1, vocab_padded] float32, cache); decode the next token at
     ``pos = n_img + S``."""
     x, positions = _prefix(cfg, params, img_embeds, tokens)
-    cache = cache_zeros(cfg, x.shape[0], max_len or x.shape[1], x.device)
+    cache = cache_zeros(cfg, x.shape[0], max_len or x.shape[1], x.device, sh,
+                        x)
     x = transformer._run_layers(cfg, params, x, positions, cache, 0, sh)
     return layers.unembed(cfg, params["embed"], x[:, -1:], sh), cache

@@ -248,6 +248,9 @@ def test_dryrun_decode_cell(multi):
     assert rec["collective_s"] >= 0
     assert rec["bottleneck"] in ("compute", "memory", "collective")
     assert rec["hbm_bytes_per_device"] < 80e9, "decode must fit one H100"
+    # each rank attends its own slots of the sequence-sharded cache and
+    # the ranks merge (o, lse): no all-gather of the cache (5.97 GB)
+    assert rec["link_bytes_per_device"] < 0.6e9
     seq, gb, _ = SHAPES["decode_32k"]
     model = jax_build(jax_config("smollm-135m"))
     sizes = {"pod": 2, "data": 16, "model": 16} if multi else \

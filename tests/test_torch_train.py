@@ -36,7 +36,6 @@ from repro_torch.kernels import LAUNCHES, reset_launches
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_bwd_ref,
                                                  flash_attention_ref)
-from repro_torch.kernels.flash_attention import ops as attn_ops
 from repro_torch.models import build, layers, params_from_jax
 from repro_torch.models.spec import tree_leaves
 from repro_torch.train.train_step import loss_and_grads
@@ -85,21 +84,22 @@ def test_attention_backward_matches_autograd_and_jax(sq, rep, causal,
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_card_route_autograd_wiring(monkeypatch, dtype):
-    """The card route's ``torch.autograd.Function`` with the kernel launch
-    replaced by the plain version computed without autograd (as the
-    ctypes launch fills its output): the gradients reach q, k and v and
-    equal the plain version's; the launch alone (fault F1) gives none."""
+def test_card_route_autograd_wiring(dtype):
+    """The card route is the registered op ``repro_torch::flash_attention``,
+    whose implementation autograd does not see into (on the card the
+    ctypes launch; on the CPU, run here, the plain version computed inside
+    the op): the gradients reach q, k and v through the op's registered
+    backward and equal the plain version's; the launch alone, filling its
+    output outside autograd (fault F1), gives none."""
     def fake_launch(q, k, v, causal, q_offset):
         with torch.no_grad():
             return flash_attention_ref(q, k, v, causal=causal,
                                        q_offset=q_offset)
 
-    monkeypatch.setattr(attn_ops, "_launch", fake_launch)
     q, k, v, do = (torch.from_numpy(x).to(dtype)
                    for x in _attn_inputs(9, 2, 40, 45, 6, 2, 16))
     leaves = [x.clone().requires_grad_() for x in (q, k, v)]
-    out = attn_ops._Attention.apply(*leaves, True, 5)
+    out, _ = torch.ops.repro_torch.flash_attention(*leaves, True, 5, False)
     got = torch.autograd.grad(out, leaves, do)
     ref_leaves = [x.clone().requires_grad_() for x in (q, k, v)]
     want = torch.autograd.grad(flash_attention_ref(*ref_leaves, causal=True,
@@ -315,7 +315,8 @@ def test_card_attention_gradients_match_cpu(hd, dtype, causal, sq):
 def test_card_attention_refuses_other_head_dims_in_training():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    q = torch.zeros(1, 4, 2, 16, device="cuda", requires_grad=True)
+    # hd 32: the kernel is built for 8, 16, 64, 80, 112 and 128
+    q = torch.zeros(1, 4, 2, 32, device="cuda", requires_grad=True)
     with pytest.raises(ValueError, match="hd"):
         flash_attention(q, q.detach(), q.detach())
 
