@@ -163,7 +163,15 @@ Phases (each raises on failure):
      0's unsharded path, every rank's #7 launches counted (paths ``cp``
      and the float32 ``cp_check``); (e) #7 at the reduced configs' head
      dims 8 and 16 on the card, the logits against the CPU's (path
-     ``small``);
+     ``small``); (f) smollm-135m at full width and 2 layers on 4 rank
+     processes, the parameters and the batch DTensors on the card under
+     the production rules (its 9 heads on the 4-wide model axis: 3 a
+     rank, rank 3 none; DTensor's collectives staged through pinned host
+     buffers): one train step of 4 x 512 tokens and prefills with the
+     cache sequence-sharded and whole, the loss, every gradient and the
+     logits within 1e-5 (float32) and 2e-2 (bf16) of rank 0's unsharded
+     path, no fallback, #7's launches a rank counted (none where a rank
+     holds no heads; paths ``heads`` and the float32 ``heads_check``);
   12. (run before 11, which leaves its recorded inputs on the card) the
      enc-dec and VLM families at full width (sizes and cuts in ``P12``), weights drawn on the card, frames and image embeddings
      seeded (the frontends are stubs), served greedily through
@@ -3015,7 +3023,7 @@ def torch_int(x, dev):
 
 
 def rank_child(out_dir, rank):
-    """Rank ``rank`` of phase 9's mesh or of phase 13a's or 13d's mesh
+    """Rank ``rank`` of phase 9's mesh or of phase 13a's, 13d's or 13f's mesh
     (``"phase"`` in ``out_dir``'s config.json names which), a process
     of its own: loads the kernel library phase 2 built (and refuses to
     build one), joins the mesh (the backend the parent chose: NCCL with a
@@ -3027,7 +3035,7 @@ def rank_child(out_dir, rank):
     from repro_torch.kernels import common
     cfg = json.loads((out_dir / "config.json").read_text())
     body = {"phase 9": mesh_rank, "phase 13a": ep_rank,
-            "phase 13d": cp_rank}[cfg["phase"]]
+            "phase 13d": cp_rank, "phase 13f": heads_rank}[cfg["phase"]]
     if cfg["device"] == "cuda":
         if not (common.BUILD_DIR / common.source_hash()
                 / "libreprotorch.so").exists():
@@ -3274,9 +3282,14 @@ P13 = dict(reduced=False, moe="olmoe-1b-7b", layers=2, ranks=4, batch=4,
            cp_decode=32, cp_rtol={"float32": 1e-4, "bfloat16": 2e-2},
            # 13e: the reduced configs' head dims on the card
            small=(("smollm-135m", 16), ("yi-34b", 8)), small_prompt=64,
-           small_decode=8)
+           small_decode=8,
+           # 13f: heads the model axis does not divide, on DTensors
+           heads_arch="smollm-135m", heads_layers=2, heads_batch=4,
+           heads_seq=512,
+           heads_rtol={"float32": 1e-5, "bfloat16": 2e-2})
 EP_DIR = ROOT / "build" / "phase13"
 CP_DIR = ROOT / "build" / "phase13d"
+HEADS_DIR = ROOT / "build" / "phase13f"
 
 
 def p13_config(**kw):
@@ -3742,6 +3755,223 @@ def small_heads(seed, smi, stash, device="cuda"):
     return launches
 
 
+def heads_config(dtype):
+    import dataclasses
+    from repro_torch.configs import get_config, get_reduced
+    cfg = (get_reduced if P13["reduced"] else get_config)(P13["heads_arch"])
+    return dataclasses.replace(cfg, param_dtype=dtype,
+                               n_layers=P13["heads_layers"])
+
+
+def heads_rank(conf, rank, dev, out_dir):
+    """Phase 13f on one rank: smollm-135m at full width (9 heads over 3
+    KV heads at hd 64: ranks 0-2 hold 3 heads each, rank 3 none; vocab
+    49,152) and ``heads_layers`` of its layers on mesh (1, 4) under the
+    production rules (``launch.dryrun.rules_for``: ``model``, ``kv_seq``
+    and the experts on the 4-wide axis), the parameters and the batch
+    DTensors on the rank's device (a CUDA mesh over gloo: DTensor's
+    collectives go through pinned host buffers, ``spec.
+    staged_collectives``). One train step of ``heads_batch`` x
+    ``heads_seq`` tokens (the attention's "heads" case), then prefills of
+    those tokens into as many slots: under the same rules (the cache
+    sequence-sharded, the "kv_seq" case) and with ``kv_seq`` None (the
+    cache whole on the axis, the "heads" case). All of it under
+    ``launch.dryrun.ReshardOnRefusal``, which counts any op DTensor
+    refuses. bf16 (path ``heads``) and float32 (``heads_check``); rank 0
+    runs the unsharded step and prefills too. Returns (result dict,
+    {file: this rank's #7 inputs per geometry})."""
+    import numpy as np
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.dryrun import ReshardOnRefusal, rules_for
+    from repro_torch.models import (build, init_params, make_sharder,
+                                    sharded_attention, sharding_tree)
+    from repro_torch.models.spec import (contiguous_stride, flatten_up_to,
+                                         local_block, staged_collectives,
+                                         tree_leaves, tree_map)
+    from repro_torch.train.train_step import loss_and_grads
+    n = conf["ranks"]
+    mesh = init_device_mesh(dev.type, (1, n),
+                            mesh_dim_names=("data", "model"))
+    rules = {"train": rules_for(False),
+             "heads": rules_for(False, {"kv_seq": None})}
+    b, s = P13["heads_batch"], P13["heads_seq"]
+    rng = np.random.default_rng(conf["seed"])
+    toks = torch.as_tensor(rng.integers(1, heads_config("float32").vocab,
+                                        (b, s)).astype(np.int32), device=dev)
+
+    def place(tree, specs, r):
+        """Each rank's block of the full values (the same on every rank),
+        as DTensors placed by ``r``: no exchange."""
+        pls = flatten_up_to(specs, sharding_tree(specs, r, mesh))
+        it = iter(DTensor.from_local(
+            local_block(x, pl, mesh).contiguous(), mesh, pl,
+            run_check=False, shape=x.shape, stride=contiguous_stride(
+                x.shape)) for x, pl in zip(flatten_up_to(specs, tree), pls))
+        return tree_map(lambda _: next(it), specs)
+
+    def whole(t):
+        return t.full_tensor() if isinstance(t, DTensor) else t
+
+    res = {"rank": rank, "launches": {}, "fallbacks": {}, "seconds": {}}
+    files, calls = {}, {}
+    for dtype, path in (("bfloat16", "heads"), ("float32", "heads_check")):
+        cfg = heads_config(dtype)
+        model = build(cfg)
+        gen = torch.Generator(device=dev).manual_seed(conf["seed"])
+        params = init_params(model.param_specs, gen, device=dev)
+        batch = {"tokens": toks}
+        got, counts = {}, {}
+        with Recorder(sharded_attention, "flash_attention") as rec, \
+                staged_collectives(mesh), ReshardOnRefusal() as refusals:
+            for part, r in (("train", rules["train"]),
+                            ("prefill_kv_seq", rules["train"]),
+                            ("prefill_heads", rules["heads"])):
+                sh = make_sharder(r, mesh)
+                dp = place(params, model.param_specs, r)
+                db = place(batch, model.train_input_specs(b, s), r)
+                reset_launches()
+                t0 = time.perf_counter()
+                if part == "train":
+                    loss, grads = loss_and_grads(model, dp, db,
+                                                 "dots_no_batch", sh)
+                    out = [whole(loss)] + [whole(g) for g in
+                                           tree_leaves(grads)]
+                else:
+                    logits, _ = model.prefill(dp, {"tokens": db["tokens"],
+                                                   "max_len": s}, sh)
+                    out = [whole(logits)]
+                sync()
+                res["seconds"][f"{path}/{part}"] = time.perf_counter() - t0
+                counts[part] = dict(LAUNCHES)
+                got[part] = out
+                for k, v in sh.fallbacks.items():
+                    res["fallbacks"][f"{path}/{part}/{k}"] = v
+            for k, v in refusals.fallbacks.items():
+                res["fallbacks"][f"{path}/refused/{k}"] = v
+        res["launches"][path] = counts
+        res[f"loss_{dtype}"] = float(got["train"][0])
+        res[f"finite_{dtype}"] = all(bool(torch.isfinite(x).all())
+                                     for v in got.values() for x in v)
+        if rank == 0:  # the unsharded step and prefill
+            loss, grads = loss_and_grads(model, params, batch,
+                                         "dots_no_batch")
+            want = {"train": [loss] + tree_leaves(grads)}
+            logits, _ = model.prefill(params, {"tokens": toks,
+                                               "max_len": s})
+            want["prefill_kv_seq"] = want["prefill_heads"] = [logits]
+            res[f"rel_{dtype}"] = {
+                part: max(rel_err(g, w) for g, w in zip(got[part], want[part]))
+                for part in got}
+        calls[path] = [[[list(map(list, g[0])), [list(kv) for kv in g[1]],
+                         list(g[2])], c]
+                       for g, (c, _) in rec.calls.items()]
+        for j, (_, (args, _)) in enumerate(rec.calls.values()):
+            tensors_to_npz(f"{path}_g{j}", args, files)
+        del params, model, got
+    res["calls"] = calls
+    return res, {f"inputs{rank}.npz": files}
+
+
+def mesh_heads(seed, smi, stash, device="cuda"):
+    """13f: ``heads_rank`` on 4 rank processes on ``cuda:0`` over gloo.
+    Checks the sharded train step's loss and every gradient leaf, and the
+    prefills' logits, against rank 0's unsharded path (relative error
+    norms within ``heads_rtol``: float32 1e-5, bf16 2e-2), every rank's
+    loss equal, no fallback (neither ``sh.fallbacks`` nor a refusal), and
+    the #7 launches per rank: the train step's ``heads_layers`` forwards
+    and their remat recomputes, and the heads prefill's, on the ranks
+    that hold heads and none on the one that holds none; the kv_seq
+    prefill's on every rank. Fills ``stash["heads"]`` and
+    ``stash["heads_check"]`` with every rank's #7 inputs; returns the
+    paths' launches."""
+    import shutil
+    import numpy as np
+    from repro_torch.models.sharded_attention import head_chunks
+    n = P13["ranks"]
+    shutil.rmtree(HEADS_DIR, ignore_errors=True)
+    HEADS_DIR.mkdir(parents=True)
+    cfg = heads_config("bfloat16")
+    b, s = P13["heads_batch"], P13["heads_seq"]
+    from repro_torch.configs import get_config
+    log(f"phase 13f: {describe(cfg)} (depth cut to {cfg.n_layers} of "
+        f"{get_config(P13['heads_arch']).n_layers}); {n} ranks on mesh (1, "
+        f"{n}) under the production rules, parameters and batch as "
+        f"DTensors; a train step of {b} x {s} tokens, prefills of the "
+        f"same into {s} slots")
+    (HEADS_DIR / "config.json").write_text(json.dumps(
+        dict(phase="phase 13f", backend="gloo", seed=seed, device=device,
+             ranks=n, dir=str(HEADS_DIR))))
+    t_ranks = run_ranks(n, HEADS_DIR, timeout=300)
+    res = [json.loads((HEADS_DIR / f"rank{r}.json").read_text())
+           for r in range(n)]
+    for dtype in ("float32", "bfloat16"):
+        for part, rel in res[0][f"rel_{dtype}"].items():
+            if not rel <= P13["heads_rtol"][dtype]:
+                raise AssertionError(f"phase 13f: {dtype} {part} vs the "
+                                     f"unsharded path's: {rel}")
+        for x in res:
+            if not x[f"finite_{dtype}"] or \
+                    x[f"loss_{dtype}"] != res[0][f"loss_{dtype}"]:
+                raise AssertionError(f"phase 13f rank {x['rank']}: {dtype} "
+                                     "non-finite, or a loss not rank 0's")
+    for x in res:
+        if x["fallbacks"]:
+            raise AssertionError(f"phase 13f rank {x['rank']}: fallbacks "
+                                 f"{x['fallbacks']}")
+    heads = head_chunks(cfg.n_heads, n)
+    want = [{"train": 2 * cfg.n_layers * (hi > lo),
+             "prefill_kv_seq": cfg.n_layers,
+             "prefill_heads": cfg.n_layers * (hi > lo)} for lo, hi in heads]
+    launches = {}
+    for path in ("heads", "heads_check"):
+        for r, x in enumerate(res):
+            for part, got in x["launches"][path].items():
+                others = {k: v for k, v in got.items()
+                          if v and k != "flash_attention"}
+                if device == "cuda" and (others or got["flash_attention"]
+                                         != want[r][part]):
+                    raise AssertionError(
+                        f"phase 13f rank {r} {path} {part}: launches {got}, "
+                        f"want {want[r][part]} of #7 only")
+        launches[path] = {k: sum(x["launches"][path][part][k] for x in res
+                                 for part in x["launches"][path])
+                          for k in res[0]["launches"][path]["train"]}
+        recs = {name: Recorded() for name in wrapper_sites()}
+        recs["probe_stack"], recs["combine_rows"] = Recorded(), Recorded()
+        for x in res:
+            arrays = dict(np.load(HEADS_DIR / f"inputs{x['rank']}.npz"))
+            for j, (g, c) in enumerate(x["calls"][path]):
+                key = (tuple(tuple(d) for d in g[0]),
+                       tuple(tuple(kv) for kv in g[1]), tuple(g[2]))
+                if key in recs["flash_attention"].calls:
+                    recs["flash_attention"].calls[key][0] += c
+                    continue
+                args = tensors_from_npz(f"{path}_g{j}", arrays, device)
+                recs["flash_attention"].calls[key] = [c, (args,
+                                                          dict(key[1]))]
+        stash[path] = recs
+    log(f"phase 13f ({smi}): {n} ranks on {device} over gloo, {t_ranks:.3f}"
+        f" s from start to exit; vs rank 0's unsharded path, relative "
+        f"error norms (loss and every gradient leaf, then the logits): "
+        f"float32 " + json.dumps(res[0]["rel_float32"]) + " (limit "
+        f"{P13['heads_rtol']['float32']:g}), bf16 "
+        + json.dumps(res[0]["rel_bfloat16"]) + f" (limit "
+        f"{P13['heads_rtol']['bfloat16']:g}); no fallback; heads by rank "
+        + json.dumps([hi - lo for lo, hi in heads]) + "; #7 launches by "
+        "rank (bf16; train, prefill kv_seq, prefill heads) "
+        + json.dumps([[x["launches"]["heads"][p]["flash_attention"]
+                       for p in ("train", "prefill_kv_seq",
+                                 "prefill_heads")] for x in res])
+        + f"; geometries {len(stash['heads']['flash_attention'].calls)}; "
+        "rank 0's seconds by part " + json.dumps(
+            {k: round(v, 3) for k, v in res[0]["seconds"].items()}))
+    shutil.rmtree(HEADS_DIR, ignore_errors=True)
+    return launches
+
+
 def attention_work(args, kw):
     """(bytes, flops) of one #7 forward call on ``args`` / ``kw``
     (``kernels.flash_attention.attention_cost``, the formula ``OpCost``
@@ -3937,6 +4167,9 @@ def launch_tools(seed, smi, stash, device="cuda"):
         launches["small"] = small_heads(seed, smi, stash["small"], device)
         t["e"] = time.perf_counter() - te
         free_card()
+        tf = time.perf_counter()
+        launches.update(mesh_heads(seed, smi, stash, device))
+        t["f"] = time.perf_counter() - tf
         tc = time.perf_counter()
         dry_runs_finish(procs, t0, smi)
         t["c_wait"] = time.perf_counter() - tc

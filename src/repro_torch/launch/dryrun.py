@@ -30,12 +30,11 @@ axis first) and tries again; an op DTensor has no rule for at all
 (``searchsorted``) runs on the replicated operands' local tensors, its
 results replicated. The record's ``fallbacks`` counts these per op, and
 the attention that ran replicated on an axis for want of a placement
-(``repro_torch.flash_attention``). ``gather`` over a sharded dim runs
-that way from the start: DTensor
-runs it, but the masked partial result it returns fails at its reduction
-(an ``IndexError`` in the mask's buffer). DTensor computes a strided
+(``repro_torch.flash_attention``). DTensor computes a strided
 shard's indices with ``torch.arange(...).tolist()``, which a fake tensor
 cannot answer: the dry run runs that host arithmetic outside the modes.
+On a CPU mesh DTensor moves a shard between tensor dims by an all-gather
+and a chunk; the dry run makes it the all-to-all it is on the cards.
 Under a fake mode DTensor skips its caches (``planned_once`` restores
 them for the dry run's concrete shapes), and a refusal is planned once
 (``ReshardOnRefusal``). A cell that raises is recorded with its error and
@@ -62,6 +61,7 @@ from torch.utils._pytree import tree_map_only
 
 from ..configs import SHAPES, all_cells, get_config
 from ..models import build, make_sharder
+from ..models.moe import exchange
 from ..models.spec import (ShardingRules, local_shape, placements,
                            tree_leaves, tree_map)
 from ..train.optimizer import AdamWConfig, opt_state_specs
@@ -84,14 +84,13 @@ class ReshardOnRefusal(TorchDispatchMode):
     DTensor operands are replicated on mesh dims k.. (k from the last
     down) until the op runs; an op with no sharding rule runs on the
     fully replicated operands' local tensors. ``fallbacks`` counts the
-    refused ops (and the ``gather`` calls, which start replicated).
+    refused ops.
 
     Each refusal is planned once: the replication that let an op run is
     remembered for its (op, operand placements, shapes and arguments),
     and a later call of the same kind goes to it directly, with none of
     the refused attempts (each a full sharding propagation) before it."""
 
-    REPLICATE_FIRST = (torch.ops.aten.gather.default,)
     WHOLE = -1  # a remembered plan: no sharding rule, the whole value
 
     def __init__(self):
@@ -131,7 +130,7 @@ class ReshardOnRefusal(TorchDispatchMode):
         plan = self._plans.get(key)
         name = str(func.overloadpacket)
         err = None
-        if plan is None and func not in self.REPLICATE_FIRST:
+        if plan is None:
             try:
                 return func(*args, **kwargs)
             except (RuntimeError, NotImplementedError) as e:
@@ -194,6 +193,31 @@ def strided_index_math_on_host():
         yield
     finally:
         cls.local_shard_size_and_offset = orig
+
+
+@contextlib.contextmanager
+def shard_moves_as_all_to_all():
+    """DTensor moves a shard from one tensor dim to another by an
+    all-to-all, except on a CPU mesh, where it gathers the whole and keeps
+    a chunk (its gloo path has no all-to-all). The fake world's mesh is a
+    CPU one that stands for the cards', so the dry run makes the move one
+    ``all_to_all_single`` as on a CUDA mesh (and as XLA moves it): its
+    count, link bytes and temporaries are the card's. DTensor pads the
+    tensor first, so the chunks are even."""
+    from torch.distributed.tensor import placement_types
+    orig = placement_types.shard_dim_alltoall
+
+    def on_the_cards(local, gather_dim, shard_dim, mesh, mesh_dim):
+        n = mesh.size(mesh_dim)
+        pieces = list(local.chunk(n, shard_dim))
+        return exchange(pieces, [tuple(pieces[0].shape)] * n,
+                        mesh.get_group(mesh_dim), gather_dim)
+
+    placement_types.shard_dim_alltoall = on_the_cards
+    try:
+        yield
+    finally:
+        placement_types.shard_dim_alltoall = orig
 
 
 @contextlib.contextmanager
@@ -321,7 +345,8 @@ def run_cell(arch: str, shape: str, multi_pod: bool, remat: str = "dots_no_batch
     t0 = time.time()
     mem = MemTracker()
     with fake, OpCost() as counter, mem, ReshardOnRefusal() as reshard, \
-            strided_index_math_on_host(), planned_once():
+            strided_index_math_on_host(), planned_once(), \
+            shard_moves_as_all_to_all():
         step(*args)
     trace_s = time.time() - t0
     fallbacks = dict(reshard.fallbacks)

@@ -10,7 +10,7 @@ import torch
 
 from . import encdec, hybrid, mamba2, transformer, vlm
 from .config import ModelConfig
-from .spec import PSpec
+from .spec import PSpec, mesh_scope
 
 # family -> (its module, the PSpecs (cfg, batch, max_len) of its decode state)
 _FAMILIES = {"dense": (transformer, transformer.cache_specs),
@@ -62,20 +62,23 @@ def build(cfg: ModelConfig) -> Model:
     prefix = prefix_input(cfg)
 
     def train(p, b, remat="dots_no_batch", sh=None):
-        return m.train_loss(cfg, p, b, remat, sh=sh)
+        with mesh_scope(sh):
+            return m.train_loss(cfg, p, b, remat, sh=sh)
 
     def prefill(p, b, sh=None):
-        if prefix is not None:
-            return m.prefill(cfg, p, b[prefix[0]], b["tokens"],
-                             b.get("max_len"), sh=sh)
-        return m.prefill(cfg, p, b["tokens"], b.get("max_len"), sh=sh)
+        with mesh_scope(sh):
+            if prefix is not None:
+                return m.prefill(cfg, p, b[prefix[0]], b["tokens"],
+                                 b.get("max_len"), sh=sh)
+            return m.prefill(cfg, p, b["tokens"], b.get("max_len"), sh=sh)
 
     def decode(p, b, sh=None):
-        if f == "encdec":
-            return m.decode_step(cfg, p, b["token"], b["cache"], b["cross"],
-                                 b["pos"], sh=sh)
-        return m.decode_step(cfg, p, b["token"], b["cache"], b.get("pos"),
-                             sh=sh)
+        with mesh_scope(sh):
+            if f == "encdec":
+                return m.decode_step(cfg, p, b["token"], b["cache"],
+                                     b["cross"], b["pos"], sh=sh)
+            return m.decode_step(cfg, p, b["token"], b["cache"],
+                                 b.get("pos"), sh=sh)
 
     def tok_in(gb, s):
         if prefix is None:

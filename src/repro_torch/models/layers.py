@@ -23,6 +23,7 @@ JAX takes the blocked form: causal and Sq >= ``BLOCKED_ATTN_MIN_SQ``) and
 from __future__ import annotations
 
 import functools
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -33,7 +34,8 @@ from torch.utils.checkpoint import (checkpoint,
 from ..kernels.flash_attention import flash_attention
 from . import sharded_attention
 from .config import ModelConfig
-from .spec import PSpec, no_sharding
+from .sharded_attention import merge_heads, split_heads
+from .spec import PSpec, contiguous_stride, no_sharding
 
 
 # ------------------------------------------------------------------- norms
@@ -109,10 +111,9 @@ def _project_qkv(cfg: ModelConfig, p, x: torch.Tensor, sh=None):
     q = sh(q, "batch", "seq_inner", "heads")
     k = sh(k, "batch", "seq_inner", "kv_heads")
     v = sh(v, "batch", "seq_inner", "kv_heads")
-    b, s = x.shape[:2]
-    return (q.reshape(b, s, cfg.n_heads, cfg.hd),
-            k.reshape(b, s, cfg.n_kv_heads, cfg.hd),
-            v.reshape(b, s, cfg.n_kv_heads, cfg.hd))
+    return (split_heads(q, cfg.n_heads, cfg.hd),
+            split_heads(k, cfg.n_kv_heads, cfg.hd),
+            split_heads(v, cfg.n_kv_heads, cfg.hd))
 
 
 def _attend(q, k, v, sh, *, causal: bool, q_offset=None,
@@ -163,9 +164,7 @@ def attention(cfg: ModelConfig, p, x: torch.Tensor, positions: torch.Tensor,
                       causal=causal, q_offset=cache_pos, kv_sharded=True)
     else:
         att = _attend(q, k, v, sh, causal=causal)
-    b, sq = x.shape[:2]
-    att = sh(att.reshape(b, sq, cfg.n_heads * cfg.hd), "batch", "seq_inner",
-             "heads")
+    att = sh(merge_heads(att), "batch", "seq_inner", "heads")
     return sh(att @ p["wo"], "batch", "seq", "model_dim_act"), cache
 
 
@@ -175,20 +174,22 @@ def cross_attention(cfg: ModelConfig, p, x: torch.Tensor,
     """The decoder's attention over encoder keys and values ``kv`` (each
     [B, Senc, KV, hd], from ``cross_kv``): ``x @ wq``, every query over
     every key (``flash_attention``, ``causal=False``), ``@ wo``; no bias,
-    as in the JAX package (which calls no ``sh`` here either; on a mesh
-    the attention itself is ``sharded_attention``'s)."""
-    b, s = x.shape[:2]
-    q = (x @ p["wq"]).reshape(b, s, cfg.n_heads, cfg.hd)
+    as in the JAX package. On a mesh the attention itself is
+    ``sharded_attention``'s, and the output takes the self-attention's
+    placement: the JAX module calls no ``sh`` here, and XLA reduces the
+    heads' partial sums, where DTensor would carry them into the next
+    layer's matmuls (each then replicating its weight)."""
+    sh = sh or no_sharding
+    q = split_heads(x @ p["wq"], cfg.n_heads, cfg.hd)
     att = _attend(q, kv[0], kv[1], sh, causal=False)
-    return att.reshape(b, s, cfg.n_heads * cfg.hd) @ p["wo"]
+    return sh(merge_heads(att) @ p["wo"], "batch", "seq", "model_dim_act")
 
 
 def cross_kv(cfg: ModelConfig, p, enc_out: torch.Tensor):
     """The cross-attention keys and values of ``enc_out`` [B, Senc, D]:
     (k, v), each [B, Senc, KV, hd]."""
-    b, s = enc_out.shape[:2]
-    return ((enc_out @ p["wk"]).reshape(b, s, cfg.n_kv_heads, cfg.hd),
-            (enc_out @ p["wv"]).reshape(b, s, cfg.n_kv_heads, cfg.hd))
+    return (split_heads(enc_out @ p["wk"], cfg.n_kv_heads, cfg.hd),
+            split_heads(enc_out @ p["wv"], cfg.n_kv_heads, cfg.hd))
 
 
 # ---------------------------------------------------------------------- mlp
@@ -233,7 +234,64 @@ def embed_specs(cfg: ModelConfig) -> Dict:
 
 
 def embed_tokens(p, tokens: torch.Tensor) -> torch.Tensor:
-    return p["embedding"][tokens]
+    """The embedding rows of ``tokens``. Where the DTensor table is sharded
+    on the vocab, each rank takes the rows of its own shard (zeros for the
+    others) and one all-reduce over those ranks adds them, as XLA
+    partitions the gather. On the other mesh dims the rows follow the
+    tokens where those are sharded (the table gathered there, and its
+    gradient from each shard a part of a sum), else the table's embed dim.
+    (DTensor's own rules for the lookup and its backward differ between
+    PyTorch versions.)"""
+    from .spec import shard_mesh_dim
+    w = p["embedding"]
+    i = None if _plain(w) else shard_mesh_dim(w, 0)
+    if i is None:
+        return w[tokens]
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = w.device_mesh
+    if _plain(tokens):
+        tokens = DTensor.from_local(tokens, mesh, [Replicate()] * mesh.ndim,
+                                    run_check=False)
+    # a rank's tokens against the table's vocab rows: where the tokens are
+    # split on a mesh dim that splits the table's embed dim too, gather
+    # the table there, or, when the tokens are fewer than its rows (a
+    # decode step), gather the tokens and keep the embed dim split
+    few = math.prod(tokens.to_local().shape) < w.shape[0] // mesh.shape[i]
+    on_w, on_grad, on_rows, on_tok = [], [], [], []  # by mesh dim
+    for j, x in enumerate(tokens.placements):
+        embed = w.placements[j] == Shard(1)
+        if j == i:
+            on_w.append(Shard(0))
+            on_grad.append(Shard(0))
+            on_rows.append(Partial())
+            on_tok.append(Replicate())
+        elif isinstance(x, Shard) and not (embed and few):
+            on_w.append(Replicate())  # the table gathered
+            on_grad.append(Partial())
+            on_rows.append(x)
+            on_tok.append(x)
+        elif embed:  # the table's embed dim stays split
+            on_w.append(Shard(1))
+            on_grad.append(Shard(1))
+            on_rows.append(Shard(tokens.dim()))
+            on_tok.append(Replicate())
+        else:
+            on_w.append(Replicate())
+            on_grad.append(Replicate())
+            on_rows.append(Replicate())
+            on_tok.append(Replicate())
+    tl = tokens.redistribute(mesh, on_tok).to_local().long()
+    wl = w.redistribute(mesh, on_w).to_local(grad_placements=on_grad)
+    ids = tl - mesh.get_coordinate()[i] * wl.shape[0]
+    hit = (ids >= 0) & (ids < wl.shape[0])
+    rows = torch.where(hit[..., None], wl[ids.clamp(0, wl.shape[0] - 1)],
+                       torch.zeros((), dtype=wl.dtype, device=wl.device))
+    shape = tuple(tokens.shape) + (w.shape[1],)
+    on_rows_sum = [Replicate() if j == i else x for j, x in enumerate(on_rows)]
+    return DTensor.from_local(rows, mesh, on_rows, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=contiguous_stride(shape)).redistribute(
+        mesh, on_rows_sum)
 
 
 def unembed(cfg: ModelConfig, p, x: torch.Tensor, sh=None) -> torch.Tensor:
@@ -254,12 +312,66 @@ def softmax_xent(cfg: ModelConfig, logits: torch.Tensor, labels: torch.Tensor,
     keep = torch.arange(v, device=logits.device)[None, None, :] < cfg.vocab
     logits = torch.where(keep, logits, torch.full((), -1e30,
                                                   device=logits.device))
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    lse = _logsumexp(logits)
+    gold = gold_logit(logits, labels)
     nll = lse - gold
     if mask is None:
         return nll.mean()
     return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def _logsumexp(logits: torch.Tensor) -> torch.Tensor:
+    """``torch.logsumexp`` over the last dim; on DTensor logits sharded on
+    it (for which DTensor's logsumexp gathers the vocab), the max and the
+    sum of exponentials, each reduced over the shards, the sum before its
+    log (so that the log's backward divides by the whole sum)."""
+    from .spec import shard_mesh_dim
+    if _plain(logits) or shard_mesh_dim(logits, -1) is None:
+        return torch.logsumexp(logits, dim=-1)
+    from torch.distributed.tensor import Partial, Replicate
+    top = logits.detach().amax(-1)
+    total = torch.exp(logits - top[..., None]).sum(-1)
+    total = total.redistribute(total.device_mesh, [
+        Replicate() if isinstance(p, Partial) else p
+        for p in total.placements])
+    return torch.log(total) + top
+
+
+def gold_logit(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """``logits[..., labels]``: a masked sum over the vocab, exact (every
+    other term is a zero). Where DTensor logits are sharded on the vocab,
+    each rank sums its own columns and the result is ``Partial`` over those
+    ranks (DTensor's masked-partial gather, by hand: its own fails at the
+    reduction), so that no rank gathers the vocab."""
+    from .spec import shard_mesh_dim
+    i = shard_mesh_dim(logits, -1) if not _plain(logits) else None
+    if i is None:
+        hit = torch.arange(logits.shape[-1], device=logits.device) == \
+            labels[..., None].long()
+        return torch.where(hit, logits,
+                           torch.zeros((), device=logits.device)).sum(-1)
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    mesh, pl = logits.device_mesh, list(logits.placements)
+    if _plain(labels):
+        labels = DTensor.from_local(labels, mesh, [Replicate()] * mesh.ndim,
+                                    run_check=False)
+    lab = labels.redistribute(mesh, [Replicate() if j == i else p
+                                     for j, p in enumerate(pl)]).to_local()
+    local = logits.to_local()
+    lo = mesh.get_coordinate()[i] * local.shape[-1]
+    hit = torch.arange(lo, lo + local.shape[-1], device=local.device) == \
+        lab[..., None].long()
+    part = torch.where(hit, local, torch.zeros((), device=local.device))
+    return DTensor.from_local(part.sum(-1), mesh,
+                              [Partial() if j == i else p
+                               for j, p in enumerate(pl)], run_check=False,
+                              shape=labels.shape,
+                              stride=contiguous_stride(labels.shape))
+
+
+def _plain(t) -> bool:
+    from torch.distributed.tensor import DTensor
+    return not isinstance(t, DTensor)
 
 
 def next_token_loss(cfg: ModelConfig, logits: torch.Tensor,
@@ -267,11 +379,13 @@ def next_token_loss(cfg: ModelConfig, logits: torch.Tensor,
     """``softmax_xent`` of ``logits`` [B, S, V] against the next token of
     ``tokens`` [B, S], the last position masked (every family's
     ``train_loss``)."""
-    b, s = tokens.shape
     labels = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])],
                        dim=1)
-    mask = torch.cat([torch.ones(b, s - 1, device=tokens.device),
-                      torch.zeros(b, 1, device=tokens.device)], dim=1)
+    # made from the tokens, so that DTensor tokens give a mask (and a loss
+    # gradient) on the batch's shards
+    f32 = torch.float32
+    mask = torch.cat([torch.ones_like(tokens[:, 1:], dtype=f32),
+                      torch.zeros_like(tokens[:, :1], dtype=f32)], dim=1)
     return softmax_xent(cfg, logits, labels, mask)
 
 

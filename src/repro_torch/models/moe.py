@@ -23,6 +23,8 @@ its order unspecified)."""
 from __future__ import annotations
 
 import dataclasses
+import functools
+import math
 from typing import Dict, NamedTuple, Tuple
 
 import torch
@@ -199,18 +201,44 @@ def _collective(op, out: torch.Tensor, inp: torch.Tensor, group) -> None:
     out.copy_(host_out)
 
 
-def _all_to_all(x: torch.Tensor, group, split_axis: int,
-                 concat_axis: int) -> torch.Tensor:
-    """``jax.lax.all_to_all(x, axis, split_axis, concat_axis, tiled=True)``
-    over ``group``: ``x`` split in n blocks along ``split_axis``, block j
-    sent to rank j, the blocks received put side by side along
-    ``concat_axis`` in source-rank order."""
-    n = group.size()
-    send = x.unflatten(split_axis, (n, -1)).movedim(split_axis, 0)
-    send = send.contiguous()
-    recv = torch.empty_like(send)
-    _collective(dist.all_to_all_single, _wire(recv), _wire(send), group)
-    return recv.movedim(0, concat_axis).flatten(concat_axis, concat_axis + 1)
+def _all_to_all_1d(x, send, recv, group):
+    """``x`` (1-D) cut into ``send[s]`` elements for rank s of ``group``;
+    the pieces received, ``recv[s]`` from rank s, side by side. Moved as
+    bytes (gloo has no bf16)."""
+    out = x.new_empty(sum(recv))
+    k = x.element_size()
+    op = functools.partial(dist.all_to_all_single,
+                           output_split_sizes=[c * k for c in recv],
+                           input_split_sizes=[c * k for c in send])
+    _collective(op, out.view(torch.uint8), x.view(torch.uint8), group)
+    return out
+
+
+class _AllToAll1d(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, send, recv, group):
+        ctx.args = (send, recv, group)
+        return _all_to_all_1d(x, send, recv, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        send, recv, group = ctx.args
+        return _all_to_all_1d(g.contiguous(), recv, send, group), None, \
+            None, None
+
+
+def exchange(pieces, shapes, group, dim: int) -> torch.Tensor:
+    """One all-to-all over ``group`` (differentiable: the backward is the
+    reverse exchange): ``pieces[s]`` goes to rank s, and what rank s sends
+    here arrives in ``shapes[s]``; returns those, concatenated along
+    ``dim`` from rank 0 up. Pieces and shapes may differ from rank to
+    rank (an uneven split)."""
+    send = [p.numel() for p in pieces]
+    recv = [math.prod(s) for s in shapes]
+    got = _AllToAll1d.apply(torch.cat([p.reshape(-1) for p in pieces]),
+                            send, recv, group)
+    return torch.cat([t.view(s) for t, s in zip(got.split(recv), shapes)],
+                     dim)
 
 
 def _all_gather(t: torch.Tensor, group, axis: int) -> torch.Tensor:
@@ -221,18 +249,6 @@ def _all_gather(t: torch.Tensor, group, axis: int) -> torch.Tensor:
     out = src.new_empty((n * src.shape[0],) + tuple(src.shape[1:]))
     _collective(dist.all_gather_into_tensor, _wire(out), _wire(src), group)
     return out.movedim(0, axis)
-
-
-class _AllToAll(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, group, split_axis, concat_axis):
-        ctx.args = (group, split_axis, concat_axis)
-        return _all_to_all(x, group, split_axis, concat_axis)
-
-    @staticmethod
-    def backward(ctx, g):
-        group, split_axis, concat_axis = ctx.args
-        return _all_to_all(g, group, concat_axis, split_axis), None, None, None
 
 
 class _GatherReplicated(torch.autograd.Function):
@@ -472,11 +488,14 @@ def apply_moe_spmd(cfg: ModelConfig, p, x: torch.Tensor, sh, rules, mesh
     cap = r.cap
     buf = xt.new_zeros(e * cap + 1, d).index_copy(0, r.slot, xt[r.stok])
     # the exchange: experts to their owning rank, tokens from every rank
-    buf = _AllToAll.apply(buf[:e * cap].reshape(e, cap, d), ep_group, 0, 1)
+    n_ep = ep_group.size()
+    buf = exchange(list(buf[:e * cap].reshape(e, cap, d).chunk(n_ep, 0)),
+                   [(e // n_ep, cap, d)] * n_ep, ep_group, 1)
     g = torch.bmm(buf, wg)
     u = torch.bmm(buf, wu)
     out = torch.bmm(F.silu(g) * u, wd)
-    out = _AllToAll.apply(out, ep_group, 1, 0).reshape(e * cap, d)
+    out = exchange(list(out.chunk(n_ep, 1)), [(e // n_ep, cap, d)] * n_ep,
+                   ep_group, 0).reshape(e * cap, d)
     y = combine(r, out, xl.dtype).reshape(b_l, s_l, d)
 
     me = r.probs.mean(0)

@@ -10,11 +10,16 @@ turns one into DTensor placements on a ``DeviceMesh``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Callable, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import (TorchDispatchMode,
+                                          _get_current_dispatch_mode_stack)
+from torch.utils._pytree import tree_leaves as pytree_leaves
+from torch.utils._pytree import tree_map_only
 
 
 @dataclasses.dataclass(frozen=True)
@@ -282,6 +287,15 @@ def zeros(s: PSpec, device, sh=None, like=None) -> torch.Tensor:
                               stride=contiguous_stride(s.shape))
 
 
+def shard_mesh_dim(t, dim: int):
+    """The mesh dim that shards DTensor ``t``'s dim ``dim``, where exactly
+    one does; else None."""
+    from torch.distributed.tensor import Shard
+    found = [i for i, p in enumerate(t.placements)
+             if isinstance(p, Shard) and p.dim == dim % t.dim()]
+    return found[0] if len(found) == 1 else None
+
+
 def contiguous_stride(shape) -> tuple:
     """The strides of a contiguous tensor of ``shape`` (computed: a meta
     tensor would count its bytes in a memory tracker)."""
@@ -322,12 +336,109 @@ def no_sharding(x, *axes):
     return x
 
 
+@contextlib.contextmanager
+def mesh_scope(sh):
+    """The context a step runs in under the sharding hook ``sh``: where it
+    carries rules, a plain tensor that meets a DTensor (positions, masks,
+    constants: the same on every rank) counts as replicated, as a JAX
+    constant does under ``jit`` (DTensor's ``implicit_replication``,
+    restored on exit so that scopes nest); and on a CUDA mesh over gloo,
+    DTensor's collectives go through host buffers (``staged_collectives``).
+    Else nothing."""
+    if getattr(sh, "rules", None) is None:
+        yield
+        return
+    from torch.distributed.tensor import DTensor
+    dispatcher = DTensor._op_dispatcher
+    was = dispatcher._allow_implicit_replication
+    dispatcher._allow_implicit_replication = True
+    try:
+        with staged_collectives(getattr(sh, "mesh", None)):
+            yield
+    finally:
+        dispatcher._allow_implicit_replication = was
+
+
+def _gloo_cuda(mesh) -> bool:
+    import torch.distributed as dist
+    return (mesh is not None and mesh.device_type == "cuda"
+            and str(dist.get_backend(mesh.get_group(0))) == "gloo")
+
+
+def staged_collectives(mesh):
+    """On a CUDA ``mesh`` whose groups are gloo's (ranks that share one
+    card), ``HostStaged()``, unless one is on already; a null context on
+    any other mesh."""
+    if not _gloo_cuda(mesh) or any(isinstance(m, HostStaged) for m in
+                                   _get_current_dispatch_mode_stack()):
+        return contextlib.nullcontext()
+    return HostStaged()
+
+
+class HostStaged(TorchDispatchMode):
+    """Each of DTensor's collectives (the ``_c10d_functional`` ops) on
+    CUDA operands runs on pinned host copies of them, and its result is
+    copied back: gloo moves host tensors (its CUDA all-gather crashes), as
+    ``db.spmd.exchange_route`` stages the mesh steps' exchange. DTensor
+    ops pass to DTensor, which runs its collectives on the local tensors
+    under this mode."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.distributed.tensor import DTensor
+        kwargs = kwargs or {}
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
+        cuda = [t for t in pytree_leaves((args, kwargs))
+                if isinstance(t, torch.Tensor) and t.is_cuda]
+        wait = torch.ops._c10d_functional.wait_tensor
+        if func.namespace != "_c10d_functional" or not cuda or \
+                func.overloadpacket is wait:
+            return func(*args, **kwargs)
+
+        def host(t):
+            if not t.is_cuda:
+                return t
+            return torch.empty(t.shape, dtype=t.dtype,
+                               pin_memory=True).copy_(t)
+
+        h_args, h_kwargs = tree_map_only(torch.Tensor, host, (args, kwargs))
+        out = tree_map_only(torch.Tensor, wait, func(*h_args, **h_kwargs))
+        if func.overloadpacket.__name__.endswith("_"):  # in place
+            for t, h in zip(pytree_leaves((args, kwargs)),
+                            pytree_leaves((h_args, h_kwargs))):
+                if isinstance(t, torch.Tensor) and t.is_cuda:
+                    t.copy_(h)
+            return args[0]
+        return tree_map_only(torch.Tensor, lambda t: t.to(cuda[0].device),
+                             out)
+
+
+class _Constrain(torch.autograd.Function):
+    """``x`` redistributed to ``pl``, and its gradient too: the transpose of
+    JAX's ``with_sharding_constraint`` constrains the cotangent as the
+    value. (DTensor's own backward of a redistribution goes back to the
+    source placement, so a gradient of a sum over the model axis would
+    stay ``Partial`` through the backward, and each matmul it meets would
+    replicate its weight on that axis rather than reduce the gradient.)"""
+
+    @staticmethod
+    def forward(ctx, x, mesh, pl):
+        ctx.args = (mesh, pl)
+        return x.redistribute(mesh, pl)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, pl = ctx.args
+        return g.redistribute(mesh, pl), None, None
+
+
 def make_sharder(rules: Optional[ShardingRules], mesh=None):
     """Activation-sharding hook threaded through the model code.
 
-    ``sh(x, "batch", None, "heads")`` redistributes a DTensor ``x`` to the
-    placements the rules give its shape on ``mesh`` (the DTensor's own mesh
-    when None) and returns a plain tensor as it is; with ``rules`` None it
+    ``sh(x, "batch", None, "heads")`` redistributes a DTensor ``x`` (and,
+    in the backward, its gradient) to the placements the rules give its
+    shape on ``mesh`` (the DTensor's own mesh when None) and returns a
+    plain tensor as it is; with ``rules`` None it
     is the identity. It carries ``.rules`` and ``.mesh`` (the MoE layer's
     expert-parallel path and ``sharded_attention`` read them) and
     ``.fallbacks``, {op name: calls} of the attention that ran replicated
@@ -341,7 +452,7 @@ def make_sharder(rules: Optional[ShardingRules], mesh=None):
             return x
         m = mesh if mesh is not None else x.device_mesh
         spec = rules.pspec_for_shape(x.shape, axes, m)
-        return x.redistribute(m, placements(spec, m))
+        return _Constrain.apply(x, m, placements(spec, m))
 
     sh.rules = rules
     sh.mesh = mesh

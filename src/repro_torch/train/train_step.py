@@ -4,7 +4,7 @@ from __future__ import annotations
 import torch
 
 from ..models.api import Model
-from ..models.spec import tree_leaves, tree_unflatten
+from ..models.spec import mesh_scope, tree_leaves, tree_unflatten
 from .optimizer import AdamWConfig, adamw_update
 
 
@@ -15,7 +15,7 @@ def loss_and_grads(model: Model, params, batch, remat: str = "dots_no_batch",
     where the loss does not depend on a leaf, as ``jax.grad`` gives).
     ``sh`` is the activation-sharding hook (None: the identity)."""
     leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
-    with torch.enable_grad():
+    with torch.enable_grad(), mesh_scope(sh):
         loss = model.train_loss(tree_unflatten(params, leaves), batch, remat,
                                 sh)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)

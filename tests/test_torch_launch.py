@@ -12,6 +12,7 @@ sharding half of ``repro_torch.models.spec``) against the JAX package's.
 
 The fake world is process-global; the module fixture takes it down.
 """
+import dataclasses
 from types import SimpleNamespace
 
 import numpy as np
@@ -260,6 +261,60 @@ def test_dryrun_decode_cell(multi):
             + _jax_shard_bytes(model.decode_input_specs(gb, seq), rules,
                                sizes))
     assert rec["arg_bytes"] == want
+
+
+def _cut(monkeypatch, n_layers=2):
+    """The dry run's configs at ``n_layers`` of their layers (published
+    widths)."""
+    monkeypatch.setattr(dryrun, "get_config", lambda arch: (
+        dataclasses.replace(get_config(arch), n_layers=n_layers)))
+
+
+def test_dryrun_train_cell_refuses_no_heads_view_and_holds_no_vocab(
+        monkeypatch):
+    """smollm-135m at full width, 2 of its layers, train_4k on 16 x 16: its
+    9 heads over 3 KV heads go to the heads placement by all-to-alls
+    (DTensor refused the view: 6 a layer went to ``ReshardOnRefusal``),
+    the gold logit and the log-sum-exp are reduced over the vocab shards
+    (the gather replicated the vocab: 12.9 GB of float32 logits a device),
+    so no fallback of any kind, the peak temporaries stay below one
+    device's float32 logits over the whole vocab ([16, 4096, 49152]), and
+    the argument bytes are JAX's."""
+    seq, gb, _ = SHAPES["train_4k"]
+    _cut(monkeypatch)
+    rec = dryrun.run_cell("smollm-135m", "train_4k", False, verbose=False)
+    assert rec["fallbacks"] == {}
+    assert rec["collective_counts"]["all-to-all"] > 0
+    whole_vocab = (gb // 16) * seq * get_config("smollm-135m").vocab * 4
+    assert rec["temp_bytes"] < whole_vocab, (rec["temp_bytes"], whole_vocab)
+    cfg = dataclasses.replace(jax_config("smollm-135m"), n_layers=2)
+    model = jax_build(cfg)
+    rules = _rules("single", jax_side=True)
+    sizes = {"data": 16, "model": 16}
+    want = sum(_jax_shard_bytes(s, rules, sizes) for s in (
+        model.param_specs, jax_opt_specs(model.param_specs,
+                                         JaxAdamWConfig()),
+        model.train_input_specs(gb, seq)))
+    assert rec["arg_bytes"] == want
+
+
+def test_dryrun_context_parallel_output_moves_by_all_to_all(monkeypatch):
+    """smollm-135m prefill_32k (2 layers, 16 x 16): q goes from the heads
+    placement to its rows of every block and the output back by one
+    all-to-all each (XLA's move; the output went to full rows by an
+    all-gather), q, k and v from the projections' columns to the heads by
+    one each, the output back to the columns by one, and the cache takes
+    its rows from the heads by one a tensor: 8 a layer; no fallback."""
+    from repro_torch.models import moe
+    _cut(monkeypatch)
+    moves = []
+    exchange = moe.exchange
+    monkeypatch.setattr(moe, "exchange",
+                        lambda *a: moves.append(1) or exchange(*a))
+    rec = dryrun.run_cell("smollm-135m", "prefill_32k", False, verbose=False)
+    assert rec["fallbacks"] == {}
+    assert len(moves) == 8 * 2
+    assert rec["collective_counts"]["all-to-all"] >= len(moves)
 
 
 def test_ingest_dryrun_single_mesh(capsys):

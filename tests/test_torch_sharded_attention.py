@@ -19,7 +19,8 @@ a sequence-sharded cache, on the same numpy inputs.
   within 1e-4 in float32 (``test_torch_lm.py``'s attention tolerance: the
   blocked scan and the merge add in other orders).
 * A dry run on a fake 2 x 4 world at the reduced width and Sq 4,096 holds
-  no scores: its peak temporaries stay below one layer's plain scores.
+  no scores (its peak temporaries stay below one layer's plain scores)
+  and falls back nowhere (3 heads on the 4-wide axis).
 """
 import os
 import subprocess
@@ -450,8 +451,8 @@ def test_dryrun_context_parallel_holds_no_scores(fake_world):
     fake = FakeTensorMode(allow_non_fake_inputs=True)
     args = tuple(dryrun.place(s, rules, mesh, fake) for s in specs)
     mem = MemTracker()
-    with fake, OpCost() as counter, mem, dryrun.ReshardOnRefusal(), \
-            dryrun.strided_index_math_on_host():
+    with fake, OpCost() as counter, mem, dryrun.ReshardOnRefusal() as \
+            reshard, dryrun.strided_index_math_on_host():
         step(*args)
     peak = max(v["Total"] for v in mem.get_tracker_snapshot("peak").values())
     scores = 1 * cfg.n_heads * 4096 * 4096 * 4
@@ -463,6 +464,9 @@ def test_dryrun_context_parallel_holds_no_scores(fake_world):
                 for r in range(128))
     assert flops == 4 * cfg.n_heads * cfg.hd * pairs * cfg.n_layers
     assert sh.fallbacks == {}
+    # the 3 heads on the 4-wide axis go to the heads placement and back by
+    # all-to-alls: DTensor refuses no view
+    assert reshard.fallbacks == {}
 
 
 # ---------------------------------------------------------------- the card
