@@ -172,6 +172,18 @@ Phases (each raises on failure):
      logits within 1e-5 (float32) and 2e-2 (bf16) of rank 0's unsharded
      path, no fallback, #7's launches a rank counted (none where a rank
      holds no heads; paths ``heads`` and the float32 ``heads_check``);
+     (g) serving on the same mesh and rules, as a user calls the model
+     (no ``ReshardOnRefusal``: an op DTensor refuses raises):
+     olmoe-1b-7b (2 of 16 layers, no token dropped), zamba2-2.7b (one
+     group: 6 Mamba2 layers and the shared attention) and
+     whisper-large-v3 (2 encoder and 2 decoder layers, 1,500 frames), at
+     full width, each a prefill of 4 x 512 tokens into 520 slots and 8
+     decode steps, the logits and the final state within 1e-5 (float32)
+     of rank 0's unsharded path, bf16 by its median row within 2e-2 or
+     twice bf16's own distance from float32 where that is larger (the
+     MoE's top 8 flip where the sharded matmuls round otherwise), no
+     fallback, every rank's values equal, #7's launches a rank counted
+     (paths ``mesh_serve`` and the float32 ``mesh_serve_check``);
   12. (run before 11, which leaves its recorded inputs on the card) the
      enc-dec and VLM families at full width (sizes and cuts in ``P12``), weights drawn on the card, frames and image embeddings
      seeded (the frontends are stubs), served greedily through
@@ -3023,9 +3035,9 @@ def torch_int(x, dev):
 
 
 def rank_child(out_dir, rank):
-    """Rank ``rank`` of phase 9's mesh or of phase 13a's, 13d's or 13f's mesh
-    (``"phase"`` in ``out_dir``'s config.json names which), a process
-    of its own: loads the kernel library phase 2 built (and refuses to
+    """Rank ``rank`` of phase 9's mesh or of phase 13a's, 13d's, 13f's or
+    13g's mesh (``"phase"`` in ``out_dir``'s config.json names which), a
+    process of its own: loads the kernel library phase 2 built (and refuses to
     build one), joins the mesh (the backend the parent chose: NCCL with a
     card a rank, else gloo with every rank on ``cuda:0``), runs the
     phase's body and writes its results into ``out_dir``."""
@@ -3035,7 +3047,8 @@ def rank_child(out_dir, rank):
     from repro_torch.kernels import common
     cfg = json.loads((out_dir / "config.json").read_text())
     body = {"phase 9": mesh_rank, "phase 13a": ep_rank,
-            "phase 13d": cp_rank, "phase 13f": heads_rank}[cfg["phase"]]
+            "phase 13d": cp_rank, "phase 13f": heads_rank,
+            "phase 13g": serve_rank}[cfg["phase"]]
     if cfg["device"] == "cuda":
         if not (common.BUILD_DIR / common.source_hash()
                 / "libreprotorch.so").exists():
@@ -3286,10 +3299,16 @@ P13 = dict(reduced=False, moe="olmoe-1b-7b", layers=2, ranks=4, batch=4,
            # 13f: heads the model axis does not divide, on DTensors
            heads_arch="smollm-135m", heads_layers=2, heads_batch=4,
            heads_seq=512,
-           heads_rtol={"float32": 1e-5, "bfloat16": 2e-2})
+           heads_rtol={"float32": 1e-5, "bfloat16": 2e-2},
+           # 13g: serving on DTensors in the MoE, hybrid and enc-dec
+           # families (2 layers a stack; the hybrid's one group)
+           serve_archs=("olmoe-1b-7b", "zamba2-2.7b", "whisper-large-v3"),
+           serve_layers=2, serve_batch=4, serve_prompt=512, serve_decode=8,
+           serve_rtol={"float32": 1e-5, "bfloat16": 2e-2})
 EP_DIR = ROOT / "build" / "phase13"
 CP_DIR = ROOT / "build" / "phase13d"
 HEADS_DIR = ROOT / "build" / "phase13f"
+SERVE_DIR = ROOT / "build" / "phase13g"
 
 
 def p13_config(**kw):
@@ -3972,6 +3991,300 @@ def mesh_heads(seed, smi, stash, device="cuda"):
     return launches
 
 
+def serve_config(arch, dtype):
+    """13g's config of ``arch``: full width, ``serve_layers`` layers a
+    stack (the hybrid: one group, its Mamba2 layers and one application
+    of the shared attention), MoE at ``capacity_factor = n_experts /
+    experts_per_token`` (the expert-parallel prefill drops no token)."""
+    import dataclasses
+    from repro_torch.configs import get_config, get_reduced
+    cfg = (get_reduced if P13["reduced"] else get_config)(arch)
+    kw = {"n_layers": P13["serve_layers"]}
+    if cfg.family == "hybrid":
+        kw["n_layers"] = cfg.shared_attn_every
+    if cfg.family == "encdec":
+        kw["n_enc_layers"] = P13["serve_layers"]
+    if cfg.n_experts:
+        kw["capacity_factor"] = cfg.n_experts / cfg.experts_per_token
+    return dataclasses.replace(cfg, param_dtype=dtype, **kw)
+
+
+def serve_rank(conf, rank, dev, out_dir):
+    """Phase 13g on one rank: ``conf["archs"]`` (``serve_archs``) served
+    on mesh (1, 4) under the production rules (``launch.dryrun.
+    rules_for``: ``model``, ``kv_seq`` and the experts on the 4-wide
+    axis), the parameters and the batch DTensors on the rank's device (a
+    CUDA mesh over gloo: DTensor's collectives go through pinned host
+    buffers), as a user calls the model: no ``ReshardOnRefusal``, so an op
+    that DTensor refuses raises.
+    Each config a prefill of ``serve_batch`` x ``serve_prompt`` tokens
+    (whisper with its 1,500 seeded frames) into ``serve_prompt +
+    serve_decode`` slots, then ``serve_decode`` decode steps of seeded
+    tokens, each step's logits and the final state gathered whole. bf16
+    (path ``mesh_serve``) and float32 (``mesh_serve_check``); rank 0 runs
+    the unsharded path too. Returns (result dict, {file: this rank's #7
+    inputs per geometry})."""
+    import numpy as np
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.dryrun import rules_for
+    from repro_torch.models import (build, init_params, make_sharder,
+                                    sharded_attention, sharding_tree)
+    from repro_torch.models.api import prefix_input
+    from repro_torch.models.spec import (contiguous_stride, flatten_up_to,
+                                         local_block, staged_collectives,
+                                         tree_map)
+    n = conf["ranks"]
+    mesh = init_device_mesh(dev.type, (1, n),
+                            mesh_dim_names=("data", "model"))
+    rules = rules_for(False)
+    b, s, new = P13["serve_batch"], P13["serve_prompt"], P13["serve_decode"]
+
+    def place(tree, specs):
+        """Each rank's block of the full values (the same on every rank),
+        as DTensors placed by the rules: no exchange."""
+        pls = flatten_up_to(specs, sharding_tree(specs, rules, mesh))
+        it = iter(DTensor.from_local(
+            local_block(x, pl, mesh).contiguous(), mesh, pl,
+            run_check=False, shape=x.shape, stride=contiguous_stride(
+                x.shape)) for x, pl in zip(flatten_up_to(specs, tree), pls))
+        return tree_map(lambda _: next(it), specs)
+
+    def whole(t):
+        return t.full_tensor() if isinstance(t, DTensor) else t
+
+    def leaves(state):
+        if isinstance(state, (tuple, list)):
+            return [x for y in state for x in leaves(y)]
+        return [state]
+
+    def serve(model, params, batch, toks, sh, place_token):
+        """The prefill, then a decode step per column of ``toks``: (the
+        logits [B, 1 + steps, V], the final state's leaves), gathered."""
+        logits, *state = model.prefill(params, dict(batch, max_len=s + new),
+                                       sh)
+        out = [whole(logits)]
+        for t in range(toks.shape[1]):
+            step = {"token": place_token(toks[:, t:t + 1]),
+                    "cache": state[0]}
+            if model.cfg.family == "encdec":
+                step["cross"] = state[1]
+            if model.cfg.family != "ssm":
+                step["pos"] = s + t
+            logits, state[0] = model.decode(params, step, sh)
+            out.append(whole(logits))
+        return torch.cat(out, 1), [whole(x) for x in leaves(state)]
+
+    def parts(out):
+        """A serve's output as the compared parts: the prefill's logits,
+        the decode steps', the final state's leaves."""
+        return {"prefill": [out[0][:, :1]], "decode": [out[0][:, 1:]],
+                "state": out[1]}
+
+    res = {"rank": rank, "launches": {}, "fallbacks": {}, "seconds": {},
+           "rel": {}, "rows": {}, "floor": {}, "sums": {}, "finite": {}}
+    files, calls, bf16 = {}, {}, {}
+    for dtype, path in (("bfloat16", "mesh_serve"),
+                        ("float32", "mesh_serve_check")):
+        counts = {}
+        with Recorder(sharded_attention, "flash_attention") as rec, \
+                staged_collectives(mesh):
+            for arch in conf["archs"]:
+                cfg = serve_config(arch, dtype)
+                model = build(cfg)
+                rng = np.random.default_rng(conf["seed"])
+                toks = torch.as_tensor(rng.integers(
+                    1, cfg.vocab, (b, s + new)).astype(np.int32), device=dev)
+                batch = {"tokens": toks[:, :s]}
+                prefix = prefix_input(cfg)
+                if prefix is not None:
+                    batch[prefix[0]] = torch.as_tensor(rng.normal(
+                        size=(b, prefix[1], cfg.d_model)) * 0.02,
+                        dtype=cfg.dtype, device=dev)
+                gen = torch.Generator(device=dev).manual_seed(conf["seed"])
+                params = init_params(model.param_specs, gen, device=dev)
+                sh = make_sharder(rules, mesh)
+                dp = place(params, model.param_specs)
+                db = place(batch, model.prefill_input_specs(b, s))
+                token_spec = {"token": model.decode_input_specs(
+                    b, s + new)["token"]}
+                if rank != 0:
+                    del params
+                reset_launches()
+                t0 = time.perf_counter()
+                got = serve(model, dp, db, toks[:, s:], sh, lambda t: place(
+                    {"token": t}, token_spec)["token"])
+                sync()
+                res["seconds"][f"{path}/{arch}"] = time.perf_counter() - t0
+                counts[arch] = dict(LAUNCHES)
+                for k, v in sh.fallbacks.items():
+                    res["fallbacks"][f"{path}/{arch}/{k}"] = v
+                res["finite"][f"{path}/{arch}"] = all(
+                    bool(torch.isfinite(x.float()).all())
+                    for x in [got[0]] + got[1])
+                res["sums"][f"{path}/{arch}"] = [
+                    float(x.double().sum()) for x in [got[0]] + got[1]]
+                if rank == 0:  # the unsharded path on the same weights
+                    want = parts(serve(model, params, batch, toks[:, s:],
+                                       None, lambda t: t))
+                    got = parts(got)
+                    lim = P13["serve_rtol"][dtype]
+                    res["rel"][f"{dtype}/{arch}"] = {
+                        k: max(rel_err(g, w) for g, w in zip(got[k], want[k]))
+                        for k in got}
+                    res["rows"][f"{dtype}/{arch}"] = {
+                        k: row_errs(got[k], want[k], lim) for k in got}
+                    if dtype == "bfloat16":  # for the float32 pass
+                        bf16[arch] = {k: [x.cpu() for x in v]
+                                      for k, v in want.items()}
+                    else:  # how far bf16 itself is from float32
+                        lim = P13["serve_rtol"]["bfloat16"]
+                        res["floor"][arch] = {
+                            k: row_errs(bf16[arch][k], want[k], lim)
+                            for k in want}
+                    del params, want
+                del dp, db, got, model
+                free_card()
+        res["launches"][path] = counts
+        calls[path] = [[[list(map(list, g[0])), [list(kv) for kv in g[1]],
+                         list(g[2])], c]
+                       for g, (c, _) in rec.calls.items()]
+        for j, (_, (args, _)) in enumerate(rec.calls.values()):
+            tensors_to_npz(f"{path}_g{j}", args, files)
+    res["calls"] = calls
+    return res, {f"inputs{rank}.npz": files}
+
+
+def row_errs(got, want, limit):
+    """The relative error norm of each row (the last dim) of the tensors
+    ``got`` against ``want``: [median, rows past ``limit``, rows]."""
+    import torch
+    errs = []
+    for g, w in zip(got, want):
+        g, w = (t.detach().float().cpu().flatten(0, -2) for t in (g, w))
+        errs.append((g - w).norm(dim=1) / w.norm(dim=1).clamp_min(1e-30))
+    errs = torch.cat(errs)
+    return [float(errs.median()), int((errs > limit).sum()), errs.numel()]
+
+
+def serve_launches(cfg):
+    """#7's launches a rank in 13g's run of ``cfg``: the prefill's self
+    attention and each decode step's once a layer over the rank's cache
+    slots (the ``kv_seq`` case; a prompt below the blocked length), the
+    enc-dec's encoder and its cross attention ("heads": the model axis
+    divides whisper's 20 heads) once a layer each time they run."""
+    steps = 1 + P13["serve_decode"]  # the prefill, then the decode steps
+    if cfg.family == "hybrid":  # one application of the shared attention
+        return steps
+    if cfg.family == "encdec":
+        return cfg.n_enc_layers + 2 * cfg.n_layers * steps
+    return cfg.n_layers * steps
+
+
+def mesh_serving(seed, smi, stash, device="cuda"):
+    """13g: ``serve_rank`` on 4 rank processes on ``cuda:0`` over gloo.
+    Checks each config's prefill logits, decode steps' logits and final
+    state against rank 0's unsharded path (relative error norms within
+    ``serve_rtol``: float32 1e-5), every rank's gathered values equal and
+    finite, no fallback on any rank, and #7's launches a rank
+    (``serve_launches``). bf16 is held by its median row (the last dim's
+    vectors; the rows past the limit counted) within 2e-2, or within twice
+    bf16's own distance from float32 (rank 0's unsharded bf16 path against
+    its unsharded float32 path, median row) where that is larger: the
+    sharded matmuls round otherwise than the unsharded ones, a difference
+    that the SSM's recurrence carries on, and where a token's 8th and 9th
+    expert are that close, its top 8 change, a discrete change of its
+    output (float32 holds the whole at 1e-5). Fills
+    ``stash["mesh_serve"]`` and ``stash["mesh_serve_check"]`` with every
+    rank's #7 inputs; returns the paths' launches."""
+    import shutil
+    import numpy as np
+    n = P13["ranks"]
+    shutil.rmtree(SERVE_DIR, ignore_errors=True)
+    SERVE_DIR.mkdir(parents=True)
+    b, s, new = P13["serve_batch"], P13["serve_prompt"], P13["serve_decode"]
+    log(f"phase 13g: {n} ranks on mesh (1, {n}) under the production rules, "
+        f"parameters and batch as DTensors; each config a prefill of {b} x "
+        f"{s} tokens into {s + new} slots, then {new} decode steps: "
+        + "; ".join(describe(serve_config(a, "bfloat16"))
+                    for a in P13["serve_archs"]))
+    (SERVE_DIR / "config.json").write_text(json.dumps(
+        dict(phase="phase 13g", backend="gloo", seed=seed, device=device,
+             ranks=n, dir=str(SERVE_DIR), archs=P13["serve_archs"])))
+    t_ranks = run_ranks(n, SERVE_DIR, timeout=300)
+    res = [json.loads((SERVE_DIR / f"rank{r}.json").read_text())
+           for r in range(n)]
+    for key, rel in res[0]["rel"].items():
+        dtype, arch = key.split("/")
+        for part, err in rel.items():
+            if dtype == "float32":
+                got, bound = err, P13["serve_rtol"][dtype]
+            else:  # the median row; bf16's own distance from float32
+                got = res[0]["rows"][key][part][0]
+                bound = max(P13["serve_rtol"][dtype],
+                            2 * res[0]["floor"][arch][part][0])
+            if not got <= bound:
+                raise AssertionError(
+                    f"phase 13g: {key} {part} vs the unsharded path's: "
+                    f"{got} (limit {bound}; error norm {err}, rows "
+                    f"{res[0]['rows'][key][part]})")
+    for x in res:
+        if x["fallbacks"]:
+            raise AssertionError(f"phase 13g rank {x['rank']}: fallbacks "
+                                 f"{x['fallbacks']}")
+        if not all(x["finite"].values()) or x["sums"] != res[0]["sums"]:
+            raise AssertionError(f"phase 13g rank {x['rank']}: non-finite "
+                                 "values, or values not rank 0's")
+    launches = {}
+    for path in ("mesh_serve", "mesh_serve_check"):
+        for r, x in enumerate(res):
+            for arch, got in x["launches"][path].items():
+                want = serve_launches(serve_config(arch, "float32"))
+                others = {k: v for k, v in got.items()
+                          if v and k != "flash_attention"}
+                if device == "cuda" and (others or got["flash_attention"]
+                                         != want):
+                    raise AssertionError(
+                        f"phase 13g rank {r} {path} {arch}: launches {got}, "
+                        f"want {want} of #7 only")
+        launches[path] = {k: sum(x["launches"][path][a][k] for x in res
+                                 for a in x["launches"][path])
+                          for k in res[0]["launches"][path][
+                              P13["serve_archs"][0]]}
+        recs = {name: Recorded() for name in wrapper_sites()}
+        recs["probe_stack"], recs["combine_rows"] = Recorded(), Recorded()
+        for x in res:
+            arrays = dict(np.load(SERVE_DIR / f"inputs{x['rank']}.npz"))
+            for j, (g, c) in enumerate(x["calls"][path]):
+                key = (tuple(tuple(d) for d in g[0]),
+                       tuple(tuple(kv) for kv in g[1]), tuple(g[2]))
+                if key in recs["flash_attention"].calls:
+                    recs["flash_attention"].calls[key][0] += c
+                    continue
+                args = tensors_from_npz(f"{path}_g{j}", arrays, device)
+                recs["flash_attention"].calls[key] = [c, (args,
+                                                          dict(key[1]))]
+        stash[path] = recs
+    log(f"phase 13g ({smi}): {n} ranks on {device} over gloo, {t_ranks:.3f}"
+        f" s from start to exit; vs rank 0's unsharded path, relative "
+        f"error norms (prefill logits, decode logits, final state; limits "
+        f"float32 {P13['serve_rtol']['float32']:g}, bf16 "
+        f"{P13['serve_rtol']['bfloat16']:g}): " + json.dumps(res[0]["rel"])
+        + "; by row (median, rows past the limit, rows): "
+        + json.dumps(res[0]["rows"]) + "; bf16's own, unsharded against "
+        "float32: " + json.dumps(res[0]["floor"])
+        + "; no fallback; #7 launches a rank (bf16) " + json.dumps(
+            [{a: v["flash_attention"]
+              for a, v in x["launches"]["mesh_serve"].items()} for x in res])
+        + f"; geometries {len(stash['mesh_serve']['flash_attention'].calls)}"
+        "; rank 0's seconds " + json.dumps(
+            {k: round(v, 3) for k, v in res[0]["seconds"].items()}))
+    shutil.rmtree(SERVE_DIR, ignore_errors=True)
+    return launches
+
+
 def attention_work(args, kw):
     """(bytes, flops) of one #7 forward call on ``args`` / ``kw``
     (``kernels.flash_attention.attention_cost``, the formula ``OpCost``
@@ -4146,8 +4459,8 @@ def dry_runs_finish(procs, t0, smi, timeout=300):
 
 
 def launch_tools(seed, smi, stash, device="cuda"):
-    """Phase 13: the dry runs started on the CPU, then 13a and 13b on the
-    card, then the dry runs' records. Returns launches by path."""
+    """Phase 13: the dry runs started on the CPU, then 13a, 13b and 13d-13g
+    on the card, then the dry runs' records. Returns launches by path."""
     procs, t0 = dry_runs_start()
     try:
         t = {}
@@ -4170,6 +4483,10 @@ def launch_tools(seed, smi, stash, device="cuda"):
         tf = time.perf_counter()
         launches.update(mesh_heads(seed, smi, stash, device))
         t["f"] = time.perf_counter() - tf
+        free_card()
+        tg = time.perf_counter()
+        launches.update(mesh_serving(seed, smi, stash, device))
+        t["g"] = time.perf_counter() - tg
         tc = time.perf_counter()
         dry_runs_finish(procs, t0, smi)
         t["c_wait"] = time.perf_counter() - tc

@@ -28,9 +28,11 @@ dry run lifts plain tensors to replicated DTensors and, on a refusal,
 replicates the operands' placements on the inner mesh dims (the model
 axis first) and tries again; an op DTensor has no rule for at all
 (``searchsorted``) runs on the replicated operands' local tensors, its
-results replicated. The record's ``fallbacks`` counts these per op, and
-the attention that ran replicated on an axis for want of a placement
-(``repro_torch.flash_attention``). DTensor computes a strided
+results replicated; a write into a plain tensor beside a DTensor, which
+real ranks refuse, runs on the lifted tensor. The record's
+``fallbacks`` counts these per op, and the attention that ran replicated
+on an axis for want of a placement (``repro_torch.flash_attention``).
+DTensor computes a strided
 shard's indices with ``torch.arange(...).tolist()``, which a fake tensor
 cannot answer: the dry run runs that host arithmetic outside the modes.
 On a CPU mesh DTensor moves a shard between tensor dims by an all-gather
@@ -84,7 +86,10 @@ class ReshardOnRefusal(TorchDispatchMode):
     DTensor operands are replicated on mesh dims k.. (k from the last
     down) until the op runs; an op with no sharding rule runs on the
     fully replicated operands' local tensors. ``fallbacks`` counts the
-    refused ops.
+    refused ops, and as ``"<op> into a plain tensor"`` an op that writes
+    into a plain tensor (a mutable argument of its schema) beside a
+    DTensor operand: real ranks refuse that write, even where plain
+    tensors that are read count as replicated (``spec.mesh_scope``).
 
     Each refusal is planned once: the replication that let an op run is
     remembered for its (op, operand placements, shapes and arguments),
@@ -111,6 +116,20 @@ class ReshardOnRefusal(TorchDispatchMode):
                                        torch.dtype)) else repr(x)
         return (func, tuple(map(one, pytree_leaves((args, kwargs)))))
 
+    @staticmethod
+    def _writes_plain(func, args, kwargs) -> bool:
+        """Whether ``func`` writes into a plain tensor: an argument that
+        its schema marks as written holds a tensor that is no DTensor."""
+        from torch.distributed.tensor import DTensor
+        for i, a in enumerate(func._schema.arguments):
+            if a.alias_info is None or not a.alias_info.is_write:
+                continue
+            v = args[i] if i < len(args) else kwargs.get(a.name)
+            if any(isinstance(t, torch.Tensor) and not isinstance(t, DTensor)
+                   for t in pytree_leaves(v)):
+                return True
+        return False
+
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         from torch.distributed.tensor import DTensor, Replicate
         kwargs = kwargs or {}
@@ -118,6 +137,9 @@ class ReshardOnRefusal(TorchDispatchMode):
             return func(*args, **kwargs)
         mesh = next(a.device_mesh for a in pytree_leaves((args, kwargs))
                     if isinstance(a, DTensor))
+        if self._writes_plain(func, args, kwargs):
+            what = f"{func.overloadpacket} into a plain tensor"
+            self.fallbacks[what] = self.fallbacks.get(what, 0) + 1
 
         def lift(t):
             if isinstance(t, DTensor):

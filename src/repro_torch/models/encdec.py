@@ -153,12 +153,12 @@ def prefill(cfg: ModelConfig, params, frames: torch.Tensor,
     cross-attention keys and values (k, v) [L, B, F, KV, hd]);
     ``max_len`` defaults to S."""
     b, s = tokens.shape
-    cache = tuple(spec.zeros(kv, tokens.device, sh, tokens)
-                  for kv in cache_specs(cfg, b, max_len or s)[0])
     enc_out = encode(cfg, params, frames, remat="none", sh=sh)
-    cross = kv_zeros(cfg, b, frames.shape[1], tokens.device)
     positions = torch.arange(s, dtype=torch.int32, device=tokens.device)
     x = _embed(cfg, params, tokens, positions)
+    self_kv, cross_kv = cache_specs(cfg, b, max_len or s, frames.shape[1])
+    cache = tuple(spec.zeros(kv, tokens.device, sh, x) for kv in self_kv)
+    cross = tuple(spec.zeros(kv, tokens.device, sh, x) for kv in cross_kv)
     for i in range(cfg.n_layers):
         x, _, (xk, xv) = _dec_block(cfg, _layer(params["dec_blocks"], i), x,
                                     positions, enc_out,
@@ -186,26 +186,15 @@ def decode_step(cfg: ModelConfig, params, token: torch.Tensor, cache: KV,
     return layers.unembed(cfg, params["embed"], x, sh), cache
 
 
-def cache_specs(cfg: ModelConfig, batch: int, max_len: int):
+def cache_specs(cfg: ModelConfig, batch: int, max_len: int,
+                n_frames: Optional[int] = None):
     """PSpecs of the decode state: ((k, v) of the self-attention cache,
-    (k, v) of the cross-attention over ``cfg.n_frames`` frames)."""
+    (k, v) of the cross-attention over ``n_frames`` (default
+    ``cfg.n_frames``) frames)."""
     self_kv = PSpec((cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd),
                     cfg.dtype, "zeros",
                     axes=(None, "batch", "kv_seq", None, None))
-    cross = PSpec((cfg.n_layers, batch, cfg.n_frames, cfg.n_kv_heads,
-                   cfg.hd), cfg.dtype, "zeros",
+    cross = PSpec((cfg.n_layers, batch, n_frames or cfg.n_frames,
+                   cfg.n_kv_heads, cfg.hd), cfg.dtype, "zeros",
                   axes=(None, "batch", None, None, None))
     return (self_kv, self_kv), (cross, cross)
-
-
-def kv_zeros(cfg: ModelConfig, batch: int, length: int, device) -> KV:
-    """A zero (k, v) pair [L, B, length, KV, hd] of the decoder's layers."""
-    shape = (cfg.n_layers, batch, length, cfg.n_kv_heads, cfg.hd)
-    return (torch.zeros(shape, dtype=cfg.dtype, device=device),
-            torch.zeros(shape, dtype=cfg.dtype, device=device))
-
-
-def cache_zeros(cfg: ModelConfig, batch: int, max_len: int, device):
-    """The zero decode state of ``cache_specs``: (self cache, cross)."""
-    return (kv_zeros(cfg, batch, max_len, device),
-            kv_zeros(cfg, batch, cfg.n_frames, device))

@@ -105,9 +105,9 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor,
     logits [B, 1, vocab_padded] float32, ((ssm, conv), (k, v)))."""
     b, s = tokens.shape
     g, per = _groups(cfg)
-    states = state_zeros(cfg, b, max_len or s, tokens.device, sh, tokens)
-    (ssm, conv), (ck, cv) = states
     x = layers.embed_tokens(params["embed"], tokens)
+    states = state_zeros(cfg, b, max_len or s, tokens.device, sh, x)
+    (ssm, conv), (ck, cv) = states
     positions = torch.arange(s, dtype=torch.int32, device=tokens.device)
     for gi in range(g):
         mblk, ln1, ln2 = _group(params, gi)
@@ -167,9 +167,7 @@ def state_specs(cfg: ModelConfig, batch: int, max_len: int):
 
 def state_zeros(cfg: ModelConfig, batch: int, max_len: int, device,
                 sh=None, like=None):
-    """The zero decode state; its KV caches placed by the rules of ``sh``
-    on the mesh of ``like`` where that is a DTensor (``spec.zeros``)."""
-    ssm_conv, kv = state_specs(cfg, batch, max_len)
-    return (tuple(torch.zeros(s.shape, dtype=s.dtype, device=device)
-                  for s in ssm_conv),
-            tuple(spec.zeros(s, device, sh, like) for s in kv))
+    """The zero decode state, placed by the rules of ``sh`` on the mesh of
+    ``like`` where that is a DTensor (``spec.zeros``)."""
+    return tuple(tuple(spec.zeros(s, device, sh, like) for s in pair)
+                 for pair in state_specs(cfg, batch, max_len))

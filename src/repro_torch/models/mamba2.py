@@ -27,7 +27,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from . import layers
+from . import layers, spec
 from .config import ModelConfig
 from .spec import PSpec, no_sharding, tree_map
 
@@ -60,12 +60,26 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.logaddexp(x, torch.zeros_like(x))
 
 
+def _pad_seq(x: torch.Tensor, before: int = 0, after: int = 0
+             ) -> torch.Tensor:
+    """``x`` [B, S, ...] with ``before`` and ``after`` zero rows along S
+    (``F.pad``'s values), by a concatenation: on a DTensor sharded on
+    another dim, torch 2.11's ``F.pad`` gives shards that a later op
+    meets at the wrong width."""
+    def zeros(n):
+        return x.new_zeros((x.shape[0], n) + tuple(x.shape[2:]))
+
+    parts = ([zeros(before)] if before else []) + [x] + (
+        [zeros(after)] if after else [])
+    return torch.cat(parts, 1) if len(parts) > 1 else x
+
+
 def _causal_conv(x: torch.Tensor, w: torch.Tensor,
                  b: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv. x: [B, S, C]; w: [C, K]; returns silu(conv)."""
     k = w.shape[-1]
     s = x.shape[1]
-    xp = F.pad(x, (0, 0, k - 1, 0))
+    xp = _pad_seq(x, before=k - 1)
     out = xp[:, 0:s, :] * w[:, 0].to(x.dtype)
     for j in range(1, k):
         out = out + xp[:, j:j + s, :] * w[:, j].to(x.dtype)
@@ -89,10 +103,7 @@ def _ssd_chunked(cfg: ModelConfig, x: torch.Tensor, dt: torch.Tensor,
     q = min(cfg.ssm_chunk, s_orig)
     pad = (-s_orig) % q
     if pad:  # ragged tail: dt = 0 padding is exact (decay 1, no input)
-        x = F.pad(x, (0, 0, 0, 0, 0, pad))
-        dt = F.pad(dt, (0, 0, 0, pad))
-        b_ = F.pad(b_, (0, 0, 0, pad))
-        c_ = F.pad(c_, (0, 0, 0, pad))
+        x, dt, b_, c_ = (_pad_seq(t, after=pad) for t in (x, dt, b_, c_))
     s = s_orig + pad
     nc = s // q
     fa = -torch.exp(a_log.float())                               # [H] < 0
@@ -169,8 +180,8 @@ def apply_mamba(cfg: ModelConfig, p, x: torch.Tensor,
     out = sh(g @ p["out_proj"], "batch", "seq", "model_dim_act")
     if return_state:
         k = cfg.ssm_conv
-        conv_state = F.pad(xbc_raw[:, max(s - (k - 1), 0):, :],
-                           (0, 0, max(k - 1 - s, 0), 0))
+        conv_state = _pad_seq(xbc_raw[:, max(s - (k - 1), 0):, :],
+                              before=max(k - 1 - s, 0))
         return out, (final_state, conv_state)
     return out, None
 
@@ -252,7 +263,7 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor,
     (ssm states [L, B, H, P, N] float32, conv states [L, B, K-1, C])).
     The state does not grow with the length: ``max_len`` is ignored."""
     x = layers.embed_tokens(params["embed"], tokens)
-    states = state_zeros(cfg, tokens.shape[0], tokens.device)
+    states = state_zeros(cfg, tokens.shape[0], tokens.device, sh, x)
     blocks = params["blocks"]
     for i in range(cfg.n_layers):
         blk = tree_map(lambda w: w[i], blocks)
@@ -299,6 +310,9 @@ def state_specs(cfg: ModelConfig, batch: int,
     )
 
 
-def state_zeros(cfg: ModelConfig, batch: int, device) -> States:
-    return tuple(torch.zeros(s.shape, dtype=s.dtype, device=device)
+def state_zeros(cfg: ModelConfig, batch: int, device, sh=None,
+                like=None) -> States:
+    """The zero decode state, placed by the rules of ``sh`` on the mesh of
+    ``like`` where that is a DTensor (``spec.zeros``)."""
+    return tuple(spec.zeros(s, device, sh, like)
                  for s in state_specs(cfg, batch))

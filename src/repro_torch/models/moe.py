@@ -33,7 +33,8 @@ import torch.nn.functional as F
 
 from . import layers
 from .config import ModelConfig
-from .spec import PSpec, axis_sizes, local_block, no_sharding, placements
+from .spec import (PSpec, axis_sizes, contiguous_stride, local_block,
+                   local_shape, no_sharding, placements)
 
 
 def moe_specs(cfg: ModelConfig, L=()) -> Dict:
@@ -97,13 +98,24 @@ def route(cfg: ModelConfig, router: torch.Tensor,
     flat_tok = torch.arange(t, device=dev).repeat_interleave(k)
     se, order = torch.sort(flat_e, stable=True)
     stok, sgate = flat_tok[order], gate_vals.reshape(t * k)[order]
-    starts = torch.searchsorted(se, torch.arange(e, device=dev))
+    starts = _expert_starts(se, e)
     pos_in_e = torch.arange(t * k, device=dev) - starts[se]
     cap = capacity(cfg, t)
     keep = pos_in_e < cap
     slot = torch.where(keep, se * cap + pos_in_e,
                        torch.full_like(se, e * cap))
     return Routing(probs, eidx, order, stok, sgate, slot, keep, cap)
+
+
+def _expert_starts(se: torch.Tensor, e: int) -> torch.Tensor:
+    """The first dispatch position of each of the ``e`` experts in the
+    sorted expert ids ``se``: ``searchsorted``'s integers. DTensor has no
+    sharding rule for ``searchsorted`` (XLA replicates it), so on a
+    DTensor they are counted: the ids below each expert."""
+    ids = torch.arange(e, device=se.device)
+    if not _is_dtensor(se):
+        return torch.searchsorted(se, ids)
+    return (se[None, :] < ids[:, None]).sum(1)
 
 
 def combine(r: Routing, out: torch.Tensor, dtype: torch.dtype
@@ -144,35 +156,140 @@ def apply_moe(cfg: ModelConfig, p, x: torch.Tensor, sh=None
 
 def _apply_moe_local(cfg: ModelConfig, p, x: torch.Tensor, sh
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The local routing. On DTensors (a decode step on a mesh) the
+    dispatch and the combine move rows by index vectors on each rank's
+    own tensors: the tokens and the routing whole (a step's few tokens),
+    each rank's experts' rows of the buffers (``_dispatch_on_ranks``,
+    ``_combine_on_ranks``). DTensor's rules for ``index_copy`` differ
+    between versions (torch 2.11 pairs a whole index with a sharded
+    source, and fails)."""
     b, s, d = x.shape
     e = cfg.n_experts
     xt = x.reshape(b * s, d)
     r = route(cfg, p["router"], xt)
     cap = r.cap
+    rw = Routing(*(_whole(t) for t in r[:-1]), cap)
 
     # dispatch: row e * cap takes every dropped pair and is cut off (JAX's
     # scatter with mode="drop")
-    buf = xt.new_zeros(e * cap + 1, d).index_copy(0, r.slot, xt[r.stok])
-    buf = sh(buf[:e * cap].reshape(e, cap, d), "experts", None, None)
+    if _is_dtensor(xt):
+        buf = _dispatch_on_ranks(_whole(xt), rw, e, sh)
+    else:
+        buf = xt.new_zeros(e * cap + 1, d).index_copy(0, r.slot, xt[r.stok])
+        buf = buf[:e * cap].reshape(e, cap, d)
+    buf = sh(buf, "experts", None, None)
 
     # expert FFN (swiglu)
     g = torch.bmm(buf, p["w_gate"])
     u = torch.bmm(buf, p["w_up"])
     h = sh(F.silu(g) * u, "experts", None, None)
     out = sh(torch.bmm(h, p["w_down"]), "experts", None, None)
-    out = out.reshape(e * cap, d)
-
-    y = sh(combine(r, out, x.dtype).reshape(b, s, d), "batch", "seq",
-           "model_dim_act")
+    if _is_dtensor(out):
+        y = _combine_on_ranks(rw, out, x.dtype, xt)
+    else:
+        y = combine(rw, out.reshape(e * cap, d), x.dtype)
+    y = sh(y.reshape(b, s, d), "batch", "seq", "model_dim_act")
 
     if cfg.n_shared_experts:
         y = y + layers.apply_mlp(_shared_cfg(cfg), p["shared"], x, sh)
 
     # load-balance aux loss (Switch-style)
-    me = r.probs.mean(0)
-    ce = F.one_hot(r.eidx, e).float().sum(1).mean(0)
+    me = rw.probs.mean(0)
+    ce = F.one_hot(rw.eidx, e).float().sum(1).mean(0)
     aux = e * torch.sum(me * ce)
-    return y, aux
+    return y, _replicated(aux, x)
+
+
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's full value, the same on every rank; else ``t``."""
+    return t.full_tensor() if _is_dtensor(t) else t
+
+
+def _replicated(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``t`` (the same on every rank) as a DTensor replicated on the mesh
+    of ``like`` where that is a DTensor; else ``t``."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not _is_dtensor(like):
+        return t
+    return DTensor.from_local(t, like.device_mesh,
+                              [Replicate()] * like.device_mesh.ndim,
+                              run_check=False)
+
+
+def _dispatch_on_ranks(x: torch.Tensor, r: Routing, e: int, sh
+                       ) -> torch.Tensor:
+    """The dispatch buffer [E, cap, d] of the whole tokens ``x`` [T, d]
+    by the whole routing ``r``, as a DTensor placed on its experts as
+    ``sh``'s rules place it: each rank fills its own experts' rows (the
+    others' pairs go to the cut-off row)."""
+    from torch.distributed.tensor import DTensor
+    mesh, cap, d = sh.mesh, r.cap, x.shape[1]
+    shape = (e, cap, d)
+    pe = placements(sh.rules.pspec_for_shape(shape, ("experts", None, None),
+                                             mesh), mesh)
+    n = local_shape(shape, pe, mesh)[0]
+    slot = r.slot - _block_start(pe, mesh) * n * cap
+    mine = r.keep & (slot >= 0) & (slot < n * cap)
+    buf = x.new_zeros(n * cap + 1, d).index_copy(
+        0, torch.where(mine, slot, n * cap), x[r.stok])
+    return DTensor.from_local(buf[:n * cap].reshape(n, cap, d), mesh, pe,
+                              run_check=False, shape=torch.Size(shape),
+                              stride=contiguous_stride(shape))
+
+
+def _combine_on_ranks(r: Routing, out: torch.Tensor, dtype: torch.dtype,
+                      like: torch.Tensor) -> torch.Tensor:
+    """``combine`` of the DTensor ``out`` [E, cap, d] placed on its
+    experts, ``r`` whole, for this rank's block of the tokens as ``like``
+    [T, d] places them: the rank combines the pairs whose rows its experts
+    hold (the others count as dropped), and the ranks' sums are added, a
+    ``Partial`` over the mesh dims that split the experts (XLA's gather
+    from a sharded operand). [T, d]."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = out.device_mesh
+
+    def rows(q):
+        return isinstance(q, Shard) and q.dim == 0
+
+    pe = [q if rows(q) else Replicate() for q in out.placements]
+    ol = out.redistribute(mesh, pe).to_local()
+    n, cap, d = ol.shape
+    lp = like.placements if _is_dtensor(like) else [Replicate()] * len(pe)
+    pt = [q if rows(q) and not rows(e) else Replicate()
+          for q, e in zip(lp, pe)]
+    t, k = r.eidx.shape
+    tn = t
+    for i, q in enumerate(pt):
+        tn //= mesh.shape[i] if rows(q) else 1
+    t0 = _block_start(pt, mesh) * tn
+    # this block's pairs in (token, choice) order, the rows here kept
+    pick = torch.argsort(r.order)[t0 * k:(t0 + tn) * k]
+    slot = r.slot[pick] - _block_start(pe, mesh) * n * cap
+    mine = r.keep[pick] & (slot >= 0) & (slot < n * cap)
+    blk = Routing(r.probs[t0:t0 + tn], r.eidx[t0:t0 + tn],
+                  torch.arange(tn * k, device=slot.device), r.stok[pick],
+                  r.sgate[pick], torch.where(mine, slot, 0), mine, r.cap)
+    y = combine(blk, ol.reshape(n * cap, d), dtype)
+    return DTensor.from_local(
+        y, mesh, [Partial() if rows(e) else q for q, e in zip(pt, pe)],
+        run_check=False, shape=torch.Size((t, d)),
+        stride=contiguous_stride((t, d)))
+
+
+def _block_start(pl, mesh) -> int:
+    """The index of this rank's block along dim 0 under the placements
+    ``pl`` (even splits, the outer mesh dim first, as ``local_block``)."""
+    from torch.distributed.tensor import Shard
+    b = 0
+    for i, q in enumerate(pl):
+        if isinstance(q, Shard) and q.dim == 0:
+            b = b * mesh.shape[i] + mesh.get_coordinate()[i]
+    return b
 
 
 # ------------------------------------------------------ expert parallelism
@@ -435,14 +552,6 @@ class _Local:
                         t, self.mesh.get_group(name), d, self.coord[name])
         return t
 
-    def replicated(self, t: torch.Tensor, like: torch.Tensor):
-        from torch.distributed.tensor import DTensor, Replicate
-        if isinstance(like, DTensor):
-            return DTensor.from_local(t, self.mesh,
-                                      [Replicate()] * len(self.names),
-                                      run_check=False)
-        return t
-
 
 def apply_moe_spmd(cfg: ModelConfig, p, x: torch.Tensor, sh, rules, mesh
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -505,4 +614,4 @@ def apply_moe_spmd(cfg: ModelConfig, p, x: torch.Tensor, sh, rules, mesh
     y = sh(loc.leave(y, x_spec, x), "batch", "seq", "model_dim_act")
     if cfg.n_shared_experts:
         y = y + layers.apply_mlp(_shared_cfg(cfg), p["shared"], x, sh)
-    return y, loc.replicated(aux, x)
+    return y, _replicated(aux, x)

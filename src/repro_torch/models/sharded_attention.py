@@ -199,8 +199,11 @@ def _regroup(xl, own, want, r: int, group, dim: int = -1):
 
 
 def _wrap(t, mesh, pl, shape):
+    """The DTensor of local shards ``t``, whose global ``shape`` has a
+    contiguous stride: so ``t`` is made contiguous (the plain attention's
+    output is a permuted view)."""
     from torch.distributed.tensor import DTensor
-    return DTensor.from_local(t, mesh, pl, run_check=False,
+    return DTensor.from_local(t.contiguous(), mesh, pl, run_check=False,
                               shape=torch.Size(shape),
                               stride=contiguous_stride(shape))
 

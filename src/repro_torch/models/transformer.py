@@ -115,8 +115,8 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor,
     As in the JAX package, attention runs over all ``max_len`` slots."""
     b, s = tokens.shape
     smax = max_len or s
-    cache = cache_zeros(cfg, b, smax, tokens.device, sh, tokens)
     x = layers.embed_tokens(params["embed"], tokens)
+    cache = cache_zeros(cfg, b, smax, tokens.device, sh, x)
     positions = torch.arange(s, dtype=torch.int32, device=tokens.device)
     x = _run_layers(cfg, params, x, positions, cache, 0, sh)
     return layers.unembed(cfg, params["embed"], x[:, -1:], sh), cache

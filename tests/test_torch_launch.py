@@ -317,6 +317,53 @@ def test_dryrun_context_parallel_output_moves_by_all_to_all(monkeypatch):
     assert rec["collective_counts"]["all-to-all"] >= len(moves)
 
 
+def test_reshard_on_refusal_counts_a_write_into_a_plain_tensor():
+    """A DTensor written into a slice of a plain tensor: real ranks refuse
+    it (DTensor's dispatch asserts), even with the plain tensors that are
+    read counted as replicated; the dry run runs it on the lifted tensor
+    and counts it under the op, marked as a write into a plain tensor."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Replicate
+    from torch.distributed.tensor.experimental import implicit_replication
+    start_fake_world(1)
+    mesh = init_device_mesh("cpu", (1,), mesh_dim_names=("model",))
+    d = DTensor.from_local(torch.ones(4, 8), mesh, [Replicate()],
+                           run_check=False)
+    st = torch.zeros(2, 4, 8)
+    with pytest.raises(AssertionError), implicit_replication():
+        st[0] = d
+    with dryrun.ReshardOnRefusal() as refusals:
+        st[0] = d
+        st[1] += d
+    assert refusals.fallbacks == {"aten.copy_ into a plain tensor": 1,
+                                  "aten.add_ into a plain tensor": 1}
+    with dryrun.ReshardOnRefusal() as refusals:  # a DTensor target
+        d[0] = torch.zeros(8)
+        d.add_(torch.ones(4, 8))
+    assert refusals.fallbacks == {}
+
+
+@pytest.mark.parametrize("arch,shape", [("olmoe-1b-7b", "decode_32k"),
+                                        ("mamba2-2.7b", "prefill_32k")])
+def test_dryrun_serving_cell_has_no_fallback(monkeypatch, arch, shape):
+    """Serving cells at 2 layers on 16 x 16 that real ranks refused: the
+    MoE decode's routing (a sequence of 1 routes locally) ran
+    ``searchsorted``, which DTensor has no rule for (2 fallbacks); the
+    Mamba2 prefill wrote its DTensor states into plain tensors, which the
+    dry run did not count. Now neither, and the argument bytes are JAX's."""
+    seq, gb, kind = SHAPES[shape]
+    _cut(monkeypatch)
+    rec = dryrun.run_cell(arch, shape, False, verbose=False)
+    assert rec["fallbacks"] == {}
+    model = jax_build(dataclasses.replace(jax_config(arch), n_layers=2))
+    specs = (model.prefill_input_specs if kind == "prefill"
+             else model.decode_input_specs)(gb, seq)
+    rules = _rules("single", jax_side=True)
+    sizes = {"data": 16, "model": 16}
+    assert rec["arg_bytes"] == sum(_jax_shard_bytes(s, rules, sizes)
+                                   for s in (model.param_specs, specs))
+
+
 def test_ingest_dryrun_single_mesh(capsys):
     from repro.db.spmd import stacked_empty as jax_stacked_empty
     from repro_torch.launch import ingest
