@@ -154,17 +154,22 @@ Phases (each raises on failure):
      its model-FLOPs share (path ``cost_step``); (c) the smollm-135m
      decode_32k dry runs on both production meshes and the ingest dry
      run, each a process of its own on the host's CPU, started before
-     (a); (d) smollm-135m at full width and depth on 4 rank processes
-     (mesh (1, 4), ``model`` / ``attn_q`` / ``kv_seq`` on the 4-wide
-     axis, the full values on every rank): a context-parallel prefill of
-     1 x 4,096 tokens (one #7 launch a 512-row block a rank) into 8,192
-     slots and 32 decode steps over each rank's 2,048 slots, merged by
-     (o, lse), the logits within 1e-4 (float32) and 2e-2 (bf16) of rank
-     0's unsharded path, every rank's #7 launches counted (paths ``cp``
-     and the float32 ``cp_check``); (e) #7 at the reduced configs' head
-     dims 8 and 16 on the card, the logits against the CPU's (path
-     ``small``); (f) smollm-135m at full width and 2 layers on 4 rank
-     processes, the parameters and the batch DTensors on the card under
+     (a); (d) smollm-135m at full width and 8 of 30 layers on 4 rank
+     processes (mesh (1, 4), ``model`` / ``attn_q`` / ``kv_seq`` on the
+     4-wide axis, the full values on every rank): a context-parallel
+     prefill of 1 x 4,096 tokens (one #7 launch a 512-row block a rank)
+     into 8,192 slots and 32 decode steps over each rank's 2,048 slots,
+     merged by (o, lse), the logits within 1e-4 (float32) and 2e-2 (bf16)
+     of rank 0's unsharded path, every rank's #7 launches counted (paths
+     ``cp`` and the float32 ``cp_check``); (e) #7 at the reduced configs'
+     head dims 8 and 16 on the card, the logits against the CPU's (path
+     ``small``), and at the widest GQA groups, yi-34b (rep 7) and
+     command-r-plus-104b (rep 12) at full width and 1 layer: a prefill of 2
+     x 512 tokens and 8 decode steps, the last step against one prefill
+     over every token (path ``gqa_wide``), and #7 with the rows' lse at the
+     same head layouts (path ``gqa_wide_check``); (f)
+     smollm-135m at full width and 2 layers on 4 rank processes, the
+     parameters and the batch DTensors on the card under
      the production rules (its 9 heads on the 4-wide model axis: 3 a
      rank, rank 3 none; DTensor's collectives staged through pinned host
      buffers): one train step of 4 x 512 tokens and prefills with the
@@ -183,7 +188,21 @@ Phases (each raises on failure):
      twice bf16's own distance from float32 where that is larger (the
      MoE's top 8 flip where the sharded matmuls round otherwise), no
      fallback, every rank's values equal, #7's launches a rank counted
-     (paths ``mesh_serve`` and the float32 ``mesh_serve_check``);
+     (paths ``mesh_serve`` and the float32 ``mesh_serve_check``); (h) a
+     train step on the same mesh and rules through ``train_step.
+     loss_and_grads`` as a user calls it, olmoe-1b-7b, mamba2-2.7b (2 of
+     64 layers), zamba2-2.7b, whisper-large-v3 and internvl2-26b (2 of 48
+     layers, its 256 image embeddings among the 512 positions), as cut in
+     (g), 4 x 512 positions, float32, then zamba2-2.7b in bf16: the loss
+     and every gradient leaf within 1e-5 (float32) of the reference, rank
+     0's unsharded step, for olmoe with the aux loss taken as the mean of
+     the token shards' (a mesh step's MoE aux is that, as in JAX, so the
+     unsharded step is no reference), or twice the reference's own
+     distance from its float64 twin where that is larger (Mamba2's decay
+     gradient); bf16 within 2e-2 or twice the bf16 reference's own
+     distance from the float32 one where that is larger; no fallback,
+     every rank's values equal, #7's launches a rank counted (paths
+     ``mesh_train`` and the float32 ``mesh_train_check``);
   12. (run before 11, which leaves its recorded inputs on the card) the
      enc-dec and VLM families at full width (sizes and cuts in ``P12``), weights drawn on the card, frames and image embeddings
      seeded (the frontends are stubs), served greedily through
@@ -3035,12 +3054,12 @@ def torch_int(x, dev):
 
 
 def rank_child(out_dir, rank):
-    """Rank ``rank`` of phase 9's mesh or of phase 13a's, 13d's, 13f's or
-    13g's mesh (``"phase"`` in ``out_dir``'s config.json names which), a
+    """Rank ``rank`` of phase 9's mesh or of phase 13a's, 13d's, 13f's, 13g's
+    or 13h's mesh (``"phase"`` in ``out_dir``'s config.json names which), a
     process of its own: loads the kernel library phase 2 built (and refuses to
-    build one), joins the mesh (the backend the parent chose: NCCL with a
-    card a rank, else gloo with every rank on ``cuda:0``), runs the
-    phase's body and writes its results into ``out_dir``."""
+    build one), joins the mesh (the backend the parent chose: NCCL with a card
+    a rank, else gloo with every rank on ``cuda:0``), runs the phase's body and
+    writes its results into ``out_dir``."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -3048,7 +3067,8 @@ def rank_child(out_dir, rank):
     cfg = json.loads((out_dir / "config.json").read_text())
     body = {"phase 9": mesh_rank, "phase 13a": ep_rank,
             "phase 13d": cp_rank, "phase 13f": heads_rank,
-            "phase 13g": serve_rank}[cfg["phase"]]
+            "phase 13g": serve_rank,
+            "phase 13h": train_rank}[cfg["phase"]]
     if cfg["device"] == "cuda":
         if not (common.BUILD_DIR / common.source_hash()
                 / "libreprotorch.so").exists():
@@ -3291,11 +3311,16 @@ def single_rank(arrays, cfg, stash, device="cuda"):
 P13 = dict(reduced=False, moe="olmoe-1b-7b", layers=2, ranks=4, batch=4,
            seq=512, rtol=1e-5, timed_steps=5,
            # 13d: context parallelism and the kv_seq-sharded decode
-           cp_arch="smollm-135m", cp_prompt=4096, cp_max_len=8192,
+           # (depth cut to 8 of 30 layers: the script's time limit)
+           cp_arch="smollm-135m", cp_layers=8, cp_prompt=4096,
+           cp_max_len=8192,
            cp_decode=32, cp_rtol={"float32": 1e-4, "bfloat16": 2e-2},
            # 13e: the reduced configs' head dims on the card
            small=(("smollm-135m", 16), ("yi-34b", 8)), small_prompt=64,
            small_decode=8,
+           # 13e: the widest GQA groups (rep 7 and 12 at hd 128)
+           wide=("yi-34b", "command-r-plus-104b"), wide_batch=2,
+           wide_prompt=512, wide_decode=8,
            # 13f: heads the model axis does not divide, on DTensors
            heads_arch="smollm-135m", heads_layers=2, heads_batch=4,
            heads_seq=512,
@@ -3303,12 +3328,19 @@ P13 = dict(reduced=False, moe="olmoe-1b-7b", layers=2, ranks=4, batch=4,
            # 13g: serving on DTensors in the MoE, hybrid and enc-dec
            # families (2 layers a stack; the hybrid's one group)
            serve_archs=("olmoe-1b-7b", "zamba2-2.7b", "whisper-large-v3"),
-           serve_layers=2, serve_batch=4, serve_prompt=512, serve_decode=8,
-           serve_rtol={"float32": 1e-5, "bfloat16": 2e-2})
+           mesh_layers=2, serve_batch=4, serve_prompt=512, serve_decode=8,
+           serve_rtol={"float32": 1e-5, "bfloat16": 2e-2},
+           # 13h: a train step on DTensors in five families (the same
+           # cuts), bf16 in the hybrid only (the script's time limit)
+           train_archs=("olmoe-1b-7b", "mamba2-2.7b", "zamba2-2.7b",
+                        "whisper-large-v3", "internvl2-26b"),
+           train_bf16_archs=("zamba2-2.7b",), train_batch=4, train_seq=512,
+           train_rtol={"float32": 1e-5, "bfloat16": 2e-2})
 EP_DIR = ROOT / "build" / "phase13"
 CP_DIR = ROOT / "build" / "phase13d"
 HEADS_DIR = ROOT / "build" / "phase13f"
 SERVE_DIR = ROOT / "build" / "phase13g"
+TRAIN_DIR = ROOT / "build" / "phase13h"
 
 
 def p13_config(**kw):
@@ -3556,12 +3588,14 @@ def cp_config(dtype):
     import dataclasses
     from repro_torch.configs import get_config, get_reduced
     cfg = (get_reduced if P13["reduced"] else get_config)(P13["cp_arch"])
-    return dataclasses.replace(cfg, param_dtype=dtype)
+    return dataclasses.replace(cfg, param_dtype=dtype,
+                               n_layers=min(cfg.n_layers, P13["cp_layers"]))
 
 
 def cp_rank(conf, rank, dev, out_dir):
-    """Phase 13d on one rank: smollm-135m (full width and depth) on mesh
-    (1, 4) with ``model``, ``attn_q`` and ``kv_seq`` on the 4-wide axis;
+    """Phase 13d on one rank: smollm-135m (full width, ``cp_layers`` of
+    its 30 layers) on mesh (1, 4) with ``model``, ``attn_q`` and
+    ``kv_seq`` on the 4-wide axis;
     the full weights, tokens and cache on every rank (``sharded_
     attention``'s full-value mode). A prefill of ``cp_prompt`` tokens into
     a ``cp_max_len``-slot cache (context parallelism: this rank's rows of
@@ -3772,6 +3806,77 @@ def small_heads(seed, smi, stash, device="cuda"):
         f"CPU's, relative error norms " + json.dumps(out)
         + f"; #7 launches {launches['flash_attention']}")
     return launches
+
+
+def wide_gqa(seed, smi, stash, device="cuda"):
+    """13e (cont.): #7 at the widest GQA groups on the card: yi-34b (56
+    heads over 8: rep 7) and command-r-plus-104b (96 over 8: rep 12) at
+    full width and hd 128, one layer, bf16 weights drawn on the card. A
+    prefill of ``wide_batch`` x ``wide_prompt`` tokens into ``wide_prompt
+    + wide_decode`` slots and ``wide_decode`` steps through
+    ``build(cfg).prefill`` / ``.decode``, the last step's logits against
+    one prefill over every token (the same cache rows: within 5e-2,
+    phase 6's bf16 limit); path ``gqa_wide``. Then #7 called with the
+    rows' lse at the same head layouts, seeded inputs: a prefill and a
+    split-K decode step at the end of a 2,048-slot cache (path
+    ``gqa_wide_check``: phase 5 holds o and lse to plain there). Fills
+    both paths' stash; returns their launches."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build, init_params, layers
+    b, s, steps = P13["wide_batch"], P13["wide_prompt"], P13["wide_decode"]
+    rng = np.random.default_rng(seed)
+    out, want = {}, 0
+    for path in ("gqa_wide", "gqa_wide_check"):
+        stash.setdefault(path, {})
+    with kernel_run(stash["gqa_wide"]) as launches:
+        for arch in P13["wide"]:
+            cfg = dataclasses.replace(get_config(arch), n_layers=1)
+            model = build(cfg)
+            gen = torch.Generator(device=device).manual_seed(seed)
+            params = init_params(model.param_specs, gen, device=device)
+            toks = torch.as_tensor(rng.integers(1, cfg.vocab, (
+                b, s + steps)).astype(np.int32), device=device)
+            logits, cache = model.prefill(params, {"tokens": toks[:, :s],
+                                                   "max_len": s + steps})
+            for i in range(steps):
+                logits, cache = model.decode(params, {
+                    "token": toks[:, s + i:s + i + 1], "cache": cache,
+                    "pos": s + i})
+            full, _ = model.prefill(params, {"tokens": toks})
+            rel = rel_err(logits[:, -1], full[:, -1])
+            if not (rel <= 5e-2 and bool(torch.isfinite(logits).all())):
+                raise AssertionError(f"phase 13e: {arch} the last decode "
+                                     f"step vs one prefill: {rel}")
+            out[f"{arch} rep {cfg.n_heads // cfg.n_kv_heads}"] = rel
+            want += cfg.n_layers * (2 + steps)
+            del params, cache, logits, full
+            free_card()
+    if device == "cuda" and (launches["flash_attention"] != want
+                             or sum(launches.values()) != want):
+        raise AssertionError(f"phase 13e: wide GQA launches {launches}, "
+                             f"want {want} of #7")
+    with kernel_run(stash["gqa_wide_check"]) as checks:
+        for arch in P13["wide"]:
+            cfg = get_config(arch)
+            h, kv = cfg.n_heads, cfg.n_kv_heads
+            gen = torch.Generator().manual_seed(seed)
+            for (n, sq, sk), off in (((1, s, s), 0), ((4, 1, 2048), 2047)):
+                q, k, v = (torch.randn(n, length, heads, cfg.hd,
+                                       generator=gen).to(device=device,
+                                                         dtype=torch.bfloat16)
+                           for length, heads in ((sq, h), (sk, kv), (sk, kv)))
+                layers.flash_attention(q, k, v, causal=True, q_offset=off,
+                                       return_lse=True)
+    log(f"phase 13e ({smi}): yi-34b and command-r-plus-104b at full width, "
+        f"1 layer, bf16: the last of {steps} decode steps after a prefill of "
+        f"{b} x {s} tokens vs one prefill over all, relative error norm "
+        + json.dumps(out) + f"; #7 launches {launches['flash_attention']}; "
+        f"with lse, held to plain in phase 5: "
+        f"{checks['flash_attention']}")
+    return {"gqa_wide": launches, "gqa_wide_check": checks}
 
 
 def heads_config(dtype):
@@ -3991,19 +4096,19 @@ def mesh_heads(seed, smi, stash, device="cuda"):
     return launches
 
 
-def serve_config(arch, dtype):
-    """13g's config of ``arch``: full width, ``serve_layers`` layers a
-    stack (the hybrid: one group, its Mamba2 layers and one application
-    of the shared attention), MoE at ``capacity_factor = n_experts /
+def mesh_config(arch, dtype):
+    """13g's and 13h's config of ``arch``: full width, ``mesh_layers`` layers a
+    stack (the hybrid: one group, its Mamba2 layers and one application of the
+    shared attention), MoE at ``capacity_factor = n_experts /
     experts_per_token`` (the expert-parallel prefill drops no token)."""
     import dataclasses
     from repro_torch.configs import get_config, get_reduced
     cfg = (get_reduced if P13["reduced"] else get_config)(arch)
-    kw = {"n_layers": P13["serve_layers"]}
+    kw = {"n_layers": P13["mesh_layers"]}
     if cfg.family == "hybrid":
         kw["n_layers"] = cfg.shared_attn_every
     if cfg.family == "encdec":
-        kw["n_enc_layers"] = P13["serve_layers"]
+        kw["n_enc_layers"] = P13["mesh_layers"]
     if cfg.n_experts:
         kw["capacity_factor"] = cfg.n_experts / cfg.experts_per_token
     return dataclasses.replace(cfg, param_dtype=dtype, **kw)
@@ -4092,7 +4197,7 @@ def serve_rank(conf, rank, dev, out_dir):
         with Recorder(sharded_attention, "flash_attention") as rec, \
                 staged_collectives(mesh):
             for arch in conf["archs"]:
-                cfg = serve_config(arch, dtype)
+                cfg = mesh_config(arch, dtype)
                 model = build(cfg)
                 rng = np.random.default_rng(conf["seed"])
                 toks = torch.as_tensor(rng.integers(
@@ -4208,7 +4313,7 @@ def mesh_serving(seed, smi, stash, device="cuda"):
     log(f"phase 13g: {n} ranks on mesh (1, {n}) under the production rules, "
         f"parameters and batch as DTensors; each config a prefill of {b} x "
         f"{s} tokens into {s + new} slots, then {new} decode steps: "
-        + "; ".join(describe(serve_config(a, "bfloat16"))
+        + "; ".join(describe(mesh_config(a, "bfloat16"))
                     for a in P13["serve_archs"]))
     (SERVE_DIR / "config.json").write_text(json.dumps(
         dict(phase="phase 13g", backend="gloo", seed=seed, device=device,
@@ -4241,7 +4346,7 @@ def mesh_serving(seed, smi, stash, device="cuda"):
     for path in ("mesh_serve", "mesh_serve_check"):
         for r, x in enumerate(res):
             for arch, got in x["launches"][path].items():
-                want = serve_launches(serve_config(arch, "float32"))
+                want = serve_launches(mesh_config(arch, "float32"))
                 others = {k: v for k, v in got.items()
                           if v and k != "flash_attention"}
                 if device == "cuda" and (others or got["flash_attention"]
@@ -4282,6 +4387,402 @@ def mesh_serving(seed, smi, stash, device="cuda"):
         "; rank 0's seconds " + json.dumps(
             {k: round(v, 3) for k, v in res[0]["seconds"].items()}))
     shutil.rmtree(SERVE_DIR, ignore_errors=True)
+    return launches
+
+
+@contextlib.contextmanager
+def float64_reference():
+    """For a reference step run in float64 (parameters and float inputs
+    cast): ``Tensor.float()`` keeps a float64 tensor float64 (the models
+    upcast to float32 for their softmax, norms, loss and scan), and
+    attention runs as #7's plain version, which has no float64 body."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention_ref
+    from repro_torch.models import layers
+    upcast, kernel = torch.Tensor.float, layers.flash_attention
+    torch.Tensor.float = (lambda t, *a, **kw: t if t.dtype == torch.float64
+                          else upcast(t, *a, **kw))
+    layers.flash_attention = flash_attention_ref
+    try:
+        yield
+    finally:
+        torch.Tensor.float, layers.flash_attention = upcast, kernel
+
+
+@contextlib.contextmanager
+def shard_aux(n_batch, n_seq):
+    """For a reference step on one rank of an expert-parallel mesh step:
+    the MoE layer dispatches locally over the whole batch (at the no-drop
+    capacity its output is the expert-parallel one's) and takes its aux
+    loss as the mean of the aux losses of the ``n_batch`` x ``n_seq``
+    blocks of the tokens, the shards of the step on a mesh whose batch
+    axes have ``n_batch`` ranks and whose model axis ``n_seq``, each block
+    ``E * sum(mean probs * mean choices)`` of its own routing, as JAX's
+    ``_apply_moe_spmd`` takes it (a mean of products: not the aux of the
+    whole batch)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.models import moe
+    from repro_torch.models.spec import no_sharding
+    expert_parallel = moe.apply_moe
+
+    def apply(cfg, p, x, sh=None):
+        y, _ = moe._apply_moe_local(cfg, p, x, sh or no_sharding)
+        e, aux = cfg.n_experts, []
+        for xb in x.chunk(n_batch, 0):
+            for xs in xb.chunk(n_seq, 1):
+                r = moe.route(cfg, p["router"], xs.reshape(-1, x.shape[-1]))
+                ce = F.one_hot(r.eidx, e).float().sum(1).mean(0)
+                aux.append(e * torch.sum(r.probs.mean(0) * ce))
+        return y, torch.stack(aux).mean()
+
+    moe.apply_moe = apply
+    try:
+        yield
+    finally:
+        moe.apply_moe = expert_parallel
+
+
+def train_launches(cfg):
+    """#7's launches a rank in 13h's step of ``cfg``: each attention's
+    forward and its remat recompute (``dots_no_batch``) once a layer on
+    the rank's heads (the "heads" case: every rank holds heads of these
+    configs on the 4-wide axis), the enc-dec's encoder, decoder self and
+    cross attention, the hybrid's one application of the shared
+    attention, none in an SSM."""
+    per = {"ssm": 0, "hybrid": 1,
+           "encdec": cfg.n_enc_layers + 2 * cfg.n_layers}
+    return 2 * per.get(cfg.family, cfg.n_layers)
+
+
+def train_rank(conf, rank, dev, out_dir):
+    """Phase 13h on one rank: for each of ``conf["archs"]``
+    (``train_archs``) one train step through ``train_step.
+    loss_and_grads`` on mesh (1, 4) under the production rules
+    (``launch.dryrun.rules_for``), the parameters and the batch DTensors
+    on the rank's device (a CUDA mesh over gloo: DTensor's collectives go
+    through pinned host buffers), as a user calls it: no
+    ``ReshardOnRefusal``, so an op DTensor refuses raises. A batch of
+    ``train_batch`` x ``train_seq`` positions (internvl2's 256 image
+    embeddings among them, whisper's 1,500 seeded frames beside them),
+    remat ``dots_no_batch``. The reference on the same weights: rank 0's
+    unsharded step, for MoE with the aux loss of the mesh step
+    (``shard_aux``: on a mesh it is the mean of the token shards' aux, as
+    JAX's ``_apply_moe_spmd`` takes it, so the unsharded step is no
+    reference). float32 (path ``mesh_train_check``), then bf16
+    (``mesh_train``, the archs of ``conf["bf16_archs"]``). The loss and
+    each gradient leaf are gathered whole on rank 0 one at a time, which
+    holds each to the reference (relative error norm; for bf16 also the
+    reference's own distance from float32's, and for a float32 config
+    with a leaf past ``train_rtol`` float32's own distance from the
+    reference run in float64) and every rank's copy of a replicated block
+    to the first's, exactly. Returns (result dict,
+    {file: this rank's #7 inputs per geometry})."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.dryrun import rules_for
+    from repro_torch.models import (build, init_params, make_sharder,
+                                    sharded_attention, sharding_tree)
+    from repro_torch.models.api import prefix_input
+    from repro_torch.models.spec import (contiguous_stride, flatten_up_to,
+                                         local_block, staged_collectives,
+                                         tree_leaves, tree_map)
+    from repro_torch.train.train_step import loss_and_grads
+    n = conf["ranks"]
+    mesh = init_device_mesh(dev.type, (1, n),
+                            mesh_dim_names=("data", "model"))
+    rules = rules_for(False)
+    b, s = P13["train_batch"], P13["train_seq"]
+
+    def place(tree, specs):
+        """Each rank's block of the full values (the same on every rank),
+        as DTensors placed by the rules: no exchange."""
+        pls = flatten_up_to(specs, sharding_tree(specs, rules, mesh))
+        it = iter(DTensor.from_local(
+            local_block(x, pl, mesh).contiguous(), mesh, pl,
+            run_check=False, shape=x.shape, stride=contiguous_stride(
+                x.shape)) for x, pl in zip(flatten_up_to(specs, tree), pls))
+        return tree_map(lambda _: next(it), specs)
+
+    coords = [(mesh.mesh == r).nonzero()[0].tolist() for r in range(n)]
+
+    def gathered(t):
+        """(``t`` whole on rank 0, None elsewhere; whether every rank's
+        copy of a replicated block equals the first's): each rank's block
+        goes to rank 0 once, as bytes by a gather on the host (where a
+        full tensor would bring every rank every block)."""
+        pl = ([Replicate()] * n if not isinstance(t, DTensor) else
+              [Replicate() if isinstance(q, Partial) else q
+               for q in t.placements])
+        if isinstance(t, DTensor):
+            if tuple(pl) != tuple(t.placements):
+                t = t.redistribute(mesh, pl)
+            local = t.to_local()
+        else:
+            local = t
+        wire = local.detach().contiguous().cpu().reshape(-1).view(
+            torch.uint8)
+        parts = [torch.empty_like(wire) for _ in range(n)] if rank == 0 \
+            else None
+        dist.gather(wire, parts, dst=0)
+        if rank:
+            return None, True
+        full = torch.empty(t.shape, dtype=t.dtype, device=dev)
+        seen, equal = set(), True
+        for r, part in enumerate(parts):
+            block = full
+            for i, q in enumerate(pl):
+                if isinstance(q, Shard):
+                    size = block.shape[q.dim] // mesh.shape[i]
+                    block = block.narrow(q.dim, coords[r][i] * size, size)
+            part = part.view(t.dtype).reshape(local.shape).to(dev)
+            key = tuple(coords[r][i] if isinstance(q, Shard) else None
+                        for i, q in enumerate(pl))
+            if key in seen:
+                equal &= bool(torch.equal(block, part))
+            else:
+                block.copy_(part)
+                seen.add(key)
+        return full, equal
+
+    def rel(got, want):
+        """||got - want|| / ||want|| in float32 on ``got``'s device."""
+        g, w = got.detach().float(), want.detach().float().to(got.device)
+        return float((g - w).norm() / w.norm().clamp_min(1e-30))
+
+    res = {"rank": rank, "launches": {}, "fallbacks": {}, "seconds": {},
+           "ref_seconds": {}, "parts": {}, "names": {}, "rel": {},
+           "floor": {}, "finite": {}, "unequal": {}}
+    files, calls, f32 = {}, {}, {}
+
+    def reference_moe(cfg):
+        """The MoE reference's aux: the mean over this mesh's token
+        shards (none for the other families)."""
+        if not cfg.n_experts:
+            return contextlib.nullcontext()
+        return shard_aux(mesh.shape[0], mesh.shape[1])
+
+    for dtype, path, archs in (
+            ("float32", "mesh_train_check", conf["archs"]),
+            ("bfloat16", "mesh_train", conf["bf16_archs"])):
+        counts = {}
+        rec = Recorder(sharded_attention, "flash_attention")
+        with staged_collectives(mesh):
+            for arch in archs:
+                key = f"{dtype}/{arch}"
+                cfg = mesh_config(arch, dtype)
+                model = build(cfg)
+                rng = np.random.default_rng(conf["seed"])
+                prefix = prefix_input(cfg)
+                n_img = prefix[1] if cfg.family == "vlm" else 0
+                batch = {"tokens": torch.as_tensor(rng.integers(
+                    1, cfg.vocab, (b, s - n_img)).astype(np.int32),
+                    device=dev)}
+                if prefix is not None:
+                    batch[prefix[0]] = torch.as_tensor(rng.normal(
+                        size=(b, prefix[1], cfg.d_model)) * 0.02,
+                        dtype=cfg.dtype, device=dev)
+                t0 = time.perf_counter()
+                gen = torch.Generator(device=dev).manual_seed(conf["seed"])
+                params = init_params(model.param_specs, gen, device=dev)
+                sh = make_sharder(rules, mesh)
+                want, part = None, {}
+                if rank == 0:  # the reference
+                    t1 = time.perf_counter()
+                    with reference_moe(cfg):
+                        loss, grads = loss_and_grads(model, params, batch,
+                                                     "dots_no_batch")
+                    want = [loss] + tree_leaves(grads)
+                    res["names"][arch] = ["loss"] + leaf_names(grads)
+                    del loss, grads
+                    sync()
+                    res["ref_seconds"][key] = time.perf_counter() - t1
+                dp = place(params, model.param_specs)
+                db = place(batch, model.train_input_specs(b, s))
+                if rank:
+                    del params
+                sync()
+                part["init_ref_place"] = time.perf_counter() - t0
+                reset_launches()
+                t0 = time.perf_counter()
+                with rec:
+                    loss, grads = loss_and_grads(model, dp, db,
+                                                 "dots_no_batch", sh)
+                sync()
+                res["seconds"][key] = time.perf_counter() - t0
+                counts[arch] = dict(LAUNCHES)
+                for k, v in sh.fallbacks.items():
+                    res["fallbacks"][f"{key}/{k}"] = v
+                got = [loss] + tree_leaves(grads)
+                del dp, db, loss, grads
+                t0 = time.perf_counter()
+                finite, errs, floor, unequal = True, [], [], []
+                for i in range(len(got)):  # one whole leaf at a time
+                    g, equal = gathered(got[i])
+                    got[i] = None
+                    if rank:
+                        continue
+                    finite &= bool(torch.isfinite(g).all())
+                    if not equal:
+                        unequal.append(res["names"][arch][i])
+                    errs.append(rel(g, want[i]))
+                    if dtype == "float32" and arch in conf["bf16_archs"]:
+                        f32.setdefault(arch, []).append(want[i].cpu())
+                    elif dtype == "bfloat16":
+                        floor.append(rel(want[i], f32[arch][i]))
+                        f32[arch][i] = None
+                    del g
+                part["gather_compare"] = time.perf_counter() - t0
+                res["parts"][key] = part
+                if rank == 0:
+                    res["finite"][key], res["unequal"][key] = finite, unequal
+                    res["rel"][key] = errs
+                    if floor:
+                        res["floor"][arch] = floor
+                if dtype == "float32" and rank == 0 and \
+                        max(errs) > P13["train_rtol"]["float32"]:
+                    # float32's own distance from float64 for each leaf
+                    t0 = time.perf_counter()
+                    with float64_reference(), reference_moe(cfg):
+                        loss, grads = loss_and_grads(
+                            model, tree_map(torch.Tensor.double, params),
+                            {k: x if k == "tokens" else x.double()
+                             for k, x in batch.items()}, "dots_no_batch")
+                    res["floor"][f"float64/{arch}"] = [
+                        rel(w, g) for w, g in zip(
+                            want, [loss] + tree_leaves(grads))]
+                    del loss, grads
+                    sync()
+                    res["ref_seconds"][f"float64/{arch}"] = \
+                        time.perf_counter() - t0
+                del got, want, model
+                params = None
+                free_card()
+        res["launches"][path] = counts
+        calls[path] = [[[list(map(list, g[0])), [list(kv) for kv in g[1]],
+                         list(g[2])], c]
+                       for g, (c, _) in rec.calls.items()]
+        for j, (_, (args, _)) in enumerate(rec.calls.values()):
+            tensors_to_npz(f"{path}_g{j}", args, files)
+    res["calls"] = calls
+    return res, {f"inputs{rank}.npz": files}
+
+
+def mesh_training(seed, smi, stash, device="cuda"):
+    """13h: ``train_rank`` on 4 rank processes on ``cuda:0`` over gloo. Checks
+    the loss and every gradient leaf of each config's DTensor step against its
+    reference (relative error norms within ``train_rtol``: float32 1e-5, bf16
+    2e-2; or, where it is larger, twice the reference's own distance for that
+    leaf from the same step in a wider type: bf16's from the float32 reference,
+    and for a config with a float32 leaf past 1e-5, float32's from the
+    reference run in float64 (13g's rule: the sharded matmuls add in another
+    order than the unsharded ones; a token's top 8 experts flip on a bf16
+    rounding, and the gradient of Mamba2's decay, a sum over every position
+    with cancellation, carries float32's rounding up to ~4e-5 of its norm),
+    every value finite and every replicated block equal across ranks, no
+    fallback on any rank, and #7's launches a rank (``train_launches``). Fills
+    ``stash["mesh_train"]`` and ``stash["mesh_train_check"]`` with every rank's
+    #7 inputs; returns the paths' launches."""
+    import shutil
+    import numpy as np
+    n = P13["ranks"]
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    TRAIN_DIR.mkdir(parents=True)
+    b, s = P13["train_batch"], P13["train_seq"]
+    archs = P13["train_archs"]
+    bf16_archs = P13["train_bf16_archs"]
+    log(f"phase 13h: {n} ranks on mesh (1, {n}) under the production rules, "
+        f"parameters and batch as DTensors; each config one train step "
+        f"(loss_and_grads, remat dots_no_batch) of {b} x {s} positions, "
+        f"float32 (" + ", ".join(archs) + "), then bf16 ("
+        + ", ".join(bf16_archs) + "): "
+        + "; ".join(describe(mesh_config(a, "bfloat16")) for a in archs))
+    (TRAIN_DIR / "config.json").write_text(json.dumps(
+        dict(phase="phase 13h", backend="gloo", seed=seed, device=device,
+             ranks=n, dir=str(TRAIN_DIR), archs=archs,
+             bf16_archs=bf16_archs)))
+    t_ranks = run_ranks(n, TRAIN_DIR, timeout=300)
+    res = [json.loads((TRAIN_DIR / f"rank{r}.json").read_text())
+           for r in range(n)]
+    worst = {}
+    for key, errs in res[0]["rel"].items():
+        dtype, arch = key.split("/")
+        lim = P13["train_rtol"][dtype]
+        own = res[0]["floor"].get(arch if dtype == "bfloat16" else
+                                  f"float64/{arch}", [0.0] * len(errs))
+        bounds = [max(lim, 2 * f) for f in own]
+        i = int(np.argmax(np.array(errs) / np.array(bounds)))
+        worst[key] = [res[0]["names"][arch][i], errs[i], bounds[i], errs[0]]
+        if not errs[i] <= bounds[i]:
+            raise AssertionError(
+                f"phase 13h: {key} {res[0]['names'][arch][i]} vs the "
+                f"reference's: {errs[i]} (limit {bounds[i]}); every leaf "
+                + json.dumps(dict(zip(res[0]["names"][arch], errs))))
+    for x in res:
+        if x["fallbacks"]:
+            raise AssertionError(f"phase 13h rank {x['rank']}: fallbacks "
+                                 f"{x['fallbacks']}")
+    if not all(res[0]["finite"].values()) or any(res[0]["unequal"].values()):
+        raise AssertionError("phase 13h: non-finite values, or a replicated "
+                             "block that differs between ranks: "
+                             + json.dumps(res[0]["unequal"]))
+    launches = {}
+    for path in ("mesh_train", "mesh_train_check"):
+        for r, x in enumerate(res):
+            for arch, got in x["launches"][path].items():
+                want = train_launches(mesh_config(arch, "float32"))
+                others = {k: v for k, v in got.items()
+                          if v and k != "flash_attention"}
+                if device == "cuda" and (others or got["flash_attention"]
+                                         != want):
+                    raise AssertionError(
+                        f"phase 13h rank {r} {path} {arch}: launches {got}, "
+                        f"want {want} of #7 only")
+        first = next(iter(res[0]["launches"][path].values()))
+        launches[path] = {k: sum(a[k] for x in res
+                                 for a in x["launches"][path].values())
+                          for k in first}
+        recs = {name: Recorded() for name in wrapper_sites()}
+        recs["probe_stack"], recs["combine_rows"] = Recorded(), Recorded()
+        for x in res:
+            arrays = dict(np.load(TRAIN_DIR / f"inputs{x['rank']}.npz"))
+            for j, (g, c) in enumerate(x["calls"][path]):
+                key = (tuple(tuple(d) for d in g[0]),
+                       tuple(tuple(kv) for kv in g[1]), tuple(g[2]))
+                if key in recs["flash_attention"].calls:
+                    recs["flash_attention"].calls[key][0] += c
+                    continue
+                args = tensors_from_npz(f"{path}_g{j}", arrays, device)
+                recs["flash_attention"].calls[key] = [c, (args,
+                                                          dict(key[1]))]
+        stash[path] = recs
+    floor = {a: max(v) for a, v in res[0]["floor"].items()}
+    ref_s = {k: round(v, 3) for k, v in res[0]["ref_seconds"].items()}
+    log(f"phase 13h ({smi}): {n} ranks on {device} over gloo, {t_ranks:.3f}"
+        f" s from start to exit; vs the reference (rank 0's unsharded "
+        f"step, for MoE with the token shards' mean aux), the leaf nearest "
+        f"its limit [leaf, relative error norm, limit, the loss's error] "
+        f"(float32 "
+        f"{P13['train_rtol']['float32']:g}; bf16 "
+        f"{P13['train_rtol']['bfloat16']:g} or twice bf16's own): "
+        + json.dumps(worst)
+        + "; the reference's own distance from the wider type's (bf16 from "
+        "float32; float64/: float32 from float64), worst leaf: "
+        + json.dumps(floor) + "; no fallback; every replicated block "
+        "equal across ranks; #7 launches a rank (bf16) " + json.dumps(
+            [{a: v["flash_attention"]
+              for a, v in x["launches"]["mesh_train"].items()} for x in res])
+        + f"; geometries {len(stash['mesh_train']['flash_attention'].calls)}"
+        "; rank 0's seconds (the DTensor step) " + json.dumps(
+            {k: round(v, 3) for k, v in res[0]["seconds"].items()})
+        + ", (the reference) " + json.dumps(ref_s) + "; rank 0's seconds "
+        "by part " + json.dumps({k: {p: round(v, 3) for p, v in x.items()}
+                                 for k, x in res[0]["parts"].items()}))
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
     return launches
 
 
@@ -4478,6 +4979,7 @@ def launch_tools(seed, smi, stash, device="cuda"):
         t["d"] = time.perf_counter() - td
         te = time.perf_counter()
         launches["small"] = small_heads(seed, smi, stash["small"], device)
+        launches.update(wide_gqa(seed, smi, stash, device))
         t["e"] = time.perf_counter() - te
         free_card()
         tf = time.perf_counter()
@@ -4487,6 +4989,11 @@ def launch_tools(seed, smi, stash, device="cuda"):
         tg = time.perf_counter()
         launches.update(mesh_serving(seed, smi, stash, device))
         t["g"] = time.perf_counter() - tg
+        free_card()
+        th = time.perf_counter()
+        launches.update(mesh_training(seed, smi, stash, device))
+        t["h"] = time.perf_counter() - th
+        log(f"phase 13h: {t['h']:.3f} s")
         tc = time.perf_counter()
         dry_runs_finish(procs, t0, smi)
         t["c_wait"] = time.perf_counter() - tc

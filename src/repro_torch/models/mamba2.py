@@ -22,6 +22,7 @@ gradient into NaN (0 x inf); the forward values are the same.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -146,6 +147,90 @@ def _ssd_chunked(cfg: ModelConfig, x: torch.Tensor, dt: torch.Tensor,
     return y.to(x.dtype), st
 
 
+class _GradOn(torch.autograd.Function):
+    """The identity, whose backward redistributes the gradient to the
+    placements ``pl``."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, pl):
+        ctx.args = (mesh, pl)
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.redistribute(*ctx.args), None, None
+
+
+def _ssd_on_ranks(cfg: ModelConfig, x: torch.Tensor, dt: torch.Tensor,
+                  a_log: torch.Tensor, b_: torch.Tensor, c_: torch.Tensor,
+                  init_state: Optional[torch.Tensor], sh):
+    """``_ssd_chunked`` where ``x`` is a DTensor: each rank scans its own
+    sequences and heads, as the rules of ``sh`` place them (x, dt and the
+    state on the batch and the heads, B and C on the batch, A on the
+    heads). The SSD is independent per sequence and per head, so no rank
+    needs another's values: the partitioning XLA gives the JAX scan. On
+    DTensors the scan's einsums flatten the batch and the heads into one
+    matmul batch dim, which torch 2.11 refuses in the backward where both
+    are sharded.
+
+    Each input is redistributed to those placements and its local tensor
+    taken; the gradient of an input that is whole over a mesh dim that
+    splits x (B and C over the heads, A over the batch) is this rank's
+    part of a sum over it (``Partial``). The gradients of the activations
+    go to the batch rows, split over the batch axes and the model axis
+    (``_GradOn``): the projection's slices arrive whole on the model
+    axis, and a gradient sharded on the heads, sliced back into the
+    projection's wider dim, would be gathered whole and the projection's
+    backward run whole on every rank. Returns y [B, S, H, P] and the
+    state [B, H, P, N] placed on the batch and the heads, each
+    shard contiguous (a padded scan's y is a slice)."""
+    from torch.distributed.tensor import DTensor, Partial, Shard
+    mesh, rules = x.device_mesh, sh.rules
+
+    def pl(shape, axes):
+        return spec.placements(rules.pspec_for_shape(shape, axes, mesh),
+                               mesh)
+
+    heads = ("batch", None, "d_inner")
+    state_axes = ("batch", "d_inner", None, None)
+    split = {i for i, q in enumerate(pl(x.shape, heads + (None,)))
+             if isinstance(q, Shard)}
+
+    # the gradients of the activations go to the batch rows over the batch
+    # axes and the model axis, the rows the projections' backward takes
+    rows = tuple(n for n, q in zip(mesh.mesh_dim_names,
+                                   pl(x.shape, ("batch",)))
+                 if isinstance(q, Shard)) + (rules.model,)
+    sizes = spec.axis_sizes(mesh)
+    if x.shape[0] % math.prod(sizes[n] for n in rows):
+        rows = rows[:-1]
+    rows = spec.placements((rows or None,), mesh)
+
+    def local(t, axes):
+        want = pl(t.shape, axes)
+        grad = [q if isinstance(q, Shard) or i not in split else Partial()
+                for i, q in enumerate(want)]
+        if axes[0] == "batch":
+            t = _GradOn.apply(t, mesh, rows)
+        return t.redistribute(mesh, want).to_local(grad_placements=grad)
+
+    y, st = _ssd_chunked(
+        cfg, local(x, heads + (None,)), local(dt, heads),
+        local(a_log, ("d_inner",)), local(b_, ("batch", None, None)),
+        local(c_, ("batch", None, None)),
+        None if init_state is None else local(init_state, state_axes))
+    st_shape = torch.Size((x.shape[0], x.shape[2], x.shape[3],
+                           b_.shape[-1]))
+    return (DTensor.from_local(y.contiguous(), mesh,
+                               pl(x.shape, heads + (None,)),
+                               run_check=False, shape=x.shape,
+                               stride=spec.contiguous_stride(x.shape)),
+            DTensor.from_local(st.contiguous(), mesh,
+                               pl(st_shape, state_axes),
+                               run_check=False, shape=st_shape,
+                               stride=spec.contiguous_stride(st_shape)))
+
+
 def _gated_norm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
                 dtype) -> torch.Tensor:
     """Mamba2's gated RMSNorm, norm(y * silu(z)), in float32, eps 1e-6."""
@@ -162,6 +247,7 @@ def apply_mamba(cfg: ModelConfig, p, x: torch.Tensor,
     [B, S, D] -> (out, None), or with ``return_state`` (out, (final ssm
     state [B, H, P, N] float32, conv state [B, K-1, C]: the last K-1
     pre-conv inputs))."""
+    from torch.distributed.tensor import DTensor
     sh = sh or no_sharding
     bsz, s, _ = x.shape
     di, n, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
@@ -173,8 +259,12 @@ def apply_mamba(cfg: ModelConfig, p, x: torch.Tensor,
     b_ = xbc[..., di:di + n]
     c_ = xbc[..., di + n:]
     dt = softplus(dtr.float() + p["dt_bias"])
-    y, final_state = _ssd_chunked(cfg, xs, dt, p["A_log"], b_, c_,
-                                  init_state)
+    if isinstance(xs, DTensor) and getattr(sh, "rules", None) is not None:
+        y, final_state = _ssd_on_ranks(cfg, xs, dt, p["A_log"], b_, c_,
+                                       init_state, sh)
+    else:
+        y, final_state = _ssd_chunked(cfg, xs, dt, p["A_log"], b_, c_,
+                                      init_state)
     y = y + p["D"].to(y.dtype)[None, None, :, None] * xs
     g = _gated_norm(y.reshape(bsz, s, di), z, p["norm"], x.dtype)
     out = sh(g @ p["out_proj"], "batch", "seq", "model_dim_act")

@@ -422,3 +422,53 @@ def test_split_k_decode_on_card(shape, q_offset, causal, dtype):
     assert LAUNCHES["flash_attention"] == 1
     _attn_check(got, flash_attention_ref(q, k, v, causal=causal,
                                          q_offset=q_offset))
+
+
+# yi-34b (56 heads over 8: rep 7) and command-r-plus-104b (96 over 8: rep
+# 12) at hd 128: a group's rows (position-major, ``rep`` rows a position)
+# cross the kernel's 16-row tiles at positions that are no multiple of
+# the tile, and a decode row's group fills most of a tile
+WIDE_GQA = [(56, 8), (96, 8)]
+
+
+@pytest.mark.parametrize("h,kvh", WIDE_GQA)
+@pytest.mark.parametrize("sq,sk,causal", [(24, 40, True), (1, 70, True),
+                                          (5, 33, False)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_port_matches_jax_ref_at_wide_gqa_groups(h, kvh, sq, sk, causal,
+                                                 dtype):
+    shape = (2, sq, sk, h, kvh, 128)
+    _check_port(sum(shape), shape, causal, dtype, sk - sq if causal else 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,kvh", WIDE_GQA)
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("b,sq,sk,q_offset", [
+    (1, 512, 512, 0),      # a prefill
+    (2, 23, 600, 577),     # a prefill at the end of a cache
+    (4, 1, 2048, 2047),    # a decode step: split-K
+    (4, 1, 2048, 100),     # early in the cache: one split
+    (2, 3, 1000, 700),     # 21 / 36 rows a group
+    (2, 15, 1000, 985),    # the most decode rows: 105 / 180 a group
+])
+def test_wide_gqa_groups_on_card(h, kvh, dtype, b, sq, sk, q_offset):
+    """#7 at rep 7 and 12 (hd 128), prefill (Sq >= 16: the tensor cores in
+    bf16, the CUDA cores in float32) and split-K decode, o and the rows'
+    lse against the plain version: o within one bf16 ulp (float32 2e-5)
+    and an error norm within 1e-2, lse within 1e-2 (bf16) and 1e-5
+    (float32); one launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    shape = (b, sq, sk, h, kvh, 128)
+    q, k, v = (_torch(x, dtype).cuda()
+               for x in _inputs(sum(shape), *shape, None))
+    reset_launches()
+    o, lse = flash_attention(q, k, v, causal=True, q_offset=q_offset,
+                             return_lse=True)
+    assert LAUNCHES["flash_attention"] == 1
+    po, pl = flash_attention_ref(q, k, v, causal=True, q_offset=q_offset,
+                                 return_lse=True)
+    _attn_check(o, po)
+    lt = 1e-2 if dtype == "bfloat16" else 1e-5
+    torch.testing.assert_close(lse, pl, rtol=lt, atol=lt)
