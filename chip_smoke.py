@@ -13,7 +13,9 @@ rank), the LM serving path (``launch/serve.py`` → ``Engine`` → prefill /
 decode), the LM training path (``launch/train.py`` → train step →
 ``train_loss`` with per-layer remat → AdamW, checkpoints and a resume),
 the MoE, Mamba2 and hybrid families (serving and a train step), the
-enc-dec and VLM families (serving, training with a resume, a train step)
+enc-dec and VLM families (serving, training with a resume, a train step),
+qwen2.5-3b whole (served, trained with microbatches, int8 AdamW moments,
+on the DTensor mesh), yi-34b served at all 60 layers
 and the launch and mesh tools (MoE expert parallelism over 4 ranks, the
 op-level cost counter, the dry runs); builds the hand-written CUDA
 kernels from ``src/repro_torch/csrc``, shows that each path launched its
@@ -25,6 +27,33 @@ path's shapes.
 Phases (each raises on failure):
   1. device line (name and power limit, as nvidia-smi reports them);
   2. kernel build (one nvcc per source, in parallel);
+  15. (run first, while the card holds nothing else) yi-34b whole: 60
+     layers, d_model 7,168, 56 heads over 8 at hd 128 (GQA rep 7), bf16,
+     68.82 GB of weights drawn on the card; 4 requests of 512 tokens, 16
+     new each, through ``Engine`` (one batch, max_len 528): every request
+     yields its tokens, every logit finite, self-attention only on #7 (60
+     launches a forward, 960), the last decode step's logits within 5e-2
+     of one prefill over every token it saw; the peak device memory
+     logged beside the weights plus the cache (path ``yi``);
+  14. qwen2.5-3b whole (36 layers, d_model 2,048, 16 heads over 2 at hd
+     128: GQA rep 8, QKV biases, a tied table of 151,936 tokens padded to
+     153,600), bf16, the seeded init drawn on the card (sizes in ``P14``):
+     (a) ``repro_torch.launch.serve``'s defaults (path ``qwen_a``) and one
+     batch of 4 x 1,920 tokens, 128 new, max_len 2,048 (``qwen_b``): every
+     request yields its tokens, self-attention only on #7 (36 launches a
+     forward), prefill-then-decode within 5e-2 of the full prefill, and at
+     2 of 36 layers in float32 the card's prefill within 1e-3 of the CPU's;
+     (b) ``repro_torch.launch.train.main`` at full depth, 3 steps of 4 x 512
+     tokens in 2 microbatches, float32 AdamW moments (``qwen_train``):
+     every loss finite, #7 2 launches a layer a microbatch a step, step ms,
+     tokens/s and the peak device memory beside the reckoning of the state;
+     (c) one step at 2 layers and full width on 2 x 256 tokens: every
+     leaf's gradient on the card (bf16) within 5e-2 of the CPU's (float32)
+     and non-zero, the QKV biases and the tied table among them; the same
+     step in float32 with int8 moments (``AdamWConfig(quantized_state=
+     True)``) against the CPU's: the dequantized moments within one int8
+     level, each leaf's update within 1e-3; the full-depth state bytes with
+     int8 and float32 moments logged; (d) in 13g (float32) and 13h below;
   3. Listing-1 at scale 16 with ``use_pallas=True`` (the hand kernels:
      the merge-path rank in every compaction, the two-sided fence search
      once per probed run stack, the row merge once per point-read
@@ -188,12 +217,15 @@ Phases (each raises on failure):
      twice bf16's own distance from float32 where that is larger (the
      MoE's top 8 flip where the sharded matmuls round otherwise), no
      fallback, every rank's values equal, #7's launches a rank counted
-     (paths ``mesh_serve`` and the float32 ``mesh_serve_check``); (h) a
+     (paths ``mesh_serve`` and the float32 ``mesh_serve_check``), and
+     qwen2.5-3b (2 of 36 layers; its 2 KV heads split [1, 1, 0, 0] over
+     the 4-wide axis) in float32 only; (h) a
      train step on the same mesh and rules through ``train_step.
      loss_and_grads`` as a user calls it, olmoe-1b-7b, mamba2-2.7b (2 of
      64 layers), zamba2-2.7b, whisper-large-v3 and internvl2-26b (2 of 48
-     layers, its 256 image embeddings among the 512 positions), as cut in
-     (g), 4 x 512 positions, float32, then zamba2-2.7b in bf16: the loss
+     layers, its 256 image embeddings among the 512 positions) and
+     qwen2.5-3b (2 of 36 layers), as cut in (g), 4 x 512 positions,
+     float32, then zamba2-2.7b in bf16: the loss
      and every gradient leaf within 1e-5 (float32) of the reference, rank
      0's unsharded step, for olmoe with the aux loss taken as the mean of
      the token shards' (a mesh step's MoE aux is that, as in JAX, so the
@@ -216,7 +248,7 @@ Phases (each raises on failure):
      a stack in float32, the card's prefill against the CPU's (and for
      whisper prefill-then-decode against one forward) within 1e-3, the
      bf16 drift logged; (c) whisper through ``launch.train.main`` at full
-     depth, 3 steps of 2 x 256 tokens and 1,500 frames, a crash after
+     width and 8 + 8 of its 32 + 32 layers (the script's time limit), 3 steps of 2 x 256 tokens and 1,500 frames, a crash after
      step 2 and a resume with losses equal to the uninterrupted run's; one
      train step per family at 2 layers a stack, every leaf's gradient
      (bf16) within 5e-2 of the CPU's (float32);
@@ -240,8 +272,8 @@ Phases (each raises on failure):
      against the CPU's (olmoe float32 on both within 1e-3; the others
      bf16 against float32 within 5e-2);
   5. each kernel against its plain version on the card at every input
-     each path gave it (recorded in phases 3, 4b, 4c, 4d, 7, 8, 9 — by the
-     ranks, per geometry — 6, 10, 13, 12 and 11: per
+     each path gave it (recorded in phases 15, 14, 3, 4b, 4c, 4d, 7, 8, 9 —
+     by the ranks, per geometry — 6, 10, 13, 12 and 11: per
      geometry for the LSM kernels and flash attention, per call for the
      1-D rank, the tablet gather, segment sum and SpMVs), ranks, merged
      rows, read entries and degree sums exactly equal (the merge-path
@@ -1968,7 +2000,7 @@ def families(seed, smi, stash, device="cuda"):
 # internvl2-26b served at full width and depth (greedy, through
 # ``build(cfg).prefill`` / ``.decode``: ``Engine`` serves decoder-only LMs
 # only, as in the JAX package), (c) whisper trained through launch/train.py
-# at full width and depth with a crash and a resume, and one train step per
+# at full width and 8 + 8 layers with a crash and a resume, and one train step per
 # family at full width and reduced depth. Cut from the published sizes:
 # weights seeded random and the frontends stubs (seeded frames and image
 # embeddings, normal x 0.02); whisper decodes 128 of a segment's up to 448
@@ -1982,7 +2014,10 @@ P12 = dict(reduced=False, encdec="whisper-large-v3", vlm="internvl2-26b",
            vlm_max_len=800, check_layers=2, check_requests=2, check_steps=8,
            vlm_check_requests=1, train_steps=3, train_crash=2, train_batch=2,
            train_seq=256, train_docs=16, grad_layers=2, grad_batch=1,
-           grad_seq=256)
+           grad_seq=256,
+           # 12c (i)'s depth, a stack (of 32 + 32; the script's time limit:
+           # its checkpoints and their restore took ~45 s at full depth)
+           train_layers=8)
 TRAIN12_DIR = ROOT / "build" / "phase12"
 
 
@@ -2224,7 +2259,8 @@ def prefix_serving(part, arch, path, seed, smi, stash, device="cuda"):
 
 
 def prefix_training(seed, smi, stash, device="cuda"):
-    """12c: (i) whisper-large-v3 at full width and depth through
+    """12c: (i) whisper-large-v3 at full width and ``train_layers``
+    encoder and decoder layers (the launcher's config cut) through
     ``repro_torch.launch.train.main`` (``train_batch`` x ``train_seq``
     tokens and ``n_frames`` frames a step, remat ``dots_no_batch``):
     ``train_steps`` steps uninterrupted, then with a checkpoint every
@@ -2249,8 +2285,12 @@ def prefix_training(seed, smi, stash, device="cuda"):
     from repro_torch.train import AdamWConfig, adamw_init, make_train_step
     from repro_torch.train.train_step import loss_and_grads
 
+    from repro_torch.launch import train as launch_train
     arch = P12["encdec"]
-    cfg = p12_config(arch)
+    full = p12_config(arch)
+    cut = {"n_layers": min(P12["train_layers"], full.n_layers),
+           "n_enc_layers": min(P12["train_layers"], full.n_enc_layers)}
+    cfg = dataclasses.replace(full, **cut)
     n_steps, crash = P12["train_steps"], P12["train_crash"]
     argv = ["--arch", arch, "--steps", str(n_steps),
             "--batch", str(P12["train_batch"]), "--seq", str(P12["train_seq"]),
@@ -2259,8 +2299,15 @@ def prefix_training(seed, smi, stash, device="cuda"):
     argv += ["--reduced"] if P12["reduced"] else []
     held = peak_reset()
     t0 = time.perf_counter()
-    whole, resumed, step_s, saved, launches, walls = crash_resume(
-        argv, TRAIN12_DIR, stash["train_whisper"])
+    which = "get_reduced" if P12["reduced"] else "get_config"
+    get = getattr(launch_train, which)  # the launcher's config, cut
+    setattr(launch_train, which,
+            lambda a: dataclasses.replace(get(a), **cut))
+    try:
+        whole, resumed, step_s, saved, launches, walls = crash_resume(
+            argv, TRAIN12_DIR, stash["train_whisper"])
+    finally:
+        setattr(launch_train, which, get)
     t_i = time.perf_counter() - t0
     if len(whole) != n_steps or not np.all(np.isfinite(whole)):
         raise AssertionError(f"phase 12c: losses {whole}")
@@ -3328,12 +3375,15 @@ P13 = dict(reduced=False, moe="olmoe-1b-7b", layers=2, ranks=4, batch=4,
            # 13g: serving on DTensors in the MoE, hybrid and enc-dec
            # families (2 layers a stack; the hybrid's one group)
            serve_archs=("olmoe-1b-7b", "zamba2-2.7b", "whisper-large-v3"),
+           # and in float32 only: qwen2.5-3b (GQA rep 8, its 2 KV heads
+           # split [1, 1, 0, 0] on the 4-wide axis)
+           serve_f32_archs=("qwen2.5-3b",),
            mesh_layers=2, serve_batch=4, serve_prompt=512, serve_decode=8,
            serve_rtol={"float32": 1e-5, "bfloat16": 2e-2},
            # 13h: a train step on DTensors in five families (the same
            # cuts), bf16 in the hybrid only (the script's time limit)
            train_archs=("olmoe-1b-7b", "mamba2-2.7b", "zamba2-2.7b",
-                        "whisper-large-v3", "internvl2-26b"),
+                        "whisper-large-v3", "internvl2-26b", "qwen2.5-3b"),
            train_bf16_archs=("zamba2-2.7b",), train_batch=4, train_seq=512,
            train_rtol={"float32": 1e-5, "bfloat16": 2e-2})
 EP_DIR = ROOT / "build" / "phase13"
@@ -4115,8 +4165,9 @@ def mesh_config(arch, dtype):
 
 
 def serve_rank(conf, rank, dev, out_dir):
-    """Phase 13g on one rank: ``conf["archs"]`` (``serve_archs``) served
-    on mesh (1, 4) under the production rules (``launch.dryrun.
+    """Phase 13g on one rank: ``conf["archs"]`` (``serve_archs``) in bf16
+    and float32 and ``conf["f32_archs"]`` (``serve_f32_archs``) in float32
+    only, served on mesh (1, 4) under the production rules (``launch.dryrun.
     rules_for``: ``model``, ``kv_seq`` and the experts on the 4-wide
     axis), the parameters and the batch DTensors on the rank's device (a
     CUDA mesh over gloo: DTensor's collectives go through pinned host
@@ -4191,12 +4242,14 @@ def serve_rank(conf, rank, dev, out_dir):
     res = {"rank": rank, "launches": {}, "fallbacks": {}, "seconds": {},
            "rel": {}, "rows": {}, "floor": {}, "sums": {}, "finite": {}}
     files, calls, bf16 = {}, {}, {}
-    for dtype, path in (("bfloat16", "mesh_serve"),
-                        ("float32", "mesh_serve_check")):
+    for dtype, path, archs in (
+            ("bfloat16", "mesh_serve", conf["archs"]),
+            ("float32", "mesh_serve_check",
+             conf["archs"] + conf["f32_archs"])):
         counts = {}
         with Recorder(sharded_attention, "flash_attention") as rec, \
                 staged_collectives(mesh):
-            for arch in conf["archs"]:
+            for arch in archs:
                 cfg = mesh_config(arch, dtype)
                 model = build(cfg)
                 rng = np.random.default_rng(conf["seed"])
@@ -4244,7 +4297,7 @@ def serve_rank(conf, rank, dev, out_dir):
                     if dtype == "bfloat16":  # for the float32 pass
                         bf16[arch] = {k: [x.cpu() for x in v]
                                       for k, v in want.items()}
-                    else:  # how far bf16 itself is from float32
+                    elif arch in bf16:  # how far bf16 is from float32
                         lim = P13["serve_rtol"]["bfloat16"]
                         res["floor"][arch] = {
                             k: row_errs(bf16[arch][k], want[k], lim)
@@ -4314,10 +4367,13 @@ def mesh_serving(seed, smi, stash, device="cuda"):
         f"parameters and batch as DTensors; each config a prefill of {b} x "
         f"{s} tokens into {s + new} slots, then {new} decode steps: "
         + "; ".join(describe(mesh_config(a, "bfloat16"))
-                    for a in P13["serve_archs"]))
+                    for a in P13["serve_archs"]) + "; in float32 only: "
+        + "; ".join(describe(mesh_config(a, "float32"))
+                    for a in P13["serve_f32_archs"]))
     (SERVE_DIR / "config.json").write_text(json.dumps(
         dict(phase="phase 13g", backend="gloo", seed=seed, device=device,
-             ranks=n, dir=str(SERVE_DIR), archs=P13["serve_archs"])))
+             ranks=n, dir=str(SERVE_DIR), archs=P13["serve_archs"],
+             f32_archs=P13["serve_f32_archs"])))
     t_ranks = run_ranks(n, SERVE_DIR, timeout=300)
     res = [json.loads((SERVE_DIR / f"rank{r}.json").read_text())
            for r in range(n)]
@@ -4354,10 +4410,10 @@ def mesh_serving(seed, smi, stash, device="cuda"):
                     raise AssertionError(
                         f"phase 13g rank {r} {path} {arch}: launches {got}, "
                         f"want {want} of #7 only")
+        first = next(iter(res[0]["launches"][path].values()), {})
         launches[path] = {k: sum(x["launches"][path][a][k] for x in res
                                  for a in x["launches"][path])
-                          for k in res[0]["launches"][path][
-                              P13["serve_archs"][0]]}
+                          for k in first}
         recs = {name: Recorded() for name in wrapper_sites()}
         recs["probe_stack"], recs["combine_rows"] = Recorded(), Recorded()
         for x in res:
@@ -4380,9 +4436,10 @@ def mesh_serving(seed, smi, stash, device="cuda"):
         + "; by row (median, rows past the limit, rows): "
         + json.dumps(res[0]["rows"]) + "; bf16's own, unsharded against "
         "float32: " + json.dumps(res[0]["floor"])
-        + "; no fallback; #7 launches a rank (bf16) " + json.dumps(
-            [{a: v["flash_attention"]
-              for a, v in x["launches"]["mesh_serve"].items()} for x in res])
+        + "; no fallback; #7 launches a rank (bf16, float32) " + json.dumps(
+            [{p: {a: v["flash_attention"]
+                  for a, v in x["launches"][p].items()}
+              for p in ("mesh_serve", "mesh_serve_check")} for x in res])
         + f"; geometries {len(stash['mesh_serve']['flash_attention'].calls)}"
         "; rank 0's seconds " + json.dumps(
             {k: round(v, 3) for k, v in res[0]["seconds"].items()}))
@@ -4742,7 +4799,7 @@ def mesh_training(seed, smi, stash, device="cuda"):
                     raise AssertionError(
                         f"phase 13h rank {r} {path} {arch}: launches {got}, "
                         f"want {want} of #7 only")
-        first = next(iter(res[0]["launches"][path].values()))
+        first = next(iter(res[0]["launches"][path].values()), {})
         launches[path] = {k: sum(a[k] for x in res
                                  for a in x["launches"][path].values())
                           for k in first}
@@ -4773,9 +4830,11 @@ def mesh_training(seed, smi, stash, device="cuda"):
         + "; the reference's own distance from the wider type's (bf16 from "
         "float32; float64/: float32 from float64), worst leaf: "
         + json.dumps(floor) + "; no fallback; every replicated block "
-        "equal across ranks; #7 launches a rank (bf16) " + json.dumps(
-            [{a: v["flash_attention"]
-              for a, v in x["launches"]["mesh_train"].items()} for x in res])
+        "equal across ranks; #7 launches a rank (bf16, float32) "
+        + json.dumps([{p: {a: v["flash_attention"]
+                           for a, v in x["launches"][p].items()}
+                       for p in ("mesh_train", "mesh_train_check")}
+                      for x in res])
         + f"; geometries {len(stash['mesh_train']['flash_attention'].calls)}"
         "; rank 0's seconds (the DTensor step) " + json.dumps(
             {k: round(v, 3) for k, v in res[0]["seconds"].items()})
@@ -5004,6 +5063,425 @@ def launch_tools(seed, smi, stash, device="cuda"):
                 p.wait()
             out.close()
     log("phase 13 by part (s): " + json.dumps(t))
+    return launches
+
+
+# ------------------------------------------------------------------ phase 14
+# qwen2.5-3b whole on the card (36 layers, bf16, the seeded init drawn on
+# the card): (a) served, (b) trained with microbatches, (c) one step's
+# gradients and the int8 AdamW moments against the CPU's; (d) on the
+# DTensor mesh, in 13g and 13h (``P13``'s archs)
+P14 = dict(arch="qwen2.5-3b", reduced=False, long_requests=4,
+           long_prompt=1920, long_new=128, long_max_len=2048, cpu_layers=2,
+           train_steps=3, train_batch=4, train_seq=512, microbatches=2,
+           grad_layers=2, grad_batch=2, grad_seq=256)
+
+
+def p14_config(**kw):
+    import dataclasses
+    from repro_torch.configs import get_config, get_reduced
+    cfg = (get_reduced if P14["reduced"] else get_config)(P14["arch"])
+    return dataclasses.replace(cfg, **kw) if kw else cfg
+
+
+def spec_bytes(specs):
+    from repro_torch.models.spec import tree_leaves
+    return sum(math.prod(s.shape) * s.dtype.itemsize
+               for s in tree_leaves(specs))
+
+
+def qwen_serving(seed, smi, stash, device="cuda"):
+    """14a: qwen2.5-3b at full width and depth in bf16: run a through
+    ``repro_torch.launch.serve.main`` with its defaults (8 requests of 4-23
+    tokens, 16 new each, 4 slots, max_len 128; path ``qwen_a``), run b one
+    batch of ``long_requests`` x ``long_prompt`` tokens, ``long_new`` new
+    tokens each, at ``long_max_len`` through ``Engine`` (weights drawn on
+    the card; path ``qwen_b``): every request yields its tokens, every
+    logit finite, self-attention only on #7 (``n_layers`` launches a
+    forward; 16 heads over 2 KV heads at hd 128, GQA rep 8). Then
+    prefill-then-decode against the full prefill on run b's weights
+    (bf16: within 5e-2, phase 6's rule) and, at ``cpu_layers`` layers in
+    float32, the card's prefill against the CPU's (relative error norm
+    within 1e-3, phase 12's rule). Returns (stats, launches by path)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import build, init_params, param_count, transformer
+    from repro_torch.serve import Engine, Request
+
+    cfg = p14_config()
+    model = build(cfg)
+    n_layers, new = cfg.n_layers, P14["long_new"]
+    log(f"phase 14a: {describe(cfg)}, QKV biases, tied table (padded "
+        f"{cfg.vocab_padded}); {param_count(model.param_specs) / 1e9:.3f} B "
+        f"parameters")
+    for path in ("qwen_a", "qwen_b"):
+        stash.setdefault(path, {})
+    stats, launches = {}, {}
+    argv = ["--arch", P14["arch"], "--seed", str(seed), "--device",
+            str(device)] + (["--reduced"] if P14["reduced"] else [])
+    held = peak_reset()
+    with kernel_run(stash["qwen_a"]) as launches["qwen_a"]:
+        stats["qwen_a"] = launch_serve.main(argv)
+    free_card()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = init_params(model.param_specs, gen, device=device)
+    stats["init_s"] = time.perf_counter() - t0
+    rng = np.random.default_rng(seed)
+    reqs = [Request(prompt=rng.integers(1, cfg.vocab, P14["long_prompt"])
+                    .astype(np.int32), max_new=new)
+            for _ in range(P14["long_requests"])]
+    engine = Engine(model, params, batch_slots=4,
+                    max_len=P14["long_max_len"], device=device)
+    finite = finite_logits(engine)
+    with kernel_run(stash["qwen_b"]) as launches["qwen_b"]:
+        stats["qwen_b"] = engine.run(reqs)
+    stats["peak_mem_gb"], stats["held_gb"] = peak_gb(held)
+    # batches x (1 prefill + max_new - 1 decode steps) x layers
+    for run, n_tok, want in (("qwen_a", 8 * 16, 2 * 16 * n_layers),
+                             ("qwen_b", len(reqs) * new, new * n_layers)):
+        got = launches[run]
+        if stats[run]["tokens_out"] != n_tok:
+            raise AssertionError(f"phase 14a {run}: "
+                                 f"{stats[run]['tokens_out']} tokens, want "
+                                 f"{n_tok}")
+        if device == "cuda" and (got["flash_attention"] != want
+                                 or sum(got.values()) != want):
+            raise AssertionError(f"phase 14a {run}: launches {got}, want "
+                                 f"{want} of flash_attention only")
+    if not all(finite) or any(len(r.out) != new for r in reqs):
+        raise AssertionError("phase 14a qwen_b: non-finite logits or "
+                             "short requests")
+
+    # prefill then one decode step against the full prefill (run a's first
+    # four prompts, left-padded as the engine pads them)
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(1, cfg.vocab, rng.integers(4, 24)).astype(
+        np.int32) for _ in range(4)]
+    plen = max(len(p) for p in prompts)
+    toks = np.zeros((4, plen), np.int32)
+    for j, p in enumerate(prompts):
+        toks[j, plen - len(p):] = p
+    toks = torch.from_numpy(toks)
+    full, _ = transformer.prefill(cfg, params, toks.to(device), 128)
+    _, cache = transformer.prefill(cfg, params, toks[:, :-1].to(device), 128)
+    dec, _ = transformer.decode_step(cfg, params, toks[:, -1:].to(device),
+                                     cache, plen - 1)
+    stats["decode_vs_prefill"] = float((dec - full).abs().max())
+    torch.testing.assert_close(dec, full, rtol=5e-2, atol=5e-2, msg=lambda m:
+                               f"phase 14a decode vs prefill: {m}")
+    # float32 at cpu_layers layers: the card's prefill against the CPU's
+    cfg32 = dataclasses.replace(cfg, n_layers=P14["cpu_layers"],
+                                param_dtype="float32")
+    p32 = as_dtype(cut_params(cfg, params, cfg32.n_layers), torch.float32,
+                   "cpu")
+    del engine, params, cache, full, dec
+    free_card()
+    want, _ = transformer.prefill(cfg32, p32, toks, 128)
+    got, _ = transformer.prefill(cfg32, as_dtype(p32, torch.float32, device),
+                                 toks.to(device), 128)
+    stats["card_vs_cpu_f32"] = rel_err(got, want)
+    if not stats["card_vs_cpu_f32"] <= 1e-3:
+        raise AssertionError(f"phase 14a: the card's float32 prefill vs the "
+                             f"CPU's: {stats['card_vs_cpu_f32']}")
+    for run in ("qwen_a", "qwen_b"):
+        st = stats[run]
+        log(f"phase 14a {run} ({smi}): " + json.dumps(
+            {k: st[k] for k in ("tok_per_s", "wall_s", "prefill_s",
+                                "decode_s", "decode_steps", "tokens_out",
+                                "batches")}
+            | {"flash_attention": launches[run]["flash_attention"]}))
+    log(f"phase 14a ({smi}): peak device memory {stats['peak_mem_gb']:.3f} "
+        f"GB over the {stats['held_gb']:.3f} GB held before; run b's weights "
+        f"drawn on the card in {stats['init_s']:.3f} s; prefill-then-decode "
+        f"vs the full prefill max |diff| {stats['decode_vs_prefill']:.6f} "
+        f"(limit 5e-2); at {cfg32.n_layers} layers in float32 the card's "
+        f"prefill vs the CPU's, relative error norm "
+        f"{stats['card_vs_cpu_f32']:.3g} (limit 1e-3)")
+    free_card()
+    return stats, launches
+
+
+def qwen_training(seed, smi, stash, device="cuda"):
+    """14b: qwen2.5-3b at full width and depth through
+    ``repro_torch.launch.train.main``: ``train_steps`` steps of
+    ``train_batch`` x ``train_seq`` tokens in ``microbatches``
+    microbatches, float32 AdamW moments, remat ``dots_no_batch``, no
+    checkpoint (phases 10 and 12c cover them). Every loss finite; #7 only,
+    2 launches a layer a microbatch a step (the remat recompute); each step
+    timed (host clock, synchronised by the loss); the peak device memory
+    beside the reckoning of the state (parameters, bf16 gradients, the
+    moments, one microbatch's float32 logits). Path ``qwen_train``; returns
+    (stats, launches)."""
+    import numpy as np
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import build
+    from repro_torch.train.optimizer import AdamWConfig, opt_state_specs
+
+    cfg = p14_config()
+    model = build(cfg)
+    steps, mb = P14["train_steps"], P14["microbatches"]
+    b, s = P14["train_batch"], P14["train_seq"]
+    reckon = {"params_gb": spec_bytes(model.param_specs) / 1e9,
+              "moments_gb": spec_bytes(opt_state_specs(
+                  model.param_specs, AdamWConfig())) / 1e9,
+              "logits_gb": b // mb * s * cfg.vocab_padded * 4 / 1e9}
+    reckon["grads_gb"] = reckon["params_gb"]
+    reckon["sum_gb"] = sum(reckon.values())
+    log(f"phase 14b: {describe(cfg)}; {steps} steps of {b} x {s} tokens in "
+        f"{mb} microbatches, float32 moments; the state by reckoning "
+        + json.dumps({k: round(v, 3) for k, v in reckon.items()}))
+    argv = ["--arch", P14["arch"], "--steps", str(steps), "--batch", str(b),
+            "--seq", str(s), "--microbatches", str(mb), "--seed", str(seed),
+            "--log-every", "1", "--device", str(device)] + (
+                ["--reduced"] if P14["reduced"] else [])
+    step_s, make_step = [], launch_train.make_train_step
+
+    def timed_make(*a, **kw):
+        step = make_step(*a, **kw)
+
+        def timed(*args):
+            t0 = clock()
+            out = step(*args)
+            out[2].item()
+            step_s.append(clock() - t0)
+            return out
+        return timed
+
+    held = peak_reset()
+    launch_train.make_train_step = timed_make
+    try:
+        with kernel_run(stash.setdefault("qwen_train", {})) as launches:
+            losses = launch_train.main(argv)
+    finally:
+        launch_train.make_train_step = make_step
+    peak, held_gb = peak_gb(held)
+    if len(losses) != steps or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"phase 14b: losses {losses}")
+    want = 2 * cfg.n_layers * mb * steps
+    if device == "cuda" and (launches["flash_attention"] != want
+                             or sum(launches.values()) != want):
+        raise AssertionError(f"phase 14b: launches {launches}, want {want} "
+                             f"of flash_attention only")
+    med = sorted(step_s[1:])[len(step_s[1:]) // 2]
+    stats = {"losses": losses, "step_s": step_s, "median_step_s": med,
+             "tok_per_s": b * s / med, "peak_mem_gb": peak,
+             "held_gb": held_gb, "reckoning": reckon,
+             "flash_attention": launches["flash_attention"]}
+    log(f"phase 14b ({smi}): " + json.dumps(stats))
+    free_card()
+    return stats, launches
+
+
+def qwen_gradients(seed, smi, device="cuda"):
+    """14c: qwen2.5-3b at full width, ``grad_layers`` layers, one step on
+    ``grad_batch`` x ``grad_seq`` tokens. Every leaf's gradient on the card
+    in bf16 against the CPU's in float32 on the same weights: relative
+    error norm within 5e-2 and a non-zero norm (phase 10b's rule), the QKV
+    biases and the tied table among them. Then the same step in float32
+    through ``make_train_step`` with int8 AdamW moments
+    (``AdamWConfig(quantized_state=True)``) on the card against
+    ``adamw_update`` on the CPU's gradients: each dequantized moment within
+    one int8 level of the CPU's (the larger of the two rows' scales, 1%
+    over for the scales' own rounding; a 1-D leaf's float32 moments within
+    1e-3 relative error norm), each leaf's update within 1e-3 relative
+    error norm. Logs the full-depth state bytes with int8 moments beside
+    float32's. Returns stats."""
+    import dataclasses
+    import torch
+    from repro_torch.models import build, init_params
+    from repro_torch.models.spec import tree_leaves
+    from repro_torch.train import (AdamWConfig, adamw_init, adamw_update,
+                                   make_train_step, opt_state_specs)
+    from repro_torch.train.optimizer import _q8_decode
+    from repro_torch.train.train_step import loss_and_grads
+
+    full = p14_config()
+    cfg = dataclasses.replace(full, n_layers=P14["grad_layers"])
+    model = build(cfg)
+    model32 = build(dataclasses.replace(cfg, param_dtype="float32"))
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    params = init_params(model.param_specs, gen, device=device)
+    toks = torch.randint(1, cfg.vocab, (P14["grad_batch"], P14["grad_seq"]),
+                         dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(seed + 1))
+    batch = {"tokens": toks.to(device)}
+    cpu32 = as_dtype(params, torch.float32, "cpu")
+    t0 = time.perf_counter()
+    _, want = loss_and_grads(model32, cpu32, {"tokens": toks})
+    t_cpu = time.perf_counter() - t0
+
+    def on_card(tree):
+        return as_dtype(tree, torch.float32, device)
+
+    def rel(got, want):  # relative error norm, float32 on the card
+        g, w = got.float(), want.to(got.device).float()
+        return float((g - w).norm() / w.norm().clamp_min(1e-30))
+
+    _, got = loss_and_grads(model, params, batch)
+    names = leaf_names(params)
+    errs = [(rel(g, w), float(g.float().norm())) for g, w in zip(
+        tree_leaves(got), tree_leaves(on_card(want)))]
+    del got
+    bad = [(n, e) for n, e in zip(names, errs) if e[0] > 5e-2 or e[1] <= 0]
+    if bad:
+        raise AssertionError(f"phase 14c: leaf gradients off: {bad}")
+    # the same step in float32 with int8 moments
+    qcfg = AdamWConfig(peak_lr=1e-3, warmup_steps=1, total_steps=10,
+                       quantized_state=True)
+    cpu_p, cpu_opt = adamw_update(want, adamw_init(cpu32, qcfg), cpu32, qcfg)
+    card32 = as_dtype(params, torch.float32, device)
+    del params
+    card_p, card_opt, _ = make_train_step(model32, qcfg)(
+        card32, adamw_init(card32, qcfg), batch)
+    upd, mom = {}, {}
+    for n, p0, pc, pw, in zip(names, tree_leaves(card32),
+                              tree_leaves(card_p), tree_leaves(cpu_p)):
+        upd[n] = rel(pc - p0, pw.to(device) - p0)
+    for part in ("m", "v"):
+        got_m, want_m = card_opt[part], cpu_opt[part]
+        for n in names:
+            g, w = got_m, want_m
+            for k in n.split("/"):
+                g, w = g[k], w[k]
+            if isinstance(w, dict):  # int8 codes and per-row scales
+                w = {k: x.to(device) for k, x in w.items()}
+                level = torch.maximum(g["s"], w["s"])
+                gap = (_q8_decode(g) - _q8_decode(w)).abs()
+                mom[f"{part}/{n}"] = float((gap / level).max())
+                ok = mom[f"{part}/{n}"] <= 1.01
+            else:
+                mom[f"{part}/{n}"] = rel(g, w)
+                ok = mom[f"{part}/{n}"] <= 1e-3
+            if not ok:
+                raise AssertionError(f"phase 14c: int8 moment {part}/{n} vs "
+                                     f"the CPU's: {mom[f'{part}/{n}']}")
+    worst = max(upd, key=upd.get)
+    if not upd[worst] <= 1e-3:
+        raise AssertionError(f"phase 14c: the update of {worst} vs the "
+                             f"CPU's: {upd[worst]}; every leaf "
+                             + json.dumps(upd))
+    state = {q: spec_bytes(opt_state_specs(build(full).param_specs,
+                                           AdamWConfig(quantized_state=q)))
+             / 1e9 for q in (False, True)}
+    stats = {"grad_rel_err": dict(zip(names, (e[0] for e in errs))),
+             "cpu_grads_s": t_cpu, "update_rel_err": upd,
+             "moment_levels": mom,
+             "state_gb": {"float32": state[False], "int8": state[True]}}
+    log(f"phase 14c ({smi}): {cfg.n_layers} layers, {P14['grad_batch']} x "
+        f"{P14['grad_seq']} tokens: every leaf's gradient on the card (bf16) "
+        f"against the CPU's (float32), relative error norm <= "
+        f"{max(e[0] for e in errs):.4g} (limit 5e-2), norms > 0: "
+        + json.dumps(stats["grad_rel_err"]) + "; the float32 step with int8 "
+        f"moments vs the CPU's: the update's relative error norm <= "
+        f"{upd[worst]:.3g} ({worst}; limit 1e-3), the moments' largest gap "
+        f"in int8 levels (1-D leaves: relative error norm) "
+        + json.dumps({k: round(v, 6) for k, v in mom.items()})
+        + f"; the full-depth optimizer state float32 {state[False]:.3f} GB, "
+        f"int8 {state[True]:.3f} GB; the CPU's gradients {t_cpu:.3f} s")
+    free_card()
+    return stats
+
+
+def qwen_whole(seed, smi, stash, device="cuda"):
+    """Phase 14 (a)-(c); (d) runs in 13g and 13h. Returns launches."""
+    t = {}
+    t0 = time.perf_counter()
+    _, launches = qwen_serving(seed, smi, stash, device)
+    t["a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, launches["qwen_train"] = qwen_training(seed, smi, stash, device)
+    t["b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    qwen_gradients(seed, smi, device)
+    t["c"] = time.perf_counter() - t0
+    log("phase 14 by part (s): " + json.dumps(t))
+    return launches
+
+
+# ------------------------------------------------------------------ phase 15
+# yi-34b whole (60 layers, bf16, 68.82 GB of weights drawn on the card),
+# served through Engine; runs right after the build, while the card holds
+# nothing else
+P15 = dict(arch="yi-34b", reduced=False, requests=4, prompt=512, new=16)
+
+
+def yi_whole(seed, smi, stash, device="cuda"):
+    """Phase 15: yi-34b at full width and depth in bf16, weights drawn on
+    the card, ``requests`` requests of ``prompt`` tokens and ``new`` new
+    tokens each through ``Engine`` (one batch of 4 slots, max_len ``prompt
+    + new``; path ``yi``): every request yields its tokens, every logit
+    finite, self-attention only on #7 (60 launches a forward: 56 heads
+    over 8 at hd 128, GQA rep 7). The last decode step's logits against
+    one prefill over every token the step saw (relative error norm within
+    5e-2, phase 6's bf16 limit). The peak device memory beside the
+    weights plus the cache. Returns launches."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config, get_reduced
+    from repro_torch.models import build, init_params, param_count
+    from repro_torch.serve import Engine, Request
+
+    cfg = (get_reduced if P15["reduced"] else get_config)(P15["arch"])
+    model = build(cfg)
+    s, new = P15["prompt"], P15["new"]
+    weights = spec_bytes(model.param_specs)
+    cache = 2 * cfg.n_layers * 4 * (s + new) * cfg.n_kv_heads * cfg.hd * 2
+    log(f"phase 15: {describe(cfg)}; {param_count(model.param_specs) / 1e9:.3f}"
+        f" B parameters, {weights / 1e9:.3f} GB; {P15['requests']} requests "
+        f"of {s} tokens, {new} new each")
+    held = peak_reset()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = init_params(model.param_specs, gen, device=device)
+    if device == "cuda":
+        sync()
+    t_init = time.perf_counter() - t0
+    rng = np.random.default_rng(seed)
+    reqs = [Request(prompt=rng.integers(1, cfg.vocab, s).astype(np.int32),
+                    max_new=new) for _ in range(P15["requests"])]
+    engine = Engine(model, params, batch_slots=4, max_len=s + new,
+                    device=device)
+    last, greedy = {"finite": True}, engine._greedy
+
+    def kept(logits):  # the last step's logits; every step's finite
+        last["logits"] = logits[:, -1]
+        last["finite"] &= bool(torch.isfinite(logits).all())
+        return greedy(logits)
+
+    engine._greedy = kept
+    with kernel_run(stash.setdefault("yi", {})) as launches:
+        st = engine.run(reqs)
+    want = new * cfg.n_layers  # 1 prefill + new - 1 decode steps
+    if st["tokens_out"] != len(reqs) * new or not last["finite"]:
+        raise AssertionError(f"phase 15: {st['tokens_out']} tokens, finite "
+                             f"logits {last['finite']}")
+    if device == "cuda" and (launches["flash_attention"] != want
+                             or sum(launches.values()) != want):
+        raise AssertionError(f"phase 15: launches {launches}, want {want} "
+                             f"of flash_attention only")
+    # the last decode step saw each prompt and the first new - 1 tokens
+    toks = torch.as_tensor(np.stack([np.concatenate([r.prompt, r.out[:-1]])
+                                     for r in reqs]), device=device)
+    full, _ = model.prefill(engine.params, {"tokens": toks})
+    rel = rel_err(last["logits"], full[:, -1])
+    if not rel <= 5e-2:
+        raise AssertionError(f"phase 15: the last decode step vs one prefill "
+                             f"over every token: {rel}")
+    peak, held_gb = peak_gb(held)
+    log(f"phase 15 ({smi}): " + json.dumps(
+        {k: st[k] for k in ("tok_per_s", "wall_s", "prefill_s", "decode_s",
+                            "decode_steps", "tokens_out")}
+        | {"init_s": t_init, "flash_attention": launches["flash_attention"],
+           "decode_vs_prefill": rel, "peak_mem_gb": peak,
+           "held_gb": held_gb, "weights_gb": weights / 1e9,
+           "cache_gb": cache / 1e9,
+           "peak_over_weights_and_cache_gb": peak - (weights + cache) / 1e9}))
+    del engine._greedy, kept, greedy  # the wrapper's cycle through engine
+    del engine, params, full, last
+    free_card()
     return launches
 
 
@@ -5684,15 +6162,9 @@ def main(argv=None):
     common.lib()
     log(f"build: {time.perf_counter() - t0:.3f} s")
 
-    # 3. Listing-1 on the hand kernels. Both paths first run once untimed
-    # (their cold times are logged), so that first uses of the device code
-    # (lazy module loads, allocator growth) stay off the compared clocks
-    graph, cap = make_graph(args.scale, args.seed)
-    for use_pallas in (True, False):
-        cold = listing1(graph, use_pallas, cap)[2]
-        log(f"cold run (use_pallas={use_pallas}): {json.dumps(cold)}")
     # each path's recorded kernel inputs and launch counts, for phase 5
-    stash = {p: {} for p in ("listing1", "fig4", "graphulo", "single",
+    stash = {p: {} for p in ("yi", "qwen_a", "qwen_b", "qwen_train",
+                             "listing1", "fig4", "graphulo", "single",
                              "recover", "tablets", "tablets_recover",
                              "tokens", "mesh", "mesh_nccl", "serve_a",
                              "serve_b", "train", "moe_a", "moe_b", "kimi",
@@ -5703,6 +6175,24 @@ def main(argv=None):
                              "whisper_check", "internvl2_check",
                              "train_prefix_check", "cost_step", "small")}
     launches = {}
+
+    # 15. yi-34b whole (68.8 GB of weights), then 14. qwen2.5-3b whole
+    # (served, trained: ~75 GB at the update), while the card holds no
+    # recorded inputs; only #7's inputs go to the stash
+    t15 = time.perf_counter()
+    launches["yi"] = yi_whole(args.seed, smi, stash)
+    log(f"phase 15: {time.perf_counter() - t15:.3f} s")
+    t14 = time.perf_counter()
+    launches.update(qwen_whole(args.seed, smi, stash))
+    log(f"phase 14: {time.perf_counter() - t14:.3f} s")
+
+    # 3. Listing-1 on the hand kernels. Both paths first run once untimed
+    # (their cold times are logged), so that first uses of the device code
+    # (lazy module loads, allocator growth) stay off the compared clocks
+    graph, cap = make_graph(args.scale, args.seed)
+    for use_pallas in (True, False):
+        cold = listing1(graph, use_pallas, cap)[2]
+        log(f"cold run (use_pallas={use_pallas}): {json.dumps(cold)}")
     reads, stats, times, launches["listing1"] = listing1(
         graph, True, cap, stash["listing1"])
     A = graph["A"]

@@ -5,7 +5,10 @@ optimizer state ~4x.
 Quantized moments keep the parameter's exact shape; 1-D leaves (norm
 scales, biases) stay float32. All arithmetic is float32 tensor math on the
 parameters' device, the schedule and the bias corrections included, so it
-rounds as the JAX package's float32 ops do.
+rounds as the JAX package's float32 ops do. A plain leaf is updated a
+block of rows (its last dim) at a time into the new state, so the float32
+temporaries are one block's, not a whole leaf's several times over (the
+arithmetic is elementwise, and a quantized moment's scale is per row).
 """
 from __future__ import annotations
 
@@ -14,6 +17,7 @@ import math
 
 import torch
 
+from ..models.layers import _plain
 from ..models.spec import (PSpec, flatten_up_to, tree_leaves, tree_map,
                            tree_unflatten)
 
@@ -40,6 +44,11 @@ def lr_at(cfg: AdamWConfig, step) -> torch.Tensor:
                        / max(cfg.total_steps - cfg.warmup_steps, 1), 0.0, 1.0)
     cos = 0.1 + 0.45 * (1.0 + torch.cos(math.pi * prog))
     return cfg.peak_lr * warm * cos
+
+
+# the rows of a plain leaf updated at once: the update's float32
+# temporaries (~10 of them, the float64 root among them) are this block's
+UPDATE_ELEMENTS = 1 << 25
 
 
 def _quantizable(shape) -> bool:
@@ -96,22 +105,48 @@ def adamw_update(grads, state, params, cfg: AdamWConfig):
     gnorm = _global_norm(flat_g)
     clip = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
 
-    def upd(g, m, v, p):
-        quant = cfg.quantized_state and _quantizable(p.shape)
+    def math(g, mf, vf, pf, decay):
+        """(new parameter in float32, new m, new v) of one block."""
         g = g.float() * clip
-        mf = _q8_decode(m) if quant else m
-        vf = _q8_decode(v) if quant else v
         mf = cfg.b1 * mf + (1 - cfg.b1) * g
         vf = cfg.b2 * vf + (1 - cfg.b2) * g * g
         mh = mf / (1 - cfg.b1 ** cf)
         vh = vf / (1 - cfg.b2 ** cf)
         step_ = mh / (_sqrt(vh) + cfg.eps)
+        return pf - lr * (step_ + decay * pf), mf, vf
+
+    def upd(g, m, v, p):
+        quant = cfg.quantized_state and _quantizable(p.shape)
         decay = cfg.weight_decay if p.dim() >= 2 else 0.0  # none on norms/bias
-        pf = p.float()
-        new_p = (pf - lr * (step_ + decay * pf)).to(p.dtype)
-        if quant:
-            return new_p, _q8_encode(mf), _q8_encode(vf)
-        return new_p, mf, vf
+        if not _plain(p):  # a DTensor's update stays whole
+            mf = _q8_decode(m) if quant else m
+            vf = _q8_decode(v) if quant else v
+            new_p, mf, vf = math(g, mf, vf, p.float(), decay)
+            if quant:
+                return new_p.to(p.dtype), _q8_encode(mf), _q8_encode(vf)
+            return new_p.to(p.dtype), mf, vf
+        new_p = _fresh(p)
+        new_m, new_v = (({"q": _fresh(x["q"]), "s": _fresh(x["s"])} if quant
+                         else _fresh(x)) for x in (m, v))
+        rows = _rows(p)
+        step = max(1, UPDATE_ELEMENTS // rows.shape[-1])
+        for i in range(0, rows.shape[0], step):
+            def block(t):
+                return _rows(t)[i:i + step]
+            mf = (_q8_decode({k: block(x) for k, x in m.items()}) if quant
+                  else block(m))
+            vf = (_q8_decode({k: block(x) for k, x in v.items()}) if quant
+                  else block(v))
+            pf, mf, vf = math(block(g), mf, vf, block(p).float(), decay)
+            block(new_p).copy_(pf)
+            for new, x in ((new_m, mf), (new_v, vf)):
+                if quant:
+                    enc = _q8_encode(x)
+                    block(new["q"]).copy_(enc["q"])
+                    block(new["s"]).copy_(enc["s"])
+                else:
+                    block(new).copy_(x)
+        return new_p, new_m, new_v
 
     out = [upd(g, m, v, p) for g, m, v, p in zip(
         flat_g, flatten_up_to(params, state["m"]),
@@ -120,6 +155,17 @@ def adamw_update(grads, state, params, cfg: AdamWConfig):
             {"m": tree_unflatten(params, [o[1] for o in out]),
              "v": tree_unflatten(params, [o[2] for o in out]),
              "count": count})
+
+
+def _fresh(t: torch.Tensor) -> torch.Tensor:
+    """An empty contiguous tensor of ``t``'s shape, dtype and device."""
+    return torch.empty(t.shape, dtype=t.dtype, device=t.device)
+
+
+def _rows(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as rows of its last dim (a view where ``t`` is contiguous, as
+    the new state is, else a copy to read)."""
+    return t.reshape(-1, t.shape[-1])
 
 
 def opt_state_specs(param_specs, cfg: AdamWConfig):

@@ -31,8 +31,9 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig,
     the loss a 0-d tensor.
 
     ``microbatches > 1`` splits the batch's leading axis and accumulates
-    float32 gradients of each slice divided by ``microbatches``; the loss
-    is the mean of the slices' (the JAX scan's arithmetic)."""
+    float32 gradients of each slice divided by ``microbatches``, a leaf at
+    a time, each slice's gradient leaf dropped once added; the loss is the
+    mean of the slices' (the JAX scan's arithmetic)."""
 
     def step(params, opt_state, batch):
         if microbatches == 1:
@@ -50,8 +51,10 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig,
                 loss_i, g = loss_and_grads(
                     model, params, {k: x[i] for k, x in mb.items()}, remat,
                     sh)
-                acc = [a + gg.float() / microbatches
-                       for a, gg in zip(acc, tree_leaves(g))]
+                g = tree_leaves(g)
+                for j in range(len(g)):  # a leaf at a time: one transient
+                    acc[j] = acc[j] + g[j].float() / microbatches
+                    g[j] = None
                 losses.append(loss_i)
             grads = tree_unflatten(params, acc)
             loss = torch.stack(losses).mean()

@@ -7,7 +7,10 @@ configs of the four dense architectures, weights carried by
   (``param_dtype="float32"``: atol/rtol 1e-4, summation order) and at
   bf16 (atol/rtol 2e-2: the JAX ``_sdpa`` rounds scores and weights to
   bf16 where the port's attention keeps float32, and the frameworks round
-  the bf16 products at other places);
+  the bf16 products at other places); also in float32 for qwen2.5-3b at
+  its published head layout (16 heads over 2 KV heads at hd 128: GQA rep
+  8, QKV biases, the tied table; 2 layers, narrow ``d_ff`` and
+  vocabulary);
 - the two ``Engine``s give the same greedy tokens in float32;
 - the port's prefill-then-decode equals its full prefill.
 """
@@ -33,13 +36,18 @@ from repro_torch.serve import Engine, Request
 
 DENSE = ["smollm-135m", "qwen2.5-3b", "yi-34b", "command-r-plus-104b"]
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# a reduced config at a published head layout: name -> (arch, changes)
+LAYOUTS = {"qwen2.5-3b-published-heads": (
+    "qwen2.5-3b", dict(n_layers=2, d_model=2048, n_heads=16, n_kv_heads=2,
+                       d_ff=256, vocab=1000))}
 SH = lambda x, *a: x  # noqa: E731  (the JAX identity sharder)
 B, S, STEPS = 2, 9, 3
 
 
 def _cfgs(arch, dtype):
-    return (dataclasses.replace(jax_reduced(arch), param_dtype=dtype),
-            dataclasses.replace(get_reduced(arch), param_dtype=dtype))
+    arch, kw = LAYOUTS.get(arch, (arch, {}))
+    return (dataclasses.replace(jax_reduced(arch), param_dtype=dtype, **kw),
+            dataclasses.replace(get_reduced(arch), param_dtype=dtype, **kw))
 
 
 def _jax_params(jcfg, seed=0):
@@ -80,10 +88,13 @@ def test_params_from_jax_bit_equal(arch):
         params_from_jax(cfg, bad, device="cpu")
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch,dtype", [(a, d) for a in DENSE for d in TOL]
+                         + [("qwen2.5-3b-published-heads", "float32")])
 def test_prefill_and_decode_match_jax(arch, dtype):
     jcfg, cfg = _cfgs(arch, dtype)
+    if arch in LAYOUTS:  # the published layout, not the reduced one
+        assert (cfg.n_heads, cfg.n_kv_heads, cfg.hd) == (16, 2, 128)
+        assert cfg.qkv_bias and cfg.tie_embeddings
     jp = _jax_params(jcfg)
     tp = params_from_jax(cfg, jp, device="cpu")
     tol = TOL[dtype]

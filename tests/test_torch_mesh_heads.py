@@ -15,6 +15,10 @@ heads its queries use. Cases (float32, reduced widths, 2 layers):
 * smollm-135m: 3 heads over 3 KV heads (hd 16); rank 3 holds no head;
 * qwen2.5-3b with 6 heads over its 2 KV heads: ranks 0-2 hold two query
   heads each, rank 1's use both KV heads, which ranks 0 and 1 hold;
+* qwen2.5-3b at its published ratio, 16 heads over 2 KV heads (GQA rep 8,
+  hd 16): each rank holds 4 query heads, the KV heads split [1, 1, 0, 0],
+  so rank 1 holds KV head 1 while its queries use KV head 0, and ranks 2
+  and 3 hold none;
 * whisper-large-v3 with 6 heads (as its 20 heads on a 16-wide axis: the
   last ranks none): the encoder's non-causal attention, the decoder's
   self and cross attention;
@@ -23,7 +27,7 @@ heads its queries use. Cases (float32, reduced widths, 2 layers):
   table gathered for the train step's 256 tokens a rank, the tokens for
   a decode step's few).
 
-Then, for the two dense cases, a prefill into a cache sequence-sharded on
+Then, for the dense cases, a prefill into a cache sequence-sharded on
 the model axis (``sharded_attention.write_cache`` takes each rank's rows
 from the heads placement by one all-to-all) and two decode steps, held to
 the plain path on the same weights.
@@ -54,6 +58,8 @@ JOIN_S = 120
 # case -> (arch, config changes, mesh shape ("data", "model"), batch, seq)
 CASES = {"smollm": ("smollm-135m", {}, (1, 4), B, S),
          "gqa": ("qwen2.5-3b", {"n_heads": 6}, (1, 4), B, S),
+         "gqa_rep8": ("qwen2.5-3b", {"n_heads": 16, "head_dim": 16},
+                      (1, 4), B, S),
          "whisper": ("whisper-large-v3", {"n_heads": 6, "n_kv_heads": 6},
                      (1, 4), B, S),
          "smollm_2x2": ("smollm-135m", {}, (2, 2), 8, 64)}
@@ -252,7 +258,7 @@ def test_dtensor_step_matches_jax(runs, case):
                                    err_msg=name)
 
 
-@pytest.mark.parametrize("case", ["smollm", "gqa", "smollm_2x2"])
+@pytest.mark.parametrize("case", ["smollm", "gqa", "gqa_rep8", "smollm_2x2"])
 def test_dtensor_prefill_and_decode_match_the_plain_path(runs, case):
     """A prefill of all but 2 tokens into a cache sequence-sharded over the
     model axis (written from the heads placement by one all-to-all a

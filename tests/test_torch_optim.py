@@ -16,7 +16,14 @@
 - the counterparts of ``tests/test_optimizer.py``'s five tests;
 - ``make_train_step`` against ``jax.jit(make_train_step)``: three steps,
   1 and 2 microbatches, losses within rtol 1e-5, parameters after three
-  steps within rtol 1e-4, atol 1e-5.
+  steps within rtol 1e-4, atol 1e-5;
+- F6's pins: a plain leaf's update taken a block of rows at a time equals
+  the whole leaf's bit for bit (float32 and bf16 parameters, int8 moments
+  off and on, a transposed leaf among them), and no temporary of the update
+  is larger than a block but the new state and the global norm's squares
+  (at qwen2.5-3b's full depth with float32 moments the whole-leaf update's
+  temporaries and the new state beside the old did not fit on an 80 GB
+  card).
 """
 import dataclasses
 
@@ -226,3 +233,60 @@ def test_train_step_matches_jax(microbatches):
     assert int(opt["count"]) == 3
     for w, g in zip(jax.tree.leaves(_np(jp)), tree_leaves(params)):
         np.testing.assert_allclose(g.numpy(), w, rtol=1e-4, atol=1e-5)
+
+
+# ------------------------------------------------- F6: the update in blocks
+def _f6_state(dtype, quant, steps=2):
+    """Parameters, float32 gradients and the state after ``steps`` updates
+    (so that int8 moments hold codes), seeded."""
+    cfg = AdamWConfig(peak_lr=1e-2, warmup_steps=1, total_steps=8,
+                      quantized_state=quant)
+    g = torch.Generator().manual_seed(3)
+    params = {"w": torch.randn(40, 96, generator=g).to(dtype),
+              "t": torch.randn(96, 24, generator=g).to(dtype).t(),
+              "emb": torch.randn(3, 16, 64, generator=g).to(dtype),
+              "b": torch.randn(96, generator=g)}
+    state = adamw_init(params, cfg)
+    for _ in range(steps):
+        grads = {k: torch.randn(p.shape, generator=g) * 1e-3
+                 for k, p in params.items()}
+        params, state = adamw_update(grads, state, params, cfg)
+    grads = {k: torch.randn(p.shape, generator=g) * 1e-3
+             for k, p in params.items()}
+    return cfg, params, state, grads
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["f32-moments", "int8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_adamw_update_in_blocks_equals_the_whole_leaf(dtype, quant,
+                                                      monkeypatch):
+    cfg, params, state, grads = _f6_state(dtype, quant)
+    whole = adamw_update(grads, state, params, cfg)
+    monkeypatch.setattr(optimizer, "UPDATE_ELEMENTS", 200)  # 1-8 rows
+    blocks = adamw_update(grads, state, params, cfg)
+    for w, b in zip(tree_leaves(whole), tree_leaves(blocks)):
+        assert w.dtype == b.dtype and w.shape == b.shape
+        assert torch.equal(w, b)
+
+
+def test_adamw_update_temporaries_are_one_block(monkeypatch):
+    from torch.utils._python_dispatch import TorchDispatchMode
+    cfg, params, state, grads = _f6_state(torch.bfloat16, False)
+    monkeypatch.setattr(optimizer, "UPDATE_ELEMENTS", 256)
+    seen = []
+
+    class Sizes(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            aliases = any(r.alias_info for r in func._schema.returns)
+            if isinstance(out, torch.Tensor) and not aliases:
+                seen.append((func.__name__, out.numel()))
+            return out
+
+    with Sizes():
+        adamw_update(grads, state, params, cfg)
+    block = max(256, 96)  # a block of rows, or one row where it is longer
+    big = {name for name, n in seen if n > block}
+    # the new state's allocations, and each leaf's square in the norm
+    assert big <= {"empty.memory_format", "pow.Tensor_Scalar"}, big
+    assert max(n for name, n in seen if name == "_to_copy.default") <= block
