@@ -1,0 +1,2 @@
+"""The device's idle share in the bulk-read cells (``measure.idle_pct``)."""
+from portbench.measure import idle_pct as read  # noqa: F401
